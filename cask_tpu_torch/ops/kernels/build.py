@@ -1,0 +1,68 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use.
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain C interface, loaded with ``ctypes``.  The library lands in the
+package's own ``build/kernels/`` (``$CASK_TPU_TORCH_BUILD_DIR`` instead,
+where the package is installed read-only), under a name keyed by a hash
+of the source and the flags, so an edited source rebuilds and an
+unchanged one loads at once.  A missing ``nvcc`` or a failed build raises
+with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(os.environ.get("CASK_TPU_TORCH_BUILD_DIR")
+                 or Path(__file__).resolve().parents[2] / "build" / "kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else the CUDA toolkit's default place, else
+    ``nvcc`` on ``PATH``; raises when there is none."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from source at first use")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its keyed library exists; returns
+    the library's path.  The compiler's output (``-Xptxas -v``: registers,
+    spills) is kept beside it as ``.log``."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu``, loaded with ctypes."""
+    return ctypes.CDLL(str(build(name)))
