@@ -8,9 +8,11 @@ with ``nvcc`` at first use.  It imports ``torch``, ``numpy`` and ``scipy``,
 never JAX or the JAX package.
 
 Ported so far: the formats and their conversions, the generators, the
-gather SpMV formulations, the BDIA plan with its CUDA SpMV kernel, the
-``spmv`` dispatch, and CG with a Jacobi preconditioner over a
-:class:`BdiaOperator`.
+gather SpMV and SpMM formulations, the BDIA plan with its CUDA SpMV
+kernel, the DIA plan with its CUDA SpMV and SpMM kernels, the ``spmv`` and
+``spmm`` dispatch with their cached plans, and CG with a Jacobi
+preconditioner over a :class:`BdiaOperator` or a :class:`DiaOperator`
+(:func:`solver_operator`).
 """
 
 __version__ = "0.1.0"
@@ -26,7 +28,8 @@ from cask_tpu_torch.formats.convert import (  # noqa: F401
     transpose,
 )
 from cask_tpu_torch.formats import generate  # noqa: F401
-from cask_tpu_torch.ops import spmv  # noqa: F401
+from cask_tpu_torch.ops import spmm, spmv  # noqa: F401
 from cask_tpu_torch.ops.spmv import PlanCache, transposed  # noqa: F401
 from cask_tpu_torch.ops.bdia import BdiaMatrix, BdiaOperator, bdia_plan  # noqa: F401
+from cask_tpu_torch.ops.dia import DiaMatrix, DiaOperator, dia_plan, solver_operator  # noqa: F401
 from cask_tpu_torch import solvers  # noqa: F401

@@ -13,6 +13,7 @@ import numpy as np
 
 from cask_tpu_torch.formats.matrix import BSR, CSR, to_device
 from cask_tpu_torch.ops.bdia import _LANE, BdiaMatrix
+from cask_tpu_torch.ops.dia import DiaMatrix
 
 
 def _index(x, name: str) -> np.ndarray:
@@ -63,3 +64,25 @@ def bdia_from_arrays(vals, rem_data, rem_row, rem_col, *, block_offsets: Sequenc
                       rem_row=to_device(rem_row, device), rem_col=to_device(rem_col, device),
                       block_offsets=offsets, shape=(int(shape[0]), int(shape[1])),
                       blocksize=(br, bc), ts=int(ts))
+
+
+def dia_from_arrays(vals, rem_data, rem_row, rem_col, offsets: Sequence[int],
+                    shape: Tuple[int, int], *, vals_t=None, device) -> DiaMatrix:
+    m, n = (int(s) for s in shape)
+    vals = np.asarray(vals)
+    offsets = tuple(int(d) for d in offsets)
+    if vals.ndim != 2 or vals.shape[0] != len(offsets) or vals.shape[1] < m:
+        raise ValueError(f"vals shape {vals.shape} is not (ndiags, m_pad) for "
+                         f"{len(offsets)} offsets and {m} rows")
+    if vals_t is not None:
+        vals_t = np.asarray(vals_t)
+        if vals_t.shape != vals.shape[::-1]:
+            raise ValueError(f"vals_t shape {vals_t.shape} is not vals' transpose")
+        vals_t = to_device(vals_t, device)
+    rem_data = np.asarray(rem_data)
+    rem_row, rem_col = _index(rem_row, "rem_row"), _index(rem_col, "rem_col")
+    if not rem_data.shape == rem_row.shape == rem_col.shape:
+        raise ValueError("remainder arrays must have equal length")
+    return DiaMatrix(vals=to_device(vals, device), rem_data=to_device(rem_data, device),
+                     rem_row=to_device(rem_row, device), rem_col=to_device(rem_col, device),
+                     vals_t=vals_t, offsets=offsets, shape=(m, n))

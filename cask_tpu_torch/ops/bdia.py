@@ -25,8 +25,10 @@ import numpy as np
 import torch
 
 from cask_tpu_torch.formats.matrix import BSR, COO, CSR, host, to_device, torch_dtype
+from cask_tpu_torch.ops.dia import DiaMatrix
 from cask_tpu_torch.ops.kernels.bdia_kernels import (bdia_kernel_ok, bdia_spmv,
                                                      bdia_spmv_reference)
+from cask_tpu_torch.utils.platform import plan_device
 
 _LANE = 128
 _TS_CHOICES = (64, 32, 16, 8)  # value-tile sublanes (largest with low pad waste)
@@ -183,9 +185,8 @@ def bdia_plan(a: Union[BSR, CSR], blocksize: Optional[Tuple[int, int]] = None,
     """Pack a block matrix's dense-enough block diagonals; spill the rest
     to a scalar COO remainder.  Host numpy planning, exactly as the JAX
     package packs; the plan's tensors go to ``device`` (default: where the
-    matrix's arrays are, the CPU for numpy)."""
-    if device is None:
-        device = a.data.device if isinstance(a.data, torch.Tensor) else "cpu"
+    matrix's tensors are, the CUDA device for host numpy arrays)."""
+    device = plan_device(a.data, device)
     if isinstance(a, CSR):
         if blocksize is None:
             raise ValueError("bdia_plan on CSR needs an explicit blocksize")
@@ -286,6 +287,17 @@ def bdia_to_coo(a: BdiaMatrix) -> COO:
     vals = np.concatenate([vals[ok], host(a.rem_data)])
     return COO(data=vals, row=rows.astype(np.int32),
                col=cols.astype(np.int32), shape=(m, n))
+
+
+def bdia_scalar_dia(a: BdiaMatrix) -> DiaMatrix:
+    """The scalar-DIA plan of the plan's expanded block structure,
+    ``dia_plan(coo_to_csr(bdia_to_coo(a)))`` on the plan's device: what
+    ``spmm`` on a BDIA plan multiplies with.  Built once per plan and held
+    in the one plan cache (:data:`cask_tpu_torch.ops.spmv.default_plan_cache`),
+    so a solver loop pays the host conversion once."""
+    from cask_tpu_torch.ops.spmv import default_plan_cache  # spmv imports this module
+
+    return default_plan_cache.get(a)
 
 
 def transpose_plan(a: BdiaMatrix, *, min_density: float = 0.10,

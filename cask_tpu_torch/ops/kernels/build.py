@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -61,6 +62,14 @@ def build(name: str) -> Path:
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
+
+
+def build_all(names) -> dict:
+    """:func:`build` several sources at once, one ``nvcc`` each, all started
+    together; returns ``{name: library path}``."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,0 +1,166 @@
+"""DIA SpMV and SpMM: the hand-written CUDA kernels, their wrappers and their
+plain twins.
+
+:func:`dia_spmv` and :func:`dia_spmm` compute the packed diagonals' part of
+``A·x`` and ``A·X`` for a :class:`cask_tpu_torch.ops.dia.DiaMatrix` (the COO
+remainder is added by the caller, as in the JAX package).  On CUDA tensors
+they launch the kernels of ``csrc/dia_spmv.cu`` and ``csrc/dia_spmm.cu`` or
+raise; on CPU tensors they run :func:`dia_spmv_reference` and
+:func:`dia_spmm_reference`, the same sums in plain PyTorch (the port of
+``DiaMatrix._spmv_xla``/``_spmm_xla``).
+
+Two kernels stand in for the eight TPU kernels of
+``cask_tpu/ops/pallas/dia_kernels.py``: the SpMV one for
+``dia_spmv_pallas_padded``, ``_layout``, ``_interleaved`` and ``_il_stream``
+(which differ only in how the TPU lays x out), the SpMM one for
+``dia_spmm_pallas_padded``, ``_ring_padded``, ``_kt_padded`` and
+``_ring_mxu_padded`` (which differ only in how the TPU stages X).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import TYPE_CHECKING
+
+import torch
+
+from cask_tpu_torch.ops.kernels import build
+from cask_tpu_torch.ops.kernels.bdia_kernels import _KERNEL_DTYPES, _out_dtype
+
+if TYPE_CHECKING:
+    from cask_tpu_torch.ops.dia import DiaMatrix
+
+
+def _padded(a: "DiaMatrix", x: torch.Tensor):
+    """x (n, ...) embedded at row ``lo`` of a zero array long enough for
+    every diagonal's window ``[lo + off, lo + off + m_pad)``, and ``lo``."""
+    n = a.shape[1]
+    lo = -min(min(a.offsets), 0)
+    hi = max(max(a.offsets), 0)
+    xp = x.new_zeros((lo + max(a.m_pad, n) + hi + 1, *x.shape[1:]))
+    xp[lo : lo + n] = x
+    return xp, lo
+
+
+def dia_spmv_reference(a: "DiaMatrix", x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch ``Σ_d vals[d] · x-shift``, in offsets order: the port of
+    ``DiaMatrix._spmv_xla`` without its remainder.
+
+    Works on any device; the CUDA kernel is held against it."""
+    xp, lo = _padded(a, x)
+    acc = _out_dtype(a.vals.dtype, x.dtype)
+    y = torch.zeros(a.m_pad, dtype=acc, device=x.device)
+    for d, off in enumerate(a.offsets):
+        y = y + a.vals[d] * xp[lo + off : lo + off + a.m_pad]
+    return y[: a.shape[0]]
+
+
+def dia_spmm_reference(a: "DiaMatrix", x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch ``Σ_d vals[d][:, None] · X-shift``, in offsets order: the
+    port of ``DiaMatrix._spmm_xla`` without its remainder."""
+    xp, lo = _padded(a, x)
+    acc = _out_dtype(a.vals.dtype, x.dtype)
+    y = torch.zeros((a.m_pad, x.shape[1]), dtype=acc, device=x.device)
+    for d, off in enumerate(a.offsets):
+        y = y + a.vals[d][:, None] * xp[lo + off : lo + off + a.m_pad]
+    return y[: a.shape[0]]
+
+
+def dia_kernel_ok(a: "DiaMatrix") -> bool:
+    """Can the CUDA kernels take this plan?  They take any diagonal count,
+    f32 and f64 values."""
+    return a.vals.dtype in _KERNEL_DTYPES
+
+
+@functools.lru_cache(maxsize=None)
+def _lib(name: str) -> ctypes.CDLL:
+    lib = build.load(name)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    extra = [i, i] if name == "dia_spmm" else []  # k, vec
+    for fn in (getattr(lib, f"cask_{name}_f32"), getattr(lib, f"cask_{name}_f64")):
+        fn.argtypes = [p, p, i, p, p, ll, ll, ll, *extra, p]
+        fn.restype = ctypes.c_int
+    lib.cask_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cask_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(a: "DiaMatrix", x: torch.Tensor, ndim: int) -> None:
+    """Raise on anything the kernels do not take."""
+    m, n = a.shape
+    if a.vals.device != x.device or a.offsets_dev.device != x.device:
+        raise ValueError(f"x on {x.device} but the plan on {a.vals.device}")
+    if x.ndim != ndim or x.shape[0] != n:
+        raise ValueError(f"x must have {ndim} dimension(s) and {n} rows, "
+                         f"got shape {tuple(x.shape)}")
+    if x.dtype not in _KERNEL_DTYPES or a.vals.dtype != x.dtype:
+        raise TypeError(f"kernel takes float32/float64 values and x of one type, "
+                        f"got vals {a.vals.dtype}, x {x.dtype}")
+    if a.vals.shape != (a.ndiags, a.m_pad) or a.m_pad < m \
+            or a.offsets_dev.shape != (a.ndiags,) or a.offsets_dev.dtype != torch.int32:
+        raise ValueError(f"vals {tuple(a.vals.shape)} / offsets {tuple(a.offsets_dev.shape)} "
+                         f"are not the packed (ndiags, m_pad) layout of a {a.shape} plan")
+    if not (x.is_contiguous() and a.vals.is_contiguous()):
+        raise ValueError("kernel needs contiguous x and vals")
+
+
+def _raise_on(lib, err: int, name: str) -> None:
+    if err != 0:
+        msg = lib.cask_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} ({msg})")
+
+
+def dia_spmv(a: "DiaMatrix", x: torch.Tensor) -> torch.Tensor:
+    """Diagonals' part of ``A·x``: the CUDA kernel for a CUDA ``x``, the plain
+    twin for a CPU ``x``.  Raises on what the kernel does not take."""
+    if not x.is_cuda:
+        if a.vals.is_cuda:
+            raise ValueError(f"x on {x.device} but the plan on {a.vals.device}")
+        return dia_spmv_reference(a, x)
+    _check(a, x, 1)
+    m, n = a.shape
+    if m == 0 or n == 0:
+        return torch.zeros(m, dtype=x.dtype, device=x.device)
+    y = torch.empty(m, dtype=x.dtype, device=x.device)
+    lib = _lib("dia_spmv")
+    fn = lib.cask_dia_spmv_f32 if x.dtype == torch.float32 else lib.cask_dia_spmv_f64
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(a.vals.data_ptr(), a.offsets_dev.data_ptr(), a.ndiags, x.data_ptr(),
+                 y.data_ptr(), m, n, a.m_pad, stream)
+    _raise_on(lib, err, "dia_spmv")
+    dia_spmv.launches += 1
+    return y
+
+
+def dia_spmm(a: "DiaMatrix", x: torch.Tensor) -> torch.Tensor:
+    """Diagonals' part of ``A·X`` for a dense row-major ``X (n, k)``: the CUDA
+    kernel for a CUDA ``X``, the plain twin for a CPU ``X``.  Raises on what
+    the kernel does not take."""
+    if not x.is_cuda:
+        if a.vals.is_cuda:
+            raise ValueError(f"X on {x.device} but the plan on {a.vals.device}")
+        return dia_spmm_reference(a, x)
+    _check(a, x, 2)
+    m, n = a.shape
+    k = int(x.shape[1])
+    if m == 0 or n == 0 or k == 0:
+        return torch.zeros((m, k), dtype=x.dtype, device=x.device)
+    y = torch.empty((m, k), dtype=x.dtype, device=x.device)
+    # 16-byte vector loads and stores when every row starts 16-byte aligned
+    vec = int((k * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
+              and y.data_ptr() % 16 == 0)
+    lib = _lib("dia_spmm")
+    fn = lib.cask_dia_spmm_f32 if x.dtype == torch.float32 else lib.cask_dia_spmm_f64
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(a.vals.data_ptr(), a.offsets_dev.data_ptr(), a.ndiags, x.data_ptr(),
+                 y.data_ptr(), m, n, a.m_pad, k, vec, stream)
+    _raise_on(lib, err, "dia_spmm")
+    dia_spmm.launches += 1
+    return y
+
+
+dia_spmv.launches = 0  # kernel launches since the last reset
+dia_spmm.launches = 0

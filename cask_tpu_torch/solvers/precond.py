@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from cask_tpu_torch.formats.matrix import CSR, host
+from cask_tpu_torch.utils.platform import plan_device
 
 
 def extract_diagonal(a: CSR) -> np.ndarray:
@@ -27,9 +28,9 @@ def extract_diagonal(a: CSR) -> np.ndarray:
 
 def jacobi(a: CSR, *, device=None):
     """Diagonal (Jacobi) preconditioner: ``r → r / diag(A)``, with the
-    inverse diagonal on ``device`` (default: where ``a``'s arrays are)."""
-    if device is None:
-        device = a.data.device if isinstance(a.data, torch.Tensor) else "cpu"
+    inverse diagonal on ``device`` (default: where ``a``'s tensors are, the
+    CUDA device for host numpy arrays)."""
+    device = plan_device(a.data, device)
     d = extract_diagonal(a)
     if np.any(d == 0):
         raise ValueError("Jacobi preconditioner requires a nonzero diagonal")

@@ -27,6 +27,18 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def plan_device(x, device=None) -> torch.device:
+    """Where a plan or operator built from a matrix whose array is ``x``
+    lives: ``device`` when given, else ``x``'s device when it is a tensor,
+    else (host numpy) :func:`default_device`, which raises without CUDA.
+    The CPU is used only when the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(x, torch.Tensor):
+        return x.device
+    return default_device()
+
+
 def hbm_bandwidth(name: Optional[str] = None) -> tuple:
     """``(bytes_per_second, known)`` for the card called ``name``
     (default: CUDA device 0).  An unknown card gives ``(None, False)``."""

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -7,41 +7,58 @@ The quickest proof that ``cask_tpu_torch`` still builds and runs on the
 card.  Phases, one line each:
 
 1. device — the card's name and power limit; TF32 off.
-2. build — ``nvcc`` builds the BDIA kernel from ``cask_tpu_torch/csrc``.
-3. small — the kernel against its plain PyTorch twin on small FEM
+2. build — ``nvcc`` builds every kernel from ``cask_tpu_torch/csrc``, one
+   compiler per source, all at once; the ptxas register and spill lines.
+3. small — the BDIA kernel against its plain PyTorch twin on small FEM
    matrices (dof 2/4/8), one with a COO remainder and one with (4, 2)
    blocks, in f32 and f64.
-4. spmv — ``spmv(bsr, x)`` through the public entry point on the
-   1,048,576-row dof-4 FEM matrix (f32); the kernel's launch count must
-   rise, and y must match the twin and scipy (f64, host).
-5. cg — ``cg(BdiaOperator(...), b)`` on an SPD block system of the same
-   size; it must converge, with a true residual checked in f64 on the host.
-6. timing — the kernel and the twin with CUDA events at the 1M-row size.
+4. small-dia — the DIA SpMV and SpMM kernels against their twins and scipy
+   on small plans: a stencil, a band, a plan with a remainder, asymmetric
+   offsets, both rectangular shapes and a transposed tall plan; f32 and
+   f64, SpMM at k ∈ {1, 20, 32, 100, 128}.
+5. spmv — ``spmv(bsr, x)`` through the public entry point on the
+   1,048,576-row dof-4 FEM matrix (f32).
+6. cg — ``cg(BdiaOperator(...), b)`` on an SPD block system of that size.
+7. dia-spmv — ``spmv(csr, x)`` on the 4,194,304-row 5-point stencil (f32).
+8. dia-cg — ``cg(solver_operator(S), b)`` with S = I + that stencil.
+9. spmm — ``spmm(csr, X)`` on the 1,048,576-row stencil and ``spmm(bsr, X)``
+   on the FEM matrix, k = 32 (f32).
+10. timing — each kernel entry, its plain twin and the one PyTorch call
+   that computes the same product (a cuSPARSE product through
+   ``torch.sparse_csr_tensor``), with CUDA events, beside the entry's bound.
 
-It needs one CUDA device and exits non-zero without one; any failed check
-raises.  The last two lines are JSON: the kernels that ran (launches,
-errors and times measured in this run), then the device.
+Every main path (phases 5-9) runs with all launch counts set to 0 just
+before it and read just after, and must launch its kernel; its result must
+match the twin and scipy (f64, host).  It needs one CUDA device and exits
+non-zero without one; any failed check raises.  The last two lines are
+JSON: the kernels that ran (launches, errors and times measured in this
+run), then the device.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
 
-NX = 512  # grid side: 512² nodes × dof 4 = 1,048,576 rows
+NX = 512  # FEM grid side: 512² nodes × dof 4 = 1,048,576 rows
 DOF = 4
+GRID_SPMV = 2048  # stencil side for spmv/cg: 4,194,304 rows, 83.9 MB of f32 values
+GRID_SPMM = 1024  # stencil side for spmm: 1,048,576 rows, X and Y 134 MB each
+K = 32
 SEED = 0
-F32_TOL = 1e-5  # normwise relative; f32 sums of ≤ 80 products, same order
-F64_TOL = 1e-12  # same products in the same pair order as the twin
-SOURCE = "cask_tpu_torch/csrc/bdia_spmv.cu"
-REPLACES_FUSED = "cask_tpu/ops/pallas/bdia_kernels.py:290"
-REPLACES_RESIDENT = "cask_tpu/ops/pallas/bdia_kernels.py:70"
+F32_TOL = 1e-5  # normwise relative; f32 sums of a few dozen products, same order
+F64_TOL = 1e-12  # same products in the same order as the twin
+F32_PEAK = 67e12  # FLOP/s, FP32 outside the tensor cores, H100 SXM (NVIDIA data sheet)
+KERNELS = ("bdia_spmv", "dia_spmv", "dia_spmm")
+BDIA_PY = "cask_tpu/ops/pallas/bdia_kernels.py"
+DIA_PY = "cask_tpu/ops/pallas/dia_kernels.py"
 
 
 def _relerr(y, ref) -> float:
-    return float((y.double() - ref.double()).norm() / ref.double().norm())
+    return float((y.double().cpu() - ref.double().cpu()).norm() / ref.double().cpu().norm())
 
 
 def _check(name: str, err: float, tol: float) -> None:
@@ -53,6 +70,26 @@ def _card() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _counters():
+    from cask_tpu_torch.ops.kernels.bdia_kernels import bdia_spmv
+    from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmm, dia_spmv
+
+    return {"bdia_spmv": bdia_spmv, "dia_spmv": dia_spmv, "dia_spmm": dia_spmm}
+
+
+def _reset() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _launched(kernel: str, what: str) -> int:
+    """The launch count of ``kernel`` since the last reset; raises at 0."""
+    n = _counters()[kernel].launches
+    if n < 1:
+        raise AssertionError(f"{what} did not launch the {kernel} kernel")
+    return n
 
 
 def _remainder_matrix(dtype):
@@ -72,6 +109,48 @@ def _remainder_matrix(dtype):
     return csr_to_bsr(from_scipy(s.tocsr().astype(dtype)), (4, 4))
 
 
+def _dia_cases():
+    """name -> scipy f64 CSR of the small DIA plans."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from cask_tpu_torch.formats.convert import to_scipy
+    from cask_tpu_torch.formats.generate import banded, stencil_2d
+
+    def diags(m, n, offsets, seed):
+        rng = np.random.default_rng(seed)
+        lens = [min(m, n - k) if k >= 0 else min(m + k, n) for k in offsets]
+        return sp.diags([rng.standard_normal(ln) for ln in lens], offsets, shape=(m, n)).tocsr()
+
+    def remainder():
+        s = to_scipy(banded(9000, 2, seed=1)) + to_scipy(banded(9000, 12, density=0.05, seed=3))
+        rng = np.random.default_rng(4)
+        r, c = rng.integers(0, 9000, 20), rng.integers(0, 9000, 20)
+        return (s + sp.csr_matrix((rng.standard_normal(20), (r, c)), shape=s.shape)).tocsr()
+
+    return {
+        "stencil_2d(95)": to_scipy(stencil_2d(95)),
+        "banded(9000,3)": to_scipy(banded(9000, 3, seed=2)),
+        "remainder": remainder(),
+        "offsets[1,3,7]": diags(2000, 2000, [1, 3, 7], 7),
+        "offsets[-5,-2,0]": diags(2000, 2000, [-5, -2, 0], 8),
+        "3000x1200": diags(3000, 1200, [-1500, -2, 0, 1, 700], 9),
+        "1200x3000": diags(1200, 3000, [-700, -1, 0, 2, 1500], 10),
+        "tall 20000x5000, transposed": diags(20000, 5000, [0, -1], 11),
+    }
+
+
+def _sparse_csr(s, dev):
+    """The scipy CSR matrix as a torch sparse CSR tensor on ``dev``: the
+    library call's operand (cuSPARSE), timed beside the kernels only."""
+    import numpy as np
+    import torch
+
+    return torch.sparse_csr_tensor(torch.from_numpy(s.indptr.astype(np.int32)),
+                                   torch.from_numpy(s.indices.astype(np.int32)),
+                                   torch.from_numpy(s.data), size=s.shape).to(dev)
+
+
 def main() -> int:
     import torch
 
@@ -81,12 +160,16 @@ def main() -> int:
         return 1
 
     import numpy as np
+    import scipy.sparse as sp
 
     import cask_tpu_torch as ct
     from cask_tpu_torch.formats.convert import csr_to_bsr, from_scipy, to_scipy
-    from cask_tpu_torch.formats.generate import _diag_shift, fem_blocks
+    from cask_tpu_torch.formats.generate import _diag_shift, fem_blocks, stencil_2d
+    from cask_tpu_torch.ops.bdia import bdia_scalar_dia
     from cask_tpu_torch.ops.kernels import build
     from cask_tpu_torch.ops.kernels.bdia_kernels import bdia_spmv, bdia_spmv_reference
+    from cask_tpu_torch.ops.kernels.dia_kernels import (dia_spmm, dia_spmm_reference,
+                                                        dia_spmv, dia_spmv_reference)
     from cask_tpu_torch.ops.spmv import default_plan_cache
     from cask_tpu_torch.tune.timing import time_cuda
     from cask_tpu_torch.utils.platform import default_device, hbm_bandwidth
@@ -101,15 +184,19 @@ def main() -> int:
           f"TF32 off (matmul and cudnn); name and power limit:", flush=True)
     print(card, flush=True)
 
-    # -- 2. build ---------------------------------------------------------
+    # -- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
-    lib = build.build("bdia_spmv")
-    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[build] bdia_spmv.cu in {time.perf_counter() - t0:.1f} s; ptxas: "
-          + " | ".join(ptxas), flush=True)
+    libs = build.build_all(KERNELS)
+    t_build = time.perf_counter() - t0
+    for name, lib in libs.items():
+        log = lib.with_suffix(".log").read_text()
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", log))
+        print(f"[build] {name}.cu ({t_build:.1f} s for all {len(libs)}, built together); "
+              f"ptxas: {len(regs)} kernels, registers {'/'.join(regs)}, spill bytes {spills}",
+              flush=True)
 
-    # -- 3. kernel vs plain twin, small -----------------------------------
+    # -- 3. BDIA kernel vs plain twin, small ---------------------------------
     rng = np.random.default_rng(SEED)
     cases = []
     for nx in (16, 33):
@@ -129,8 +216,8 @@ def main() -> int:
             tol = F32_TOL if dt == np.float32 else F64_TOL
             err = _relerr(y, plan._spmv_reference(x))
             _check(f"{name} {dt.__name__} kernel vs twin", err, tol)
-            err_sp = _relerr(y.cpu(), torch.from_numpy(to_scipy(bsr).astype(np.float64)
-                                                       @ x.cpu().double().numpy()))
+            err_sp = _relerr(y, torch.from_numpy(to_scipy(bsr).astype(np.float64)
+                                                 @ x.cpu().double().numpy()))
             _check(f"{name} {dt.__name__} kernel vs scipy", err_sp, 10 * tol)
             worst[dt] = max(worst[dt], err)
     print(f"[small] {len(cases)} plans x f32/f64 (remainder: "
@@ -138,20 +225,46 @@ def main() -> int:
           f"{worst[np.float32]:.2e} f32 (tol {F32_TOL:.0e}), {worst[np.float64]:.2e} f64 "
           f"(tol {F64_TOL:.0e})", flush=True)
 
-    # -- 4. main path: spmv(bsr, x) at full size ---------------------------
+    # -- 4. DIA kernels vs plain twins and scipy, small -----------------------
+    worst = {np.float32: 0.0, np.float64: 0.0}
+    n_checks = 0
+    for name, s64 in _dia_cases().items():
+        for dt in (np.float32, np.float64):
+            s = s64.astype(dt)
+            plan = ct.dia_plan(from_scipy(s), device=dev)
+            if name.endswith("transposed"):
+                plan, s = ct.transposed(plan), s.T.tocsr()
+            tol = F32_TOL if dt == np.float32 else F64_TOL
+            for k in (None, 1, 20, 32, 100, 128):
+                shape = (s.shape[1],) if k is None else (s.shape[1], k)
+                x = torch.from_numpy(rng.standard_normal(shape).astype(dt)).to(dev)
+                y, y_twin = ((plan.spmv(x), plan._spmv_reference(x)) if k is None
+                             else (plan.spmm(x), plan._spmm_reference(x)))
+                torch.cuda.synchronize()
+                what = f"{name} {dt.__name__} {'spmv' if k is None else f'spmm k={k}'}"
+                err = _relerr(y, y_twin)
+                _check(f"{what} kernel vs twin", err, tol)
+                y_sp = s.astype(np.float64) @ x.cpu().double().numpy()
+                _check(f"{what} kernel vs scipy", _relerr(y, torch.from_numpy(y_sp)), tol)
+                worst[dt] = max(worst[dt], err)
+                n_checks += 1
+    print(f"[small-dia] {n_checks} products (8 plans x f32/f64 x spmv + spmm k in "
+          f"1/20/32/100/128, remainder and tall transposed plan included): kernel vs twin "
+          f"worst {worst[np.float32]:.2e} f32 (tol {F32_TOL:.0e}), {worst[np.float64]:.2e} "
+          f"f64 (tol {F64_TOL:.0e}); vs scipy f64 within the same tolerances", flush=True)
+
+    # -- 5. main path: spmv(bsr, x) at full size ------------------------------
     t0 = time.perf_counter()
     a_host = fem_blocks(NX, dof=DOF, dtype=np.float32, seed=SEED, return_bsr=True)
     t_gen = time.perf_counter() - t0
     a = a_host.to(dev)
     x = torch.from_numpy(rng.standard_normal(a.shape[1]).astype(np.float32)).to(dev)
-    bdia_spmv.launches = 0  # counts from here on are the main path's
+    _reset()
     t0 = time.perf_counter()
     y = ct.spmv(a, x)
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
-    launches_spmv = bdia_spmv.launches
-    if launches_spmv < 1:
-        raise AssertionError("spmv(bsr, x) did not launch the BDIA kernel")
+    launches_spmv = _launched("bdia_spmv", "spmv(bsr, x)")
     plan = default_plan_cache.get(a)
     y_twin = plan._spmv_reference(x)
     err_twin = _relerr(y, y_twin)
@@ -159,35 +272,33 @@ def main() -> int:
     abs_spmv = float((y - y_twin).abs().max())
     a_sp = to_scipy(a_host)
     y_sp = a_sp.astype(np.float64) @ x.cpu().double().numpy()
-    err_sp = _relerr(y.cpu(), torch.from_numpy(y_sp))
+    err_sp = _relerr(y, torch.from_numpy(y_sp))
     _check("1M spmv kernel vs scipy f64", err_sp, F32_TOL)
     print(f"[spmv] {a.shape[0]} rows, nnz {a.nnz}, vals {tuple(plan.vals.shape)}, "
           f"offsets {plan.block_offsets}, ts {plan.ts}; host gen {t_gen:.1f} s, first call "
           f"(plan + launch) {t_first:.1f} s; launches {launches_spmv}; vs twin {err_twin:.2e} "
           f"(max abs {abs_spmv:.2e}), vs scipy f64 {err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
 
-    # -- 5. CG over BdiaOperator on the SPD block system --------------------
+    # -- 6. CG over BdiaOperator on the SPD block system ------------------------
     t0 = time.perf_counter()
     s_csr = _diag_shift(from_scipy((a_sp + a_sp.T).tocsr()), 1.1)
     s_bsr = csr_to_bsr(s_csr, (DOF, DOF))
     op = ct.BdiaOperator(ct.bdia_plan(s_bsr, device=dev))
     b = torch.from_numpy(rng.standard_normal(s_bsr.shape[0]).astype(np.float32)).to(dev)
-    t_build = time.perf_counter() - t0
-    before = bdia_spmv.launches
+    t_sys = time.perf_counter() - t0
+    _reset()
     t0 = time.perf_counter()
     res = ct.solvers.cg(op, b, tol=1e-6, maxiter=200)
     torch.cuda.synchronize()
     t_cg = time.perf_counter() - t0
-    launches_cg = bdia_spmv.launches - before
-    if launches_cg < 1:
-        raise AssertionError("cg over BdiaOperator did not launch the BDIA kernel")
+    launches_cg = _launched("bdia_spmv", "cg over BdiaOperator")
     if not res.converged:
         raise AssertionError(f"cg did not converge: {res.iterations} iterations, "
                              f"residual {res.residual_norm:.3e}")
     s64 = to_scipy(s_csr).astype(np.float64)
     b64 = b.cpu().double().numpy()
-    x64 = res.x.cpu().double().numpy()
-    true_rel = float(np.linalg.norm(b64 - s64 @ x64) / np.linalg.norm(b64))
+    true_rel = float(np.linalg.norm(b64 - s64 @ res.x.cpu().double().numpy())
+                     / np.linalg.norm(b64))
     if not true_rel <= 1e-5:
         raise AssertionError(f"cg true relative residual {true_rel:.3e} > 1e-5")
     # the same solve again, warm: the first one also pays one-time set-up
@@ -200,33 +311,181 @@ def main() -> int:
           f"{res.iterations} iterations, first solve {t_cg * 1e3:.1f} ms, warm solve "
           f"{t_warm * 1e3:.2f} ms = {t_warm / max(warm.iterations, 1) * 1e6:.0f} us per "
           f"iteration (host clock, one host sync per iteration); true relative residual "
-          f"{true_rel:.2e} (f64 host, tol 1e-5); system build {t_build:.1f} s; "
+          f"{true_rel:.2e} (f64 host, tol 1e-5); system build {t_sys:.1f} s; "
           f"launches {launches_cg}", flush=True)
-
-    # -- 6. timing: kernel vs plain twin, both entries ----------------------
     y_op, y_op_twin = op(b), op.bdia._spmv_reference(b)  # counts were read above
     _check("1M operator kernel vs twin", _relerr(y_op, y_op_twin), F32_TOL)
     abs_op = float((y_op - y_op_twin).abs().max())
+    sb_sp = to_scipy(s_csr)  # the operator's matrix, for the library call
+    del s_csr, s_bsr, s64, res, warm
+
+    # -- 7. main path: spmv(csr, x) on the 4M-row stencil ----------------------
+    t0 = time.perf_counter()
+    st_host = stencil_2d(GRID_SPMV, dtype=np.float32)
+    st_sp = to_scipy(st_host)
+    t_gen = time.perf_counter() - t0
+    st = st_host.to(dev)
+    xs = torch.from_numpy(rng.standard_normal(st.shape[1]).astype(np.float32)).to(dev)
+    _reset()
+    t0 = time.perf_counter()
+    ys = ct.spmv(st, xs)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches_dspmv = _launched("dia_spmv", "spmv(csr, x)")
+    dplan = default_plan_cache.get(st)
+    ys_twin = dplan._spmv_reference(xs)
+    err_twin = _relerr(ys, ys_twin)
+    _check("4M dia spmv kernel vs twin", err_twin, F32_TOL)
+    abs_dspmv = float((ys - ys_twin).abs().max())
+    err_sp = _relerr(ys, torch.from_numpy(st_sp.astype(np.float64) @ xs.cpu().double().numpy()))
+    _check("4M dia spmv kernel vs scipy f64", err_sp, F32_TOL)
+    print(f"[dia-spmv] {st.shape[0]} rows, nnz {st.nnz}, vals {tuple(dplan.vals.shape)}, "
+          f"offsets {dplan.offsets}, remainder {dplan.rem_data.shape[0]}; host gen "
+          f"{t_gen:.1f} s, first call (plan + launch) {t_first:.1f} s; launches "
+          f"{launches_dspmv}; vs twin {err_twin:.2e} (max abs {abs_dspmv:.2e}), vs scipy f64 "
+          f"{err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
+
+    # -- 8. main path: cg(solver_operator(S), b), S = I + stencil ---------------
+    t0 = time.perf_counter()
+    s_sp = (sp.identity(st_sp.shape[0], dtype=np.float32, format="csr") + st_sp).tocsr()
+    dop = ct.solver_operator(from_scipy(s_sp))
+    bs = torch.from_numpy(rng.standard_normal(s_sp.shape[0]).astype(np.float32)).to(dev)
+    t_sys = time.perf_counter() - t0
+    _reset()
+    t0 = time.perf_counter()
+    res = ct.solvers.cg(dop, dop.to_padded(bs), tol=1e-6, maxiter=500)
+    torch.cuda.synchronize()
+    t_cg = time.perf_counter() - t0
+    launches_dcg = _launched("dia_spmv", "cg over solver_operator")
+    if not res.converged:
+        raise AssertionError(f"dia cg did not converge: {res.iterations} iterations, "
+                             f"residual {res.residual_norm:.3e}")
+    b64 = bs.cpu().double().numpy()
+    x64 = dop.from_padded(res.x).cpu().double().numpy()
+    true_rel = float(np.linalg.norm(b64 - s_sp.astype(np.float64) @ x64) / np.linalg.norm(b64))
+    if not true_rel <= 1e-5:
+        raise AssertionError(f"dia cg true relative residual {true_rel:.3e} > 1e-5")
+    t0 = time.perf_counter()
+    warm = ct.solvers.cg(dop, dop.to_padded(bs), tol=1e-6, maxiter=500)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    print(f"[dia-cg] mode {dop.mode}, {s_sp.shape[0]} rows, nnz {s_sp.nnz}, offsets "
+          f"{dop.dia.offsets}: converged in {res.iterations} iterations, first solve "
+          f"{t_cg * 1e3:.1f} ms, warm solve {t_warm * 1e3:.2f} ms = "
+          f"{t_warm / max(warm.iterations, 1) * 1e6:.0f} us per iteration (host clock, one "
+          f"host sync per iteration); true relative residual {true_rel:.2e} (f64 host, tol "
+          f"1e-5); system build {t_sys:.1f} s; launches {launches_dcg}", flush=True)
+    yd_op, yd_twin = dop(bs), dop.dia._spmv_reference(bs)
+    _check("4M operator kernel vs twin", _relerr(yd_op, yd_twin), F32_TOL)
+    abs_dop = float((yd_op - yd_twin).abs().max())
+    del res, warm, x64, b64
+
+    # -- 9. main paths: spmm(csr, X) and spmm(bsr, X), k = 32 ------------------
+    t0 = time.perf_counter()
+    mm_host = stencil_2d(GRID_SPMM, dtype=np.float32)
+    mm_sp = to_scipy(mm_host)
+    mm = mm_host.to(dev)
+    X = torch.from_numpy(rng.standard_normal((mm.shape[1], K)).astype(np.float32)).to(dev)
+    t_gen = time.perf_counter() - t0
+    _reset()
+    t0 = time.perf_counter()
+    Y = ct.spmm(mm, X)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches_mm_csr = _launched("dia_spmm", "spmm(csr, X)")
+    mplan = default_plan_cache.get(mm)
+    Y_twin = mplan._spmm_reference(X)
+    err_twin = _relerr(Y, Y_twin)
+    _check("1M spmm(csr) kernel vs twin", err_twin, F32_TOL)
+    abs_mm_csr = float((Y - Y_twin).abs().max())
+    err_sp = _relerr(Y, torch.from_numpy(mm_sp.astype(np.float64) @ X.cpu().double().numpy()))
+    _check("1M spmm(csr) kernel vs scipy f64", err_sp, F32_TOL)
+    print(f"[spmm] csr: {mm.shape[0]} rows, k {K}, offsets {mplan.offsets}; host gen "
+          f"{t_gen:.1f} s, first call (plan + launch) {t_first:.1f} s; launches "
+          f"{launches_mm_csr}; vs twin {err_twin:.2e} (max abs {abs_mm_csr:.2e}), vs scipy "
+          f"f64 {err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
+    Xb = torch.from_numpy(rng.standard_normal((a.shape[1], K)).astype(np.float32)).to(dev)
+    _reset()
+    t0 = time.perf_counter()
+    Yb = ct.spmm(a, Xb)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches_mm_bsr = _launched("dia_spmm", "spmm(bsr, X)")
+    splan = bdia_scalar_dia(default_plan_cache.get(a))
+    Yb_twin = splan._spmm_reference(Xb)
+    err_twin = _relerr(Yb, Yb_twin)
+    _check("1M spmm(bsr) kernel vs twin", err_twin, F32_TOL)
+    abs_mm_bsr = float((Yb - Yb_twin).abs().max())
+    err_sp = _relerr(Yb, torch.from_numpy(a_sp.astype(np.float64) @ Xb.cpu().double().numpy()))
+    _check("1M spmm(bsr) kernel vs scipy f64", err_sp, F32_TOL)
+    print(f"[spmm] bsr: {a.shape[0]} rows, k {K}, scalar-DIA plan {splan.ndiags} diagonals "
+          f"(offsets {splan.offsets}), remainder {splan.rem_data.shape[0]}; first call (BDIA "
+          f"plan cached, scalar-DIA plan + launch) {t_first:.1f} s; launches "
+          f"{launches_mm_bsr}; vs twin {err_twin:.2e} (max abs {abs_mm_bsr:.2e}), vs scipy "
+          f"f64 {err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
+    del Y, Y_twin, Yb, Yb_twin
+
+    # -- 10. timing: kernel vs plain twin vs library call, every entry ---------
     bw, bw_known = hbm_bandwidth()
+    if not bw_known:
+        bw = 3.35e12
+        print(f"[timing] {kind} is not in the HBM table: bounds use the H100 SXM "
+              f"3.35 TB/s", flush=True)
     entries = []
-    for name, replaces, p, v, launches, max_abs in (
-            ("bdia_spmv [spmv(bsr, x)]", REPLACES_FUSED, plan, x, launches_spmv, abs_spmv),
-            ("bdia_spmv [BdiaOperator in cg]", REPLACES_RESIDENT, op.bdia, b, launches_cg,
-             abs_op)):
-        kernel = lambda p=p, v=v: bdia_spmv(p, v)  # noqa: E731
-        plain = lambda p=p, v=v: bdia_spmv_reference(p, v)  # noqa: E731
-        runs = [time_cuda(f, warmup=3, runs=20, reps=10) for f in (plain, kernel, kernel, plain)]
-        ms = float(np.median(runs[1].samples_ms + runs[2].samples_ms))
-        plain_ms = float(np.median(runs[0].samples_ms + runs[3].samples_ms))
-        nbytes = (p.vals.numel() + p.shape[0] + p.shape[1]) * p.vals.element_size()
+    for (name, source, replaces, kernel, plain, lib_op, operand, nbytes, flops, launches,
+         max_abs) in (
+            ("bdia_spmv [spmv(bsr, x)]", "bdia_spmv", f"{BDIA_PY}:290 (B1; also :409, B3)",
+             lambda: bdia_spmv(plan, x), lambda: bdia_spmv_reference(plan, x), a_sp, x,
+             (plan.vals.numel() + plan.shape[0] + plan.shape[1]) * 4, 2 * plan.vals.numel(),
+             launches_spmv, abs_spmv),
+            ("bdia_spmv [BdiaOperator in cg]", "bdia_spmv", f"{BDIA_PY}:70 (B2)",
+             lambda: bdia_spmv(op.bdia, b), lambda: bdia_spmv_reference(op.bdia, b),
+             sb_sp, b,
+             (op.bdia.vals.numel() + 2 * op.bdia.shape[0]) * 4, 2 * op.bdia.vals.numel(),
+             launches_cg, abs_op),
+            ("dia_spmv [spmv(csr, x)]", "dia_spmv", f"{DIA_PY}:176 (B8)",
+             lambda: dia_spmv(dplan, xs), lambda: dia_spmv_reference(dplan, xs), st_sp, xs,
+             (dplan.vals.numel() + dplan.shape[0] + dplan.shape[1]) * 4,
+             2 * dplan.vals.numel(), launches_dspmv, abs_dspmv),
+            ("dia_spmv [solver_operator in cg]", "dia_spmv",
+             f"{DIA_PY}:336 (B9), :511 (B10), :650 (B11)",
+             lambda: dia_spmv(dop.dia, bs), lambda: dia_spmv_reference(dop.dia, bs), s_sp, bs,
+             (dop.dia.vals.numel() + 2 * dop.dia.shape[0]) * 4, 2 * dop.dia.vals.numel(),
+             launches_dcg, abs_dop),
+            (f"dia_spmm [spmm(csr, X), k={K}]", "dia_spmm",
+             f"{DIA_PY}:1148 (B14, k <= 64), :789 (B12)",
+             lambda: dia_spmm(mplan, X), lambda: dia_spmm_reference(mplan, X), mm_sp, X,
+             (mplan.vals.numel() + (mplan.shape[0] + mplan.shape[1]) * K) * 4,
+             2 * mplan.vals.numel() * K, launches_mm_csr, abs_mm_csr),
+            (f"dia_spmm [spmm(bsr, X), k={K}]", "dia_spmm",
+             f"{DIA_PY}:1148 (B14, k <= 64); wide k: :1023 (B13), :1314 (B15)",
+             lambda: dia_spmm(splan, Xb), lambda: dia_spmm_reference(splan, Xb), a_sp, Xb,
+             (splan.vals.numel() + (splan.shape[0] + splan.shape[1]) * K) * 4,
+             2 * splan.vals.numel() * K, launches_mm_bsr, abs_mm_bsr)):
+        S = _sparse_csr(lib_op, dev)
+        library = lambda S=S, v=operand: S @ v  # noqa: E731
+        _check(f"{name} library call vs kernel", _relerr(library(), kernel()), F32_TOL)
+        runs = [time_cuda(f, warmup=3, runs=20, reps=10)
+                for f in (plain, kernel, library, library, kernel, plain)]
+        ms = float(np.median(runs[1].samples_ms + runs[4].samples_ms))
+        plain_ms = float(np.median(runs[0].samples_ms + runs[5].samples_ms))
+        library_ms = float(np.median(runs[2].samples_ms + runs[3].samples_ms))
+        del S
+        t_bytes, t_ops = nbytes / bw, flops / F32_PEAK
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
         gbs = nbytes / (ms * 1e-3) / 1e9
-        frac = f"{gbs * 1e9 / bw:.3f} of {bw / 1e12:.2f} TB/s" if bw_known else "unknown card"
-        print(f"[timing] {name}: kernel {ms * 1e3:.1f} us, plain twin {plain_ms * 1e3:.1f} us; "
-              f"{nbytes / 1e6:.1f} MB moved -> {gbs:.0f} GB/s, HBM fraction {frac}; "
-              f"card {card}; median of 2x20 samples of 10 calls (CUDA events)", flush=True)
-        entries.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+        print(f"[timing] {name}: kernel {ms * 1e3:.1f} us, plain twin {plain_ms * 1e3:.1f} us, "
+              f"library (torch.sparse_csr_tensor @, cuSPARSE) {library_ms * 1e3:.1f} us; "
+              f"{nbytes / 1e6:.1f} MB moved -> {gbs:.0f} GB/s, HBM fraction "
+              f"{gbs * 1e9 / bw:.3f} of {bw / 1e12:.2f} TB/s; bound {bound_ms * 1e3:.1f} us "
+              f"({bound_by}); card {card}; median of 2x20 samples of 10 calls (CUDA events)",
+              flush=True)
+        entries.append({"name": name, "route": "cuda",
+                        "source": f"cask_tpu_torch/csrc/{source}.cu", "replaces": replaces,
                         "launches": launches, "max_abs_err": max_abs, "ms": ms,
-                        "plain_ms": plain_ms})
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms})
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))

@@ -18,7 +18,7 @@ import cask_tpu.ops.bdia as jbdia
 import cask_tpu_torch.formats.convert as tconv
 import cask_tpu_torch.formats.generate as tgen
 import cask_tpu_torch.ops.bdia as tbdia
-from cask_tpu.ops.pallas.bdia_kernels import (bdia_spmv_pallas_fused,
+from cask_tpu.ops.pallas.bdia_kernels import (bdia_spmv_pallas, bdia_spmv_pallas_fused,
                                               bdia_spmv_pallas_resident)
 from cask_tpu_torch import interop
 from cask_tpu_torch.ops.kernels import build
@@ -95,11 +95,11 @@ class TestPlanPacking:
 
     def test_plan_from_bsr_and_csr_agree(self):
         a = tgen.fem_blocks(5, dof=2, return_bsr=True)
-        p1 = tbdia.bdia_plan(a)
-        p2 = tbdia.bdia_plan(tconv.bsr_to_csr(a, prune=False), (2, 2))
+        p1 = tbdia.bdia_plan(a, device="cpu")
+        p2 = tbdia.bdia_plan(tconv.bsr_to_csr(a, prune=False), (2, 2), device="cpu")
         assert torch.equal(p1.vals, p2.vals)
         with pytest.raises(ValueError):
-            tbdia.bdia_plan(tconv.bsr_to_csr(a))
+            tbdia.bdia_plan(tconv.bsr_to_csr(a), device="cpu")
 
     @pytest.mark.parametrize("name", ["fem4", "remainder", "rect4x2"])
     def test_bdia_to_coo_and_transpose_plan(self, name):
@@ -156,6 +156,16 @@ class TestTwinAgainstReference:
         y_ref = np.asarray(bdia_spmv_pallas_fused(jp, x))
         assert _relerr(tp.spmv(torch.from_numpy(x)), y_ref) <= TOL[np.float32]
 
+    @pytest.mark.parametrize("name", ["fem2", "fem4", "fem8", "rect4x2"])
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    def test_matches_pallas_spmv_kernel(self, name, dtype):
+        # B3 (bdia_spmv_pallas, the to_bdia layout) in interpret mode, decoded
+        # with from_bdia: the packed part, which the CUDA kernel computes
+        jp, tp = _plans(name, dtype)
+        x = np.random.default_rng(8).standard_normal(jp.shape[1]).astype(dtype)
+        y_kernel = np.asarray(jp.from_bdia(bdia_spmv_pallas(jp, jp.to_bdia(x))))
+        assert _relerr(bdia_spmv_reference(tp, torch.from_numpy(x)), y_kernel) <= TOL[dtype]
+
     @pytest.mark.parametrize("name", ["fem2", "fem4", "fem8"])
     def test_matches_pallas_resident_kernel(self, name):
         # B2 (bdia_spmv_pallas_resident) in interpret mode, decoded with
@@ -200,13 +210,13 @@ class TestOperator:
 
     def test_builds_its_plan(self):
         a = tgen.fem_blocks(5, dof=2, return_bsr=True)
-        op = tbdia.BdiaOperator(a)
+        op = tbdia.BdiaOperator(a, device="cpu")
         assert op.bdia.blocksize == (2, 2) and op.mode == "reference"
 
     def test_kernel_gate(self):
         # 201 block diagonals capped at 64 kept: 128 (d, c) pairs > the limit
         a = tconv.csr_to_bsr(tgen.banded(600, 200, seed=1), (2, 2))
-        p = tbdia.bdia_plan(a)
+        p = tbdia.bdia_plan(a, device="cpu")
         assert p.npairs > MAX_PAIRS and not bdia_kernel_ok(p)
         _, ok = _plans("fem8")
         assert bdia_kernel_ok(ok) and not bdia_kernel_ok(ok.astype(torch.bfloat16))

@@ -40,7 +40,7 @@ def test_cg_over_bdia_operator_matches_the_reference(nx, dof):
     sj, st, _ = _spd_system(nx, dof)
     b = _b(st.shape[0])
     ref = jkrylov.cg(jbdia.BdiaOperator(jbdia.bdia_plan(sj)), b, tol=1e-10, maxiter=200)
-    op = ct.BdiaOperator(ct.bdia_plan(st))
+    op = ct.BdiaOperator(ct.bdia_plan(st, device="cpu"))
     assert op.mode == "reference"
     res = cg(op, torch.from_numpy(b), tol=1e-10, maxiter=200)
     assert res.converged and bool(ref.converged)
@@ -57,8 +57,8 @@ def test_jacobi_pcg_matches_the_reference():
     j_csr = jconv.bsr_to_csr(sj)
     ref = jkrylov.cg(jbdia.BdiaOperator(jbdia.bdia_plan(sj)), b, tol=1e-10,
                      M=jprecond.jacobi(j_csr))
-    res = cg(ct.BdiaOperator(ct.bdia_plan(st)), torch.from_numpy(b), tol=1e-10,
-             M=jacobi(tconv.bsr_to_csr(st)))
+    res = cg(ct.BdiaOperator(ct.bdia_plan(st, device="cpu")), torch.from_numpy(b), tol=1e-10,
+             M=jacobi(tconv.bsr_to_csr(st), device="cpu"))
     assert abs(res.iterations - int(ref.iterations)) <= 1
     assert np.linalg.norm(res.x.numpy() - np.asarray(ref.x)) / np.linalg.norm(ref.x) <= 1e-9
     assert np.array_equal(extract_diagonal(s_csr), jprecond.extract_diagonal(
@@ -79,7 +79,7 @@ def test_cg_on_a_matrix_goes_through_spmv():
 def test_stopping_rule_and_result_fields():
     _, st, _ = _spd_system(6, 2)
     b = torch.from_numpy(_b(st.shape[0], 3))
-    op = ct.BdiaOperator(ct.bdia_plan(st))
+    op = ct.BdiaOperator(ct.bdia_plan(st, device="cpu"))
     res = cg(op, b, tol=1e-12, maxiter=2)
     assert res.iterations == 2 and res.converged is False
     assert isinstance(res.residual_norm, float) and res.residual_norm > 0
@@ -94,9 +94,9 @@ def test_stopping_rule_and_result_fields():
 def test_jacobi_needs_a_nonzero_diagonal():
     t = tconv.coo_to_csr(tconv.coo_from_arrays([1.0, 2.0], [0, 1], [1, 0], (2, 2)))
     with pytest.raises(ValueError):
-        jacobi(t)
+        jacobi(t, device="cpu")
     d = tgen.stencil_2d(3)
-    apply = jacobi(d)
+    apply = jacobi(d, device="cpu")
     r = torch.ones(9, dtype=torch.float64)
     assert torch.allclose(apply(r), r / 4.0)
     assert apply(torch.ones(9, 2, dtype=torch.float64)).shape == (9, 2)
@@ -109,9 +109,9 @@ def test_slice_end_to_end_on_cpu():
     y = ct.spmv(a, x)
     ref = jconv.to_scipy(jgen.fem_blocks(8, dof=4)) @ x.numpy()
     assert np.linalg.norm(y.numpy() - ref) / np.linalg.norm(ref) <= 1e-12
-    assert np.linalg.norm(ct.bdia_plan(a).spmv(x).numpy() - ref) / np.linalg.norm(ref) <= 1e-12
+    assert np.linalg.norm(ct.bdia_plan(a, device="cpu").spmv(x).numpy() - ref) / np.linalg.norm(ref) <= 1e-12
     _, st, _ = _spd_system(8, 4)
-    res = ct.solvers.cg(ct.BdiaOperator(st), torch.from_numpy(_b(st.shape[0], 5)), tol=1e-8)
+    res = ct.solvers.cg(ct.BdiaOperator(st, device="cpu"), torch.from_numpy(_b(st.shape[0], 5)), tol=1e-8)
     assert res.converged
 
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch twin.
+"""The port's CUDA kernels on the card, against their plain PyTorch twins.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -6,20 +6,22 @@ that has no JAX, without the suite's conftest (which configures JAX):
 
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
-Tolerances: f64 ≤ 1e-12 normwise (the same products in the same pair
-order as the twin), f32 ≤ 1e-5.
+Tolerances: f64 ≤ 1e-12 normwise (the same products in the same pair or
+diagonal order as the twin), f32 ≤ 1e-5.
 """
 
 import importlib
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import cask_tpu_torch as ct
 from cask_tpu_torch.formats.convert import coo_from_arrays, csr_to_bsr, from_scipy, to_scipy
 from cask_tpu_torch.formats.generate import _diag_shift, banded, fem_blocks, stencil_2d
 from cask_tpu_torch.ops.kernels.bdia_kernels import bdia_spmv, bdia_spmv_reference
+from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmm, dia_spmm_reference, dia_spmv
 from cask_tpu_torch.ops.spmv import PlanCache
 from cask_tpu_torch.tune import timing
 
@@ -159,7 +161,8 @@ def test_cg_on_card_matches_cpu(cuda):
     op = ct.BdiaOperator(ct.bdia_plan(st, device=cuda))
     assert op.mode == "kernel"
     res = ct.solvers.cg(op, torch.from_numpy(b).to(cuda), tol=1e-10)
-    ref = ct.solvers.cg(ct.BdiaOperator(ct.bdia_plan(st)), torch.from_numpy(b), tol=1e-10)
+    ref = ct.solvers.cg(ct.BdiaOperator(ct.bdia_plan(st, device="cpu")), torch.from_numpy(b),
+                        tol=1e-10)
     assert res.converged and abs(res.iterations - ref.iterations) <= 1
     assert _relerr(res.x, ref.x) <= 1e-9
 
@@ -168,3 +171,171 @@ def test_time_cuda(cuda):
     x = torch.ones(1 << 20, device=cuda)
     t = timing.time_cuda(lambda: x.mul_(1.0), warmup=1, runs=3, reps=2)
     assert t.ms > 0 and len(t.samples_ms) == 3 and t.reps == 2
+
+
+# -- DIA kernels -------------------------------------------------------------
+
+
+def _diags(m, n, offsets, seed):
+    rng = np.random.default_rng(seed)
+    lens = [min(m, n - k) if k >= 0 else min(m + k, n) for k in offsets]
+    return sp.diags([rng.standard_normal(ln) for ln in lens], offsets, shape=(m, n)).tocsr()
+
+
+def _dia_remainder():
+    """A dense band, a thin far band below the density floor and scattered
+    entries: a plan with a COO remainder."""
+    s = to_scipy(banded(3000, 2, seed=1)) + to_scipy(banded(3000, 12, density=0.05, seed=3))
+    rng = np.random.default_rng(4)
+    r, c = rng.integers(0, 3000, 20), rng.integers(0, 3000, 20)
+    return s + sp.csr_matrix((rng.standard_normal(20), (r, c)), shape=s.shape)
+
+
+DIA_CASES = {  # scipy f64; row counts ragged against the 256-thread blocks
+    "stencil": lambda: to_scipy(stencil_2d(33)),
+    "banded": lambda: to_scipy(banded(3001, 3, seed=2)),
+    "remainder": _dia_remainder,
+    "asym_up": lambda: _diags(2000, 2000, [1, 3, 7], 7),
+    "asym_down": lambda: _diags(2000, 2000, [-5, -2, 0], 8),
+    "rect_tall": lambda: _diags(3000, 1200, [-1500, -2, 0, 1, 700], 9),
+    "rect_wide": lambda: _diags(1200, 3000, [-700, -1, 0, 2, 1500], 10),
+}
+
+
+def _dia(name, dtype, device):
+    s = DIA_CASES[name]().tocsr().astype(dtype)
+    return s, ct.dia_plan(from_scipy(s), device=device)
+
+
+@pytest.mark.parametrize("name", list(DIA_CASES))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dia_spmv_matches_twin(cuda, name, dtype):
+    s, p = _dia(name, dtype, cuda)
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(s.shape[1])
+                         .astype(dtype)).to(cuda)
+    before = dia_spmv.launches
+    y = p.spmv(x)
+    torch.cuda.synchronize()
+    assert dia_spmv.launches == before + 1
+    assert _relerr(y, p._spmv_reference(x)) <= TOL[dtype]
+    assert _relerr(y, torch.from_numpy(s.astype(np.float64) @ x.cpu().double().numpy())) \
+        <= TOL[dtype]
+
+
+@pytest.mark.parametrize("name", list(DIA_CASES))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [1, 3, 20, 32, 64, 100, 128])
+def test_dia_spmm_matches_twin(cuda, name, dtype, k):
+    s, p = _dia(name, dtype, cuda)
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal((s.shape[1], k))
+                         .astype(dtype)).to(cuda)
+    before = dia_spmm.launches
+    y = p.spmm(x)
+    torch.cuda.synchronize()
+    assert dia_spmm.launches == before + 1 and y.shape == (s.shape[0], k)
+    assert _relerr(y, p._spmm_reference(x)) <= TOL[dtype]
+    assert _relerr(y, torch.from_numpy(s.astype(np.float64) @ x.cpu().double().numpy())) \
+        <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dia_spmm_unaligned_x_takes_scalar_loads(cuda, dtype):
+    # X whose rows start off the 16-byte grid: the kernel's scalar path
+    s, p = _dia("banded", dtype, cuda)
+    k = 32
+    buf = torch.from_numpy(np.random.default_rng(12).standard_normal(s.shape[1] * k + 1)
+                           .astype(dtype)).to(cuda)
+    x = buf[1:].view(s.shape[1], k)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert _relerr(dia_spmm(p, x), dia_spmm_reference(p, x)) <= TOL[dtype]
+
+
+def test_dia_kernels_write_every_row(cuda):
+    # y comes from torch.empty: a row the kernel missed would hold stale bytes
+    _, p = _dia("rect_tall", np.float64, cuda)
+    x = torch.zeros(p.shape[1], dtype=torch.float64, device=cuda)
+    assert torch.count_nonzero(dia_spmv(p, x)) == 0
+    assert torch.count_nonzero(dia_spmm(p, x[:, None].repeat(1, 5))) == 0
+
+
+def test_dia_kernels_raise_on_what_they_do_not_take(cuda):
+    _, p = _dia("banded", np.float64, cuda)
+    n = p.shape[1]
+    with pytest.raises(TypeError):  # f64 plan, f32 x
+        dia_spmv(p, torch.zeros(n, dtype=torch.float32, device=cuda))
+    with pytest.raises(ValueError):
+        dia_spmv(p, torch.zeros(n + 1, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):  # CPU x, CUDA plan
+        dia_spmv(p, torch.zeros(n, dtype=torch.float64))
+    with pytest.raises(ValueError):  # not contiguous
+        dia_spmm(p, torch.zeros((n, 4), dtype=torch.float64, device=cuda).T.contiguous().T)
+    with pytest.raises(ValueError):  # 1-D x to the SpMM kernel
+        dia_spmm(p, torch.zeros(n, dtype=torch.float64, device=cuda))
+    with pytest.raises(TypeError):
+        dia_spmv(p.astype(torch.bfloat16), torch.zeros(n, dtype=torch.bfloat16, device=cuda))
+
+
+def test_dia_transposed_tall_plan(cuda):
+    s = _diags(20000, 5000, [0, -1], 11)
+    p = ct.transposed(ct.dia_plan(from_scipy(s), device=cuda))
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(20000)).to(cuda)
+    assert _relerr(p.spmv(x), torch.from_numpy(s.T @ x.cpu().numpy())) <= TOL[np.float64]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_csr_auto_routes_launch_the_dia_kernels(cuda, dtype, monkeypatch):
+    s = to_scipy(stencil_2d(40)).astype(dtype)
+    a = from_scipy(s).to(cuda)
+    plans = PlanCache()
+    monkeypatch.setattr(spmv_mod, "default_plan_cache", plans)
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal((s.shape[1], 32))
+                         .astype(dtype)).to(cuda)
+    v, m = dia_spmv.launches, dia_spmm.launches
+    y = ct.spmv(a, x[:, 0])
+    Y = ct.spmm(a, x)
+    torch.cuda.synchronize()
+    assert (dia_spmv.launches, dia_spmm.launches) == (v + 1, m + 1)
+    assert len(plans._plans) == 1  # one plan serves both ops
+    assert _relerr(y, ct.spmv(a, x[:, 0], method="xla")) <= TOL[dtype]
+    assert _relerr(Y, ct.spmm(a, x, method="xla")) <= TOL[dtype]
+    # values changed in place: the next call plans anew
+    a.data.mul_(2.0)
+    assert _relerr(ct.spmv(a, x[:, 0]), 2.0 * y) <= TOL[dtype]
+    assert _relerr(ct.spmm(a, x), 2.0 * Y) <= TOL[dtype]
+    assert (dia_spmv.launches, dia_spmm.launches) == (v + 2, m + 2)
+
+
+def test_csr_auto_route_gate_takes_the_gather_formulation(cuda, monkeypatch):
+    plans = PlanCache()
+    monkeypatch.setattr(spmv_mod, "default_plan_cache", plans)
+    a = ct.generate.power_law(2000, seed=3).to(cuda)  # no diagonal structure
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal(2000)).to(cuda)
+    before = dia_spmv.launches
+    y = ct.spmv(a, x)
+    assert dia_spmv.launches == before and len(plans._plans) == 1
+    assert _relerr(y, torch.from_numpy(to_scipy(a) @ x.cpu().numpy())) <= TOL[np.float64]
+
+
+@pytest.mark.parametrize("k", [8, 100])
+def test_bsr_spmm_auto_route_launches_the_dia_kernel(cuda, k):
+    a = CASES["fem4"](np.float32).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(16).standard_normal((a.shape[1], k))
+                         .astype(np.float32)).to(cuda)
+    before = dia_spmm.launches
+    y = ct.spmm(a, x)
+    torch.cuda.synchronize()
+    assert dia_spmm.launches == before + 1
+    assert _relerr(y, ct.spmm(a, x, method="xla")) <= TOL[np.float32]
+
+
+def test_solver_operator_cg_on_card_matches_cpu(cuda):
+    s = (sp.identity(1600) + to_scipy(stencil_2d(40))).tocsr()
+    b = np.random.default_rng(17).standard_normal(1600)
+    op = ct.solver_operator(from_scipy(s), device=cuda)
+    assert op.mode == "kernel"
+    res = ct.solvers.cg(op, torch.from_numpy(b).to(cuda), tol=1e-10)
+    ref = ct.solvers.cg(ct.solver_operator(from_scipy(s), device="cpu"), torch.from_numpy(b),
+                        tol=1e-10)
+    assert res.converged and abs(res.iterations - ref.iterations) <= 1
+    assert _relerr(res.x, ref.x) <= 1e-9
+

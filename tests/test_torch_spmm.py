@@ -1,0 +1,274 @@
+"""Parity of the port's SpMM formulations, DIA SpMM twin and ``spmm`` dispatch
+with the JAX package, on the CPU (the kernel on the card:
+tests/test_torch_gpu.py).
+
+The reference's DIA SpMM Pallas kernels (B12-B15) run in interpret mode, as
+tests/test_spmm.py and tests/test_pallas_kernels.py run them.  Tolerances:
+f64 ≤ 1e-12 normwise, f32 ≤ 1e-5; B15 multiplies its near band in bf16 and
+is held within its own 5e-3 (tests/test_spmm.py::TestRingMxuHybrid).
+"""
+
+import importlib
+
+import jax  # noqa: F401  (kept on the CPU with x64 by conftest)
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import cask_tpu.formats.convert as jconv
+import cask_tpu.formats.generate as jgen
+import cask_tpu.ops.bdia as jbdia
+import cask_tpu.ops.dia as jdia
+import cask_tpu_torch.formats.convert as tconv
+import cask_tpu_torch.formats.generate as tgen
+import cask_tpu_torch.ops.bdia as tbdia
+import cask_tpu_torch.ops.dia as tdia
+from cask_tpu.ops.pallas import dia_kernels as jdk
+from cask_tpu.ops.spmm import spmm as jax_spmm
+from cask_tpu_torch.formats.matrix import torch_dtype
+from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmm, dia_spmm_reference
+from cask_tpu_torch.ops.spmm import spmm
+from cask_tpu_torch.ops.spmv import PlanCache
+
+# the module itself: ``cask_tpu_torch.ops.spmv`` as an attribute is the function
+spmv_mod = importlib.import_module("cask_tpu_torch.ops.spmv")
+TOL = {np.float32: 1e-5, np.float64: 1e-12}
+
+
+def _relerr(y, ref):
+    y, ref = np.asarray(y, np.float64), np.asarray(ref, np.float64)
+    return np.linalg.norm(y - ref) / np.linalg.norm(ref)
+
+
+def _X(rows, k, dtype=np.float64, seed=0):
+    return np.random.default_rng(seed).standard_normal((rows, k)).astype(dtype)
+
+
+def _pair(fmt, dtype=np.float64):
+    """The same host matrix in both packages, in format ``fmt``."""
+    j = jgen.fem_blocks(7, dof=4, dtype=dtype)
+    t = tgen.fem_blocks(7, dof=4, dtype=dtype)
+    if fmt == "csr":
+        return j, t
+    if fmt == "coo":
+        return jconv.csr_to_coo(j), tconv.csr_to_coo(t)
+    if fmt == "bsr":
+        return jconv.csr_to_bsr(j, (4, 4)), tconv.csr_to_bsr(t, (4, 4))
+    if fmt == "bsr_rect":
+        return jconv.csr_to_bsr(j, (4, 2)), tconv.csr_to_bsr(t, (4, 2))
+    if fmt == "bsr_ragged":
+        return (jconv.csr_to_bsr(jgen.stencil_2d(11, dtype=dtype), (4, 4)),
+                tconv.csr_to_bsr(tgen.stencil_2d(11, dtype=dtype), (4, 4)))
+    if fmt == "powerlaw":
+        return jgen.power_law(400, seed=2, dtype=dtype), tgen.power_law(400, seed=2, dtype=dtype)
+    raise KeyError(fmt)
+
+
+@pytest.mark.parametrize("fmt", ["csr", "coo", "bsr", "bsr_rect", "bsr_ragged", "powerlaw"])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_gather_formulation_matches_xla(fmt, transpose, dtype):
+    j, t = _pair(fmt, dtype)
+    x = _X(j.shape[0] if transpose else j.shape[1], 7, dtype, seed=1)
+    y_ref = np.asarray(jax_spmm(j, x, transpose=transpose, method="xla"))
+    y = spmm(t, torch.from_numpy(x), transpose=transpose, method="xla")
+    assert y.shape == y_ref.shape and y.dtype == torch_dtype(y_ref.dtype)
+    assert _relerr(y, y_ref) <= TOL[dtype]
+
+
+def test_gather_formulation_accum_dtype():
+    j, t = _pair("bsr", np.float32)
+    x = _X(j.shape[1], 5, np.float32, seed=2)
+    y_ref = np.asarray(jax_spmm(j, x, method="xla", accum_dtype=np.float64))
+    y = spmm(t, torch.from_numpy(x), method="xla", accum_dtype=np.float64)
+    assert y.dtype == torch.float64 and str(y_ref.dtype) == "float64"
+    assert _relerr(y, y_ref) <= 1e-7
+
+
+def _diags(m, n, offsets, seed):
+    rng = np.random.default_rng(seed)
+    lens = [min(m, n - k) if k >= 0 else min(m + k, n) for k in offsets]
+    return sp.diags([rng.standard_normal(ln) for ln in lens], offsets, shape=(m, n)).tocsr()
+
+
+DIA_CASES = {
+    "stencil95": lambda: tconv.to_scipy(tgen.stencil_2d(95)),
+    "banded": lambda: tconv.to_scipy(tgen.banded(9000, 2, seed=5)),
+    "asym_up": lambda: _diags(2000, 2000, [1, 3, 7], 7),
+    "asym_down": lambda: _diags(2000, 2000, [-5, -2, 0], 8),
+    "rect_wide": lambda: _diags(1200, 3000, [-700, -1, 0, 2, 1500], 10),
+}
+
+
+def _dia_plans(name, dtype=np.float64):
+    s = DIA_CASES[name]().astype(dtype)
+    return jdia.dia_plan(jconv.from_scipy(s)), tdia.dia_plan(tconv.from_scipy(s), device="cpu")
+
+
+class TestDiaTwin:
+    @pytest.mark.parametrize("name", list(DIA_CASES))
+    @pytest.mark.parametrize("k", [1, 20, 128])
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    def test_matches_spmm_xla(self, name, k, dtype):
+        jp, tp = _dia_plans(name, dtype)
+        x = _X(jp.shape[1], k, dtype, seed=3)
+        y_ref = np.asarray(jp._spmm_xla(jnp.asarray(x)))
+        y = tp._spmm_reference(torch.from_numpy(x))
+        assert y.shape == y_ref.shape and y.dtype == torch_dtype(y_ref.dtype)
+        assert _relerr(y, y_ref) <= TOL[dtype]
+        before = dia_spmm.launches  # the wrapper on a CPU tensor is the twin
+        assert torch.equal(tp.spmm(torch.from_numpy(x)), y)
+        assert dia_spmm.launches == before
+
+    def test_remainder_is_added(self):
+        s = tconv.to_scipy(tgen.banded(3000, 2, seed=1)) + \
+            tconv.to_scipy(tgen.banded(3000, 9, density=0.03, seed=2))
+        jp, tp = jdia.dia_plan(jconv.from_scipy(s)), tdia.dia_plan(tconv.from_scipy(s),
+                                                                   device="cpu")
+        assert tp.rem_data.shape[0] > 0
+        x = _X(s.shape[1], 9, seed=4)
+        assert _relerr(tp.spmm(torch.from_numpy(x)), np.asarray(jp._spmm_xla(x))) <= 1e-12
+        assert _relerr(tp.spmm(torch.from_numpy(x)), s @ x) <= 1e-12
+
+    @pytest.mark.parametrize("k", [32, 128])
+    def test_matches_pallas_padded_kernel(self, k):
+        # B12 (dia_spmm_pallas_padded via dia_spmm_pallas), resident X
+        jp, tp = _dia_plans("banded")
+        assert jdk.pallas_ok(jp, k=k)
+        x = _X(jp.shape[1], k, seed=5)
+        y_kernel = np.asarray(jdk.dia_spmm_pallas(jp, jnp.asarray(x)))
+        assert _relerr(dia_spmm_reference(tp, torch.from_numpy(x)), y_kernel) <= 1e-12
+
+    def test_matches_pallas_windowed_kernel(self, monkeypatch):
+        # B12's windowed-X body (_spmm_window_kernel), forced as the JAX tests do
+        jp, tp = _dia_plans("banded")
+        monkeypatch.setattr(jdk, "_X_VMEM_BUDGET", 1 << 18)
+        x = _X(jp.shape[1], 32, seed=6)
+        y_kernel = np.asarray(jdk.dia_spmm_pallas(jp, jnp.asarray(x)))
+        assert _relerr(dia_spmm_reference(tp, torch.from_numpy(x)), y_kernel) <= 1e-12
+
+    @pytest.mark.parametrize("name,k", [("stencil95", 128), ("banded", 100)])
+    def test_matches_pallas_ring_kernel(self, name, k):
+        # B13 (dia_spmm_pallas_ring_padded via dia_spmm_pallas_ring)
+        jp, tp = _dia_plans(name)
+        assert jdk.ring_ok(jp, k)
+        x = _X(jp.shape[1], k, seed=7)
+        y_kernel = np.asarray(jdk.dia_spmm_pallas_ring(jp, jnp.asarray(x)))
+        assert _relerr(dia_spmm_reference(tp, torch.from_numpy(x)), y_kernel) <= 1e-12
+
+    @pytest.mark.parametrize("name,k", [("banded", 8), ("banded", 20), ("banded", 32),
+                                        ("banded", 64), ("asym_up", 24), ("asym_down", 24)])
+    def test_matches_pallas_kt_kernel(self, name, k):
+        # B14 (dia_spmm_pallas_kt_padded via dia_spmm_pallas_kt), k ≤ 64
+        jp, tp = _dia_plans(name)
+        assert jdk.kt_ok(jp, k)
+        x = _X(jp.shape[1], k, seed=8)
+        y_kernel = np.asarray(jdk.dia_spmm_pallas_kt(jp, jnp.asarray(x)))
+        assert _relerr(dia_spmm_reference(tp, torch.from_numpy(x)), y_kernel) <= 1e-12
+
+    def test_matches_pallas_ring_mxu_kernel_within_bf16(self):
+        # B15 (dia_spmm_pallas_ring_mxu_padded): near band as a bf16 matmul on
+        # the TPU; the port's exact-class product agrees within B15's own bound
+        a = jgen.stencil_2d(64, dtype=np.float32)
+        jp = jdia.dia_plan(a)
+        tp = tdia.dia_plan(tgen.stencil_2d(64, dtype=np.float32), device="cpu")
+        x = _X(a.shape[1], 128, np.float32, seed=9)
+        xp = jdk.to_spmm_ring(jp, jnp.asarray(x))
+        y_kernel = np.asarray(jdk.from_spmm_ring(jp, jdk.dia_spmm_pallas_ring_mxu_padded(jp, xp),
+                                                 128, layout_dtype=np.float32))
+        y = tp.spmm(torch.from_numpy(x)).numpy()
+        assert np.abs(y - y_kernel).max() / np.abs(y_kernel).max() < 5e-3
+        assert _relerr(y, jconv.to_scipy(a).astype(np.float64) @ x) <= TOL[np.float32]
+
+
+class TestScalarDia:
+    @pytest.mark.parametrize("dof", [2, 4])
+    def test_equals_the_reference_and_is_cached(self, dof, monkeypatch):
+        plans = PlanCache()
+        monkeypatch.setattr(spmv_mod, "default_plan_cache", plans)
+        a_j = jgen.fem_blocks(6, dof=dof)
+        a_t = tgen.fem_blocks(6, dof=dof)
+        jp, tp = jbdia.bdia_plan(a_j, (dof, dof)), tbdia.bdia_plan(a_t, (dof, dof), device="cpu")
+        js, ts = jbdia.bdia_scalar_dia(jp), tbdia.bdia_scalar_dia(tp)
+        for f in ("vals", "rem_data", "rem_row", "rem_col"):
+            jv, tv = np.asarray(getattr(js, f)), getattr(ts, f).numpy()
+            assert jv.dtype == tv.dtype and np.array_equal(jv, tv), f
+        assert (ts.offsets, ts.shape) == (js.offsets, js.shape)
+        # one plan per BDIA plan, held in the one cache
+        assert tbdia.bdia_scalar_dia(tp) is ts and len(plans._plans) == 1
+        tp.vals.mul_(2.0)  # a plan changed in place is planned anew
+        t2 = tbdia.bdia_scalar_dia(tp)
+        assert t2 is not ts and torch.equal(t2.vals, 2.0 * ts.vals)
+
+    def test_remainder_plan(self):
+        s = tconv.to_scipy(tgen.fem_blocks(6, dof=4)).tolil()
+        rng = np.random.default_rng(16)
+        for _ in range(6):
+            bi, bj = int(rng.integers(0, 20)), int(rng.integers(0, 20))
+            s[bi * 4 : bi * 4 + 4, bj * 4 : bj * 4 + 4] = rng.standard_normal((4, 4))
+        s = s.tocsr()
+        jp = jbdia.bdia_plan(jconv.from_scipy(s), (4, 4))
+        tp = tbdia.bdia_plan(tconv.from_scipy(s), (4, 4), device="cpu")
+        assert tp.rem_data.shape[0] > 0
+        js, ts = jbdia.bdia_scalar_dia(jp), tbdia.bdia_scalar_dia(tp)
+        assert np.array_equal(np.asarray(js.vals), ts.vals.numpy())
+        assert np.array_equal(np.asarray(js.rem_data), ts.rem_data.numpy())
+
+
+class TestDispatch:
+    @pytest.mark.parametrize("method", ["slab", "pallas_bdia", "pallas_bsr"])
+    def test_unported_kernels_raise(self, method):
+        # no silent fallback from an explicit kernel (ROADMAP Queue C 2)
+        a = tgen.fem_blocks(4, dof=4, return_bsr=True)
+        p = tbdia.bdia_plan(a, device="cpu")
+        with pytest.raises(NotImplementedError, match="Queue A 8"):
+            spmm(p, torch.zeros((a.shape[1], 128), dtype=torch.float64), method=method)
+
+    def test_rejects_bad_arguments(self):
+        _, t = _pair("csr")
+        with pytest.raises(ValueError):
+            spmm(t, torch.zeros(t.shape[1], dtype=torch.float64))
+        with pytest.raises(ValueError):
+            spmm(t, torch.zeros((t.shape[1] + 1, 2), dtype=torch.float64))
+        with pytest.raises(ValueError):
+            spmm(t, torch.zeros((t.shape[1], 2), dtype=torch.float64), method="ell")
+        with pytest.raises(TypeError):
+            spmm(np.eye(3), torch.zeros((3, 2)))
+
+    @pytest.mark.parametrize("k", [8, 100])
+    @pytest.mark.parametrize("transpose", [False, True])
+    def test_bdia_plan_operand_matches_the_reference(self, k, transpose):
+        # at every k a BDIA plan multiplies through its scalar-DIA plan
+        a_j, a_t = jgen.fem_blocks(6, dof=2), tgen.fem_blocks(6, dof=2)
+        jp, tp = jbdia.bdia_plan(a_j, (2, 2)), tbdia.bdia_plan(a_t, (2, 2), device="cpu")
+        x = _X(a_j.shape[0], k, seed=11)
+        y_ref = np.asarray(jax_spmm(jp, jnp.asarray(x), transpose=transpose))
+        y = spmm(tp, torch.from_numpy(x), transpose=transpose)
+        assert _relerr(y, y_ref) <= 1e-12
+        s = jconv.to_scipy(a_j)
+        assert _relerr(y, (s.T if transpose else s) @ x) <= 1e-12
+
+    @pytest.mark.parametrize("transpose", [False, True])
+    def test_dia_operand_and_method_dia_match_the_reference(self, transpose):
+        s = DIA_CASES["rect_wide"]()
+        j, t = jconv.from_scipy(s), tconv.from_scipy(s)
+        jp, tp = jdia.dia_plan(j), tdia.dia_plan(t, device="cpu")
+        x = _X(s.shape[0] if transpose else s.shape[1], 12, seed=12)
+        y_ref = np.asarray(jax_spmm(jp, jnp.asarray(x), transpose=transpose))
+        xt = torch.from_numpy(x)
+        for y in (spmm(tp, xt, transpose=transpose), spmm(t, xt, transpose=transpose,
+                                                          method="dia")):
+            assert _relerr(y, y_ref) <= 1e-12
+
+    @pytest.mark.parametrize("fmt", ["csr", "bsr"])
+    def test_cpu_tensors_take_the_gather_route(self, fmt, monkeypatch):
+        # the auto route plans only for a matrix on a CUDA device
+        plans = PlanCache()
+        monkeypatch.setattr(spmv_mod, "default_plan_cache", plans)
+        j, t = _pair(fmt)
+        x = _X(j.shape[1], 6, seed=13)
+        y = spmm(t.to("cpu"), torch.from_numpy(x))
+        assert len(plans._plans) == 0
+        assert _relerr(y, np.asarray(jax_spmm(j, x))) <= 1e-12

@@ -117,6 +117,7 @@ class TestDispatch:
 
     def test_plan_cache_builds_once_and_matches_the_reference_plan(self):
         j, t = _pair("bsr", np.float64)
+        t = t.to("cpu")  # a host matrix would plan onto the CUDA device
         plans = PlanCache()
         p = plans.get(t)
         assert isinstance(p, BdiaMatrix) and plans.get(t) is p and len(plans._plans) == 1
@@ -150,7 +151,7 @@ class TestDispatch:
         cols = np.concatenate([np.arange(n), rng.integers(0, n, 4000)])
         s = tconv.coo_to_csr(tconv.coo_from_arrays(rng.standard_normal(rows.size), rows, cols,
                                                    (n, n)))
-        b = tconv.csr_to_bsr(s, (2, 2))
+        b = tconv.csr_to_bsr(s, (2, 2)).to("cpu")
         plans = PlanCache()
         assert plans.get(b) is None and len(plans._plans) == 1
         p = bdia_plan(b)
@@ -167,7 +168,7 @@ class TestDispatch:
 
     def test_bdia_plan_operand(self):
         j, t = _pair("bsr", np.float64)
-        jp, tp = jbdia.bdia_plan(j), bdia_plan(t)
+        jp, tp = jbdia.bdia_plan(j), bdia_plan(t, device="cpu")
         for transpose in (False, True):
             x = np.random.default_rng(6).standard_normal(j.shape[0])
             y_ref = np.asarray(jax_spmv(jp, x, transpose=transpose))
@@ -180,7 +181,7 @@ class TestDispatch:
             jt, tt = jax_transposed(j), transposed(t)
             assert tt.shape == jt.shape
             assert np.array_equal(tt.todense(), jt.todense())
-        jp, tp = jbdia.bdia_plan(_pair("bsr", np.float64)[0]), bdia_plan(_pair("bsr", np.float64)[1])
+        jp, tp = jbdia.bdia_plan(_pair("bsr", np.float64)[0]), bdia_plan(_pair("bsr", np.float64)[1], device="cpu")
         assert np.array_equal(transposed(tp).vals.numpy(), np.asarray(jax_transposed(jp).vals))
         with pytest.raises(TypeError):
             transposed(np.eye(3))
@@ -192,7 +193,7 @@ class TestDispatch:
         with pytest.raises(ValueError):
             spmv(t, torch.zeros(t.shape[1] + 1, dtype=torch.float64))
         with pytest.raises(ValueError):
-            spmv(t, torch.zeros(t.shape[1], dtype=torch.float64), method="dia")
+            spmv(t, torch.zeros(t.shape[1], dtype=torch.float64), method="ell")
         with pytest.raises(TypeError):
             spmv(np.eye(3), torch.zeros(3))
 
