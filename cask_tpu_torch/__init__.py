@@ -8,11 +8,13 @@ with ``nvcc`` at first use.  It imports ``torch``, ``numpy`` and ``scipy``,
 never JAX or the JAX package.
 
 Ported so far: the formats and their conversions, the generators, the
-gather SpMV and SpMM formulations, the BDIA plan with its CUDA SpMV
-kernel, the DIA plan with its CUDA SpMV and SpMM kernels, the ``spmv`` and
-``spmm`` dispatch with their cached plans, and CG with a Jacobi
-preconditioner over a :class:`BdiaOperator` or a :class:`DiaOperator`
-(:func:`solver_operator`).
+gather SpMV and SpMM formulations, the BDIA plan with its CUDA SpMV and
+ring SpMM kernels, the slab plan with its CUDA slab SpMM kernel, the
+ELL-packed BSR SpMM with its kernel, the DIA plan with its CUDA SpMV and
+SpMM kernels, the ``spmv`` and ``spmm`` dispatch with their cached plans
+(the wide-k chain above k = 64 included), CG with a Jacobi preconditioner
+over a :class:`BdiaOperator` or a :class:`DiaOperator`
+(:func:`solver_operator`), and block CG over ``spmm``.
 """
 
 __version__ = "0.1.0"

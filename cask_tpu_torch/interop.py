@@ -13,6 +13,8 @@ import numpy as np
 
 from cask_tpu_torch.formats.matrix import BSR, CSR, to_device
 from cask_tpu_torch.ops.bdia import _LANE, BdiaMatrix
+from cask_tpu_torch.ops.bdia_slab import BdiaSlabs
+from cask_tpu_torch.ops.bsr_spmm import BsrSpmmKernel
 from cask_tpu_torch.ops.dia import DiaMatrix
 
 
@@ -86,3 +88,43 @@ def dia_from_arrays(vals, rem_data, rem_row, rem_col, offsets: Sequence[int],
     return DiaMatrix(vals=to_device(vals, device), rem_data=to_device(rem_data, device),
                      rem_row=to_device(rem_row, device), rem_col=to_device(rem_col, device),
                      vals_t=vals_t, offsets=offsets, shape=(m, n))
+
+
+def slabs_from_arrays(slabs, *, g: int, blocksize: Tuple[int, int], shape: Tuple[int, int],
+                      far_offsets: Sequence[int], nb_pad: int, rem_data=None, rem_row=None,
+                      rem_col=None, device) -> BdiaSlabs:
+    """A reference ``BdiaSlabs``.  It holds no remainder: pass its BDIA
+    plan's ``rem_*`` arrays to carry one (the port's plan adds it)."""
+    br, bc = (int(b) for b in blocksize)
+    g, nb_pad = int(g), int(nb_pad)
+    far = tuple(int(d) for d in far_offsets)
+    slabs = np.asarray(slabs)
+    width = 2 * bc + g * bc * (1 + len(far))
+    if g < 1 or nb_pad % g or slabs.shape != (nb_pad // g * g * br, width):
+        raise ValueError(f"slabs shape {slabs.shape} is not (ntiles·g·br, W) = "
+                         f"({nb_pad // max(g, 1) * g * br}, {width})")
+    rem_data = np.zeros(0, slabs.dtype) if rem_data is None else np.asarray(rem_data)
+    rem_row = _index(np.zeros(0, np.int32) if rem_row is None else rem_row, "rem_row")
+    rem_col = _index(np.zeros(0, np.int32) if rem_col is None else rem_col, "rem_col")
+    if not rem_data.shape == rem_row.shape == rem_col.shape:
+        raise ValueError("remainder arrays must have equal length")
+    return BdiaSlabs(slabs=to_device(slabs, device), rem_data=to_device(rem_data, device),
+                     rem_row=to_device(rem_row, device), rem_col=to_device(rem_col, device),
+                     g=g, blocksize=(br, bc), shape=(int(shape[0]), int(shape[1])),
+                     far_offsets=far, nb_pad=nb_pad)
+
+
+def bsr_spmm_from_arrays(vals, cols, *, shape: Tuple[int, int], blocksize: Tuple[int, int],
+                         G: int, K: int, k: int, device) -> BsrSpmmKernel:
+    """A reference ``BsrSpmmKernel``'s packed arrays and fields."""
+    br, bc = (int(b) for b in blocksize)
+    G, K = int(G), int(K)
+    vals = np.asarray(vals)
+    cols = _index(cols, "cols")
+    if vals.ndim != 3 or vals.shape[1:] != (G * br, K * bc) \
+            or cols.shape != (vals.shape[0] * G * K,):
+        raise ValueError(f"vals {vals.shape} / cols {cols.shape} are not (T, G·br, K·bc) / "
+                         f"(T·G·K,) for G={G}, K={K}, blocksize {(br, bc)}")
+    return BsrSpmmKernel(vals=to_device(vals, device), cols=to_device(cols, device),
+                         shape=(int(shape[0]), int(shape[1])), blocksize=(br, bc), G=G, K=K,
+                         k=int(k))

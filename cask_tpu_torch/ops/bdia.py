@@ -148,6 +148,15 @@ class BdiaMatrix:
         return prod.new_zeros(self.shape[0]).index_add_(0, self.rem_row.long(), prod)
 
 
+def remainder_spmm(rem_data, rem_row, rem_col, m: int, x: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The COO remainder's product with ``x`` (1-D or 2-D) in ``dtype``, the
+    reference's remainder add (``ops/spmm.py:217-221``)."""
+    xr = x[rem_col.long()].to(dtype)
+    prod = (rem_data.to(dtype)[:, None] * xr) if x.ndim == 2 else rem_data.to(dtype) * xr
+    return prod.new_zeros((m, *x.shape[1:])).index_add_(0, rem_row.long(), prod)
+
+
 class BdiaOperator:
     """Solver-facing SpMV operator on a BDIA plan.
 
@@ -169,8 +178,12 @@ class BdiaOperator:
         self.bdia = a
         self.mode = "kernel" if a.vals.is_cuda else "reference"
 
+    @property
+    def device(self) -> torch.device:
+        return self.bdia.device
+
     def to_padded(self, v) -> torch.Tensor:
-        return torch.as_tensor(v, device=self.bdia.device)
+        return torch.as_tensor(v, device=self.device)
 
     def from_padded(self, v: torch.Tensor) -> torch.Tensor:
         return v

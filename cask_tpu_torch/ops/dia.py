@@ -156,8 +156,12 @@ class DiaOperator:
         self.dia = a
         self.mode = "kernel" if a.vals.is_cuda else "reference"
 
+    @property
+    def device(self) -> torch.device:
+        return self.dia.device
+
     def to_padded(self, v) -> torch.Tensor:
-        return torch.as_tensor(v, device=self.dia.device)
+        return torch.as_tensor(v, device=self.device)
 
     def from_padded(self, v: torch.Tensor) -> torch.Tensor:
         return v

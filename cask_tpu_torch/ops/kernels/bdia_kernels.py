@@ -1,4 +1,5 @@
-"""BDIA SpMV: the hand-written CUDA kernel, its wrapper and its plain twin.
+"""BDIA SpMV and SpMM: the hand-written CUDA kernels, their wrappers and their
+plain twins.
 
 :func:`bdia_spmv` computes the packed block diagonals' part of ``A·x`` for
 a :class:`cask_tpu_torch.ops.bdia.BdiaMatrix` (the COO remainder is added
@@ -9,6 +10,12 @@ stands in for both TPU kernels of the path,
 ``cask_tpu/ops/pallas/bdia_kernels.py:bdia_spmv_pallas_fused`` and
 ``:bdia_spmv_pallas_resident``: on Hopper, natural-order vectors need no
 relayout, so the solver layout is the natural one.
+
+:func:`bdia_spmm_ring` is the SpMM of the same packed values, ``A·X`` for a
+dense ``X (n, k)``: the kernel of ``csrc/bdia_spmm.cu`` on CUDA tensors,
+:func:`bdia_spmm_ring_reference` on CPU tensors.  It replaces
+``bdia_kernels.py:bdia_spmm_pallas_ring`` (B4), whose 4-bank VMEM ring of
+component strips has no counterpart: Hopper reads natural-order X rows.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import TYPE_CHECKING
 
 import torch
 
+from cask_tpu_torch.formats.matrix import torch_dtype
 from cask_tpu_torch.ops.kernels import build
 
 if TYPE_CHECKING:
@@ -65,6 +73,37 @@ def bdia_kernel_ok(a: "BdiaMatrix") -> bool:
     return a.npairs <= MAX_PAIRS and a.vals.dtype in _KERNEL_DTYPES
 
 
+def result_dtype(vals_dtype: torch.dtype, x_dtype: torch.dtype, out=None) -> torch.dtype:
+    """The SpMM entries' output type: ``out`` when given, else the
+    promotion of values and X, bf16 promoted to f32 (the reference's
+    policy, ``bdia_kernels.py:619-622``)."""
+    return torch_dtype(out) if out is not None else _out_dtype(vals_dtype, x_dtype)
+
+
+def check_out_dtype(vals_dtype: torch.dtype, x_dtype: torch.dtype, out: torch.dtype) -> None:
+    """Raise unless an SpMM kernel takes these types: f32 or f64 values and X
+    of one type, out of the same type or f64 (``accum_dtype=float64``)."""
+    if vals_dtype not in _KERNEL_DTYPES or x_dtype != vals_dtype \
+            or out not in (vals_dtype, torch.float64):
+        raise TypeError(f"kernel takes float32/float64 values and X of one type, out of "
+                        f"that type or float64; got values {vals_dtype}, X {x_dtype}, "
+                        f"out {out}")
+
+
+def raise_on(lib, err: int, name: str) -> None:
+    """Raise when a kernel's launch returned a CUDA error."""
+    if err != 0:
+        msg = lib.cask_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} ({msg})")
+
+
+def vec_ok(k: int, *tensors: torch.Tensor) -> int:
+    """1 when rows of ``k`` elements start 16-byte aligned in every tensor
+    (the kernels' vector loads and stores), else 0."""
+    return int(all((k * t.element_size()) % 16 == 0 and t.data_ptr() % 16 == 0
+                   for t in tensors))
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("bdia_spmv")
@@ -72,6 +111,19 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.cask_bdia_spmv_f32, lib.cask_bdia_spmv_f64):
         fn.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_int), i, i, i, ll, ll, ll,
                        i, i, p]
+        fn.restype = ctypes.c_int
+    lib.cask_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cask_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _mm_lib() -> ctypes.CDLL:
+    lib = build.load("bdia_spmm")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in (lib.cask_bdia_spmm_f32, lib.cask_bdia_spmm_f64, lib.cask_bdia_spmm_f32_f64):
+        fn.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_int), i, i, i, ll, ll, ll,
+                       i, i, i, i, p]
         fn.restype = ctypes.c_int
     lib.cask_cuda_error_string.argtypes = [ctypes.c_int]
     lib.cask_cuda_error_string.restype = ctypes.c_char_p
@@ -113,11 +165,111 @@ def bdia_spmv(a: "BdiaMatrix", x: torch.Tensor) -> torch.Tensor:
         err = fn(a.vals.data_ptr(), x.data_ptr(), y.data_ptr(), offs,
                  len(a.block_offsets), br, bc, m, n, a.nbr, a.n_tiles,
                  a.ts * _LANE, stream)
-    if err != 0:
-        msg = lib.cask_cuda_error_string(err).decode()
-        raise RuntimeError(f"bdia_spmv kernel launch failed: cudaError {err} ({msg})")
+    raise_on(lib, err, "bdia_spmv")
     bdia_spmv.launches += 1
     return y
 
 
 bdia_spmv.launches = 0  # kernel launches since the last reset
+
+
+# -- SpMM (B4) -----------------------------------------------------------------
+
+# The reference's gate for its ring kernel (bdia_kernels.py:467-502), kept so
+# that the port's k > 64 route takes the ring exactly where the reference's
+# does.  The TPU picks a strip length tm that divides the padded block rows,
+# covers the farthest block offset and fits VMEM; only whether one exists
+# matters here (the tm itself is a TPU grid choice).  The Hopper kernel
+# takes every plan the BDIA SpMV kernel takes.
+_MM_TMS = (1024, 512, 256, 128)
+_MM_BANKS = 4
+_MM_VMEM_BUDGET = 12 * 1024 * 1024  # the reference's _SPMM_VMEM_BUDGET
+
+
+def bdia_mm_ok(a: "BdiaMatrix", k: int) -> bool:
+    """The reference's ``bdia_mm_ok``: at most ``MAX_PAIRS`` (c, d) pairs
+    and a strip length whose ring fits the reference's VMEM budget (with
+    4-byte X and Y, as the reference asks)."""
+    if a.npairs > MAX_PAIRS:
+        return False
+    br, bc = a.blocksize
+    kp = max(_LANE, -(-k // _LANE) * _LANE)
+    dv = a.vals.element_size()
+    for tm in _MM_TMS:
+        if a.nb_pad % tm or a.lo > tm or a.hi > tm:
+            continue
+        need = bc * _MM_BANKS * tm * kp * 4 + (2 * br + 1) * tm * kp * 4 \
+            + 2 * tm * a.npairs * dv
+        if need <= _MM_VMEM_BUDGET:
+            return True
+    return False
+
+
+def bdia_spmm_ring_reference(a: "BdiaMatrix", x: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch ``Σ_j vals[:, :, j] · X-shift`` over the packed pairs, in
+    pair order: the product of ``bdia_spmm_pallas_ring`` without the
+    remainder, summed in ``promote(out, f32)``.  Works on any device; the
+    CUDA kernel is held against it."""
+    br, bc = a.blocksize
+    m, n = a.shape
+    k = x.shape[1]
+    nbc, lo, hi, nb_pad = a.nbc, a.lo, a.hi, a.nb_pad
+    out = result_dtype(a.vals.dtype, x.dtype, out_dtype)
+    acc = torch.promote_types(out, torch.float32)
+    xn = x.new_zeros((nbc * bc, k))
+    xn[:n] = x
+    # component c's rows x_c[i] = X[i·bc + c], zero outside [0, nbc)
+    xp = x.new_zeros((bc, lo + max(nbc, nb_pad) + hi + 1, k))
+    xp[:, lo : lo + nbc] = xn.reshape(nbc, bc, k).transpose(0, 1)
+    v = a.vals.permute(0, 1, 3, 4, 2).reshape(br, nb_pad, a.npairs)  # v[r, i, j]
+    y = torch.zeros((br, nb_pad, k), dtype=acc, device=x.device)
+    for j, (c, d) in enumerate(a.pairs):
+        y += v[:, :, j, None].to(acc) * xp[c, lo + d : lo + d + nb_pad].to(acc)
+    return y.transpose(0, 1).reshape(nb_pad * br, k)[:m].to(out)
+
+
+def bdia_spmm_ring(a: "BdiaMatrix", x: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """``vals``-part of ``A·X`` for a dense row-major ``X (n, k)``: the CUDA
+    kernel for a CUDA ``X``, the plain twin for a CPU ``X``.  ``out_dtype``
+    as the reference's.  Raises on what the kernel does not
+    take."""
+    if not x.is_cuda:
+        if a.vals.is_cuda:
+            raise ValueError(f"X on {x.device} but the plan on {a.vals.device}")
+        return bdia_spmm_ring_reference(a, x, out_dtype)
+    br, bc = a.blocksize
+    m, n = a.shape
+    out = result_dtype(a.vals.dtype, x.dtype, out_dtype)
+    if a.vals.device != x.device:
+        raise ValueError(f"X on {x.device} but the plan on {a.vals.device}")
+    if x.ndim != 2 or x.shape[0] != n:
+        raise ValueError(f"X must have shape ({n}, k), got {tuple(x.shape)}")
+    check_out_dtype(a.vals.dtype, x.dtype, out)
+    if a.npairs > MAX_PAIRS:
+        raise ValueError(f"plan has {a.npairs} (d, c) pairs; the kernel takes "
+                         f"at most {MAX_PAIRS}")
+    if a.vals.shape != (br, a.n_tiles, a.npairs, a.ts, _LANE):
+        raise ValueError(f"vals shape {tuple(a.vals.shape)} is not the packed "
+                         f"(br, T, npairs, ts, 128) layout")
+    if not (x.is_contiguous() and a.vals.is_contiguous()):
+        raise ValueError("kernel needs contiguous X and vals")
+    k = int(x.shape[1])
+    if m == 0 or n == 0 or k == 0:
+        return torch.zeros((m, k), dtype=out, device=x.device)
+    y = torch.empty((m, k), dtype=out, device=x.device)
+    vec = vec_ok(k, x, y)
+    lib = _mm_lib()
+    fn = {(torch.float32, torch.float32): lib.cask_bdia_spmm_f32,
+          (torch.float64, torch.float64): lib.cask_bdia_spmm_f64,
+          (torch.float32, torch.float64): lib.cask_bdia_spmm_f32_f64}[(x.dtype, out)]
+    offs = (ctypes.c_int * len(a.block_offsets))(*a.block_offsets)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(a.vals.data_ptr(), x.data_ptr(), y.data_ptr(), offs, len(a.block_offsets),
+                 br, bc, m, n, a.nbr, a.n_tiles, a.ts * _LANE, k, vec, stream)
+    raise_on(lib, err, "bdia_spmm_ring")
+    bdia_spmm_ring.launches += 1
+    return y
+
+
+bdia_spmm_ring.launches = 0

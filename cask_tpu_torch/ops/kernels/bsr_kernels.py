@@ -1,0 +1,98 @@
+"""BSR SpMM: the hand-written CUDA kernel, its wrapper and its plain twin.
+
+:func:`bsr_spmm` computes ``A·X`` for an ELL-packed
+:class:`cask_tpu_torch.ops.bsr_spmm.BsrSpmmKernel`.  On a CUDA tensor it
+launches the kernel of ``csrc/bsr_spmm.cu`` or raises; on a CPU tensor it
+runs :func:`bsr_spmm_reference`, the same product in plain PyTorch.  It
+replaces ``cask_tpu/ops/pallas/bsr_kernels.py:BsrSpmmKernel`` (B7), whose
+double-buffered VMEM panel of DMA'd X block rows has no counterpart: the
+Hopper kernel gathers X rows by ``cols`` straight into registers.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import TYPE_CHECKING
+
+import torch
+
+from cask_tpu_torch.ops.kernels import build
+from cask_tpu_torch.ops.kernels.bdia_kernels import _KERNEL_DTYPES, raise_on, vec_ok
+
+if TYPE_CHECKING:
+    from cask_tpu_torch.ops.bsr_spmm import BsrSpmmKernel
+
+
+def bsr_spmm_reference(p: "BsrSpmmKernel", x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch ELL product: gather each block row's ``K`` X block rows
+    by ``cols`` (rows ``n ≤ row < n_pad`` as zero), one batched
+    ``(br, K·bc) @ (K·bc, k)`` product per block row, summed in
+    ``promote(vals, f32)``; the output has the values' type, as the
+    reference's.  Works on any device; the CUDA kernel is held against it."""
+    m, n = p.shape
+    br, bc = p.blocksize
+    T = p.vals.shape[0]
+    k = x.shape[1]
+    acc = torch.promote_types(p.vals.dtype, torch.float32)
+    nbc = -(-n // bc)
+    xp = x.new_zeros((nbc * bc, k))
+    xp[:n] = x
+    xb = xp.reshape(nbc, bc, k)[p.cols.long()].reshape(T * p.G, p.K * bc, k)
+    v = p.vals.reshape(T * p.G, br, p.K * bc)
+    y = torch.bmm(v.to(acc), xb.to(acc))  # (T·G, br, k)
+    return y.reshape(T * p.G * br, k)[:m].to(p.vals.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("bsr_spmm")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in (lib.cask_bsr_spmm_f32, lib.cask_bsr_spmm_f64):
+        fn.argtypes = [p, p, p, p, ll, i, i, i, i, ll, ll, ll, i, i, p]
+        fn.restype = ctypes.c_int
+    lib.cask_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cask_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def bsr_spmm(p: "BsrSpmmKernel", x: torch.Tensor) -> torch.Tensor:
+    """``A·X`` for a dense row-major ``X (n, k)``: the CUDA kernel for a CUDA
+    ``X``, the plain twin for a CPU ``X``.  Raises on what the kernel does
+    not take."""
+    if not x.is_cuda:
+        if p.vals.is_cuda:
+            raise ValueError(f"X on {x.device} but the plan on {p.vals.device}")
+        return bsr_spmm_reference(p, x)
+    m, n = p.shape
+    br, bc = p.blocksize
+    T = int(p.vals.shape[0])
+    if p.vals.device != x.device or p.cols.device != x.device:
+        raise ValueError(f"X on {x.device} but the plan on {p.vals.device}")
+    if x.ndim != 2 or x.shape[0] != n:
+        raise ValueError(f"X must have shape ({n}, k), got {tuple(x.shape)}")
+    if x.dtype not in _KERNEL_DTYPES or p.vals.dtype != x.dtype:
+        raise TypeError(f"kernel takes float32/float64 values and X of one type, "
+                        f"got vals {p.vals.dtype}, X {x.dtype}")
+    if p.vals.shape != (T, p.G * br, p.K * bc) or p.cols.shape != (T * p.G * p.K,) \
+            or p.cols.dtype != torch.int32 or not 1 <= p.G <= 8:
+        raise ValueError(f"vals {tuple(p.vals.shape)} / cols {tuple(p.cols.shape)} are not "
+                         f"the ELL packing (T, G·br, K·bc) / (T·G·K,) int32 with G <= 8")
+    if not (x.is_contiguous() and p.vals.is_contiguous() and p.cols.is_contiguous()):
+        raise ValueError("kernel needs contiguous X, vals and cols")
+    k = int(x.shape[1])
+    if m == 0 or n == 0 or k == 0:
+        return torch.zeros((m, k), dtype=x.dtype, device=x.device)
+    y = torch.empty((m, k), dtype=x.dtype, device=x.device)
+    lib = _lib()
+    fn = lib.cask_bsr_spmm_f32 if x.dtype == torch.float32 else lib.cask_bsr_spmm_f64
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(p.vals.data_ptr(), p.cols.data_ptr(), x.data_ptr(), y.data_ptr(), T, p.G,
+                 p.K, br, bc, m, n, p.n_block_rows, k, vec_ok(k, x, y), stream)
+    raise_on(lib, err, "bsr_spmm")
+    bsr_spmm.launches += 1
+    return y
+
+
+bsr_spmm.launches = 0  # kernel launches since the last reset

@@ -26,7 +26,7 @@ from typing import TYPE_CHECKING
 import torch
 
 from cask_tpu_torch.ops.kernels import build
-from cask_tpu_torch.ops.kernels.bdia_kernels import _KERNEL_DTYPES, _out_dtype
+from cask_tpu_torch.ops.kernels.bdia_kernels import _KERNEL_DTYPES, _out_dtype, raise_on, vec_ok
 
 if TYPE_CHECKING:
     from cask_tpu_torch.ops.dia import DiaMatrix
@@ -105,12 +105,6 @@ def _check(a: "DiaMatrix", x: torch.Tensor, ndim: int) -> None:
         raise ValueError("kernel needs contiguous x and vals")
 
 
-def _raise_on(lib, err: int, name: str) -> None:
-    if err != 0:
-        msg = lib.cask_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} ({msg})")
-
-
 def dia_spmv(a: "DiaMatrix", x: torch.Tensor) -> torch.Tensor:
     """Diagonals' part of ``A·x``: the CUDA kernel for a CUDA ``x``, the plain
     twin for a CPU ``x``.  Raises on what the kernel does not take."""
@@ -129,7 +123,7 @@ def dia_spmv(a: "DiaMatrix", x: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(a.vals.data_ptr(), a.offsets_dev.data_ptr(), a.ndiags, x.data_ptr(),
                  y.data_ptr(), m, n, a.m_pad, stream)
-    _raise_on(lib, err, "dia_spmv")
+    raise_on(lib, err, "dia_spmv")
     dia_spmv.launches += 1
     return y
 
@@ -148,16 +142,14 @@ def dia_spmm(a: "DiaMatrix", x: torch.Tensor) -> torch.Tensor:
     if m == 0 or n == 0 or k == 0:
         return torch.zeros((m, k), dtype=x.dtype, device=x.device)
     y = torch.empty((m, k), dtype=x.dtype, device=x.device)
-    # 16-byte vector loads and stores when every row starts 16-byte aligned
-    vec = int((k * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
-              and y.data_ptr() % 16 == 0)
+    vec = vec_ok(k, x, y)  # 16-byte vector loads and stores
     lib = _lib("dia_spmm")
     fn = lib.cask_dia_spmm_f32 if x.dtype == torch.float32 else lib.cask_dia_spmm_f64
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(a.vals.data_ptr(), a.offsets_dev.data_ptr(), a.ndiags, x.data_ptr(),
                  y.data_ptr(), m, n, a.m_pad, k, vec, stream)
-    _raise_on(lib, err, "dia_spmm")
+    raise_on(lib, err, "dia_spmm")
     dia_spmm.launches += 1
     return y
 

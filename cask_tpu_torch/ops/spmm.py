@@ -6,16 +6,29 @@ The PyTorch counterpart of :mod:`cask_tpu.ops.spmm`.  Dispatch:
   PyTorch (CSR/COO/BSR, both directions); the always-correct reference.
 - ``method='dia'`` — plan the matrix's diagonals on ``X``'s device and run
   the DIA product (:func:`cask_tpu_torch.ops.dia.spmm_dia`).
-- ``method='auto'`` — on a CUDA device, a banded :class:`CSR` rides the
-  same cached DIA plan as ``spmv(csr, x)`` and a :class:`BSR` its cached
-  BDIA plan (:class:`cask_tpu_torch.ops.spmv.PlanCache`, one plan per
-  matrix serving both ops).  A BDIA plan multiplies through its scalar-DIA
-  plan (:func:`cask_tpu_torch.ops.bdia.bdia_scalar_dia`) and the DIA SpMM
-  kernel at every k: the JAX package's TPU route at k ≤ 64, and the last
-  route of its wide-k chain above that, until the slab kernels are ported.
-- ``method='pallas_bsr'``, ``'pallas_bdia'``, ``'slab'`` — the BSR, BDIA
-  ring and slab SpMM kernels are not ported yet; these raise rather than
-  run another route in their place.
+- ``method='pallas_bsr'`` — a :class:`BSR` through the ELL-packed BSR SpMM
+  kernel (:func:`cask_tpu_torch.ops.bsr_spmm.spmm_bsr`), planned per call.
+- ``method='auto'`` — with ``X`` on a CUDA device (or host data, which goes
+  there), a banded :class:`CSR` rides the same cached DIA plan as
+  ``spmv(csr, x)`` and a :class:`BSR` its cached BDIA plan
+  (:class:`cask_tpu_torch.ops.spmv.PlanCache`, one plan per matrix serving
+  both ops); a CPU tensor ``X`` takes the gather formulation.
+- A BDIA plan multiplies, at k ≤ 64, through its scalar-DIA plan
+  (:func:`cask_tpu_torch.ops.bdia.bdia_scalar_dia`) and the DIA SpMM
+  kernel, the JAX package's TPU route.  At k > 64 it takes the reference's
+  wide-k chain: its slab plan and the slab kernel
+  (:mod:`cask_tpu_torch.ops.bdia_slab`), else the BDIA ring kernel where
+  the reference's ``bdia_mm_ok`` admits it, else scalar DIA.
+  ``method='slab'`` and ``'pallas_bdia'`` force the slab and the ring; a
+  plan that has no slab plan, or that the ring's gate refuses, raises
+  ``ValueError`` rather than running another route (ROADMAP Queue C 2).  On
+  a :class:`BSR` they plan it first, where the reference runs the gather
+  formulation.
+- A held :class:`cask_tpu_torch.ops.bdia_slab.BdiaSlabs` is the operator
+  itself: the slab kernel plus the remainder the plan carries.
+
+Every route runs its kernel on CUDA tensors and the kernel's plain twin on
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -25,12 +38,16 @@ from typing import Optional
 import torch
 
 from cask_tpu_torch.formats.matrix import BSR, COO, CSR
-from cask_tpu_torch.ops.bdia import BdiaMatrix, bdia_scalar_dia
+from cask_tpu_torch.ops.bdia import BdiaMatrix, bdia_plan, bdia_scalar_dia, remainder_spmm
 from cask_tpu_torch.ops.bdia import transpose_plan as _bdia_transpose
+from cask_tpu_torch.ops.bdia_slab import BdiaSlabs
+from cask_tpu_torch.ops.bsr_spmm import spmm_bsr
 from cask_tpu_torch.ops.dia import DiaMatrix, spmm_dia
-from cask_tpu_torch.ops.spmv import _accum_dtype, _on, cached_plan, row_ids_from_indptr
+from cask_tpu_torch.ops.kernels.bdia_kernels import bdia_mm_ok, bdia_spmm_ring
+from cask_tpu_torch.ops.spmv import (_accum_dtype, _on, as_operand, cached_plan,
+                                     default_plan_cache, row_ids_from_indptr)
 
-_NOT_PORTED = ("pallas_bsr", "pallas_bdia", "slab")
+_WIDE_K = 64  # above this k a BDIA plan takes the wide-k chain (ops/spmm.py:197)
 
 
 def _spmm_xla_csr(a: CSR, x, transpose, accum_dtype):
@@ -82,11 +99,34 @@ def _spmm_xla_bsr(a: BSR, x, transpose, accum_dtype):
     return yb.reshape(pn, k)[: a.shape[1]]
 
 
+def _bdia_spmm(a: BdiaMatrix, x: torch.Tensor, method: str, accum_dtype) -> torch.Tensor:
+    """A BDIA plan's product: scalar DIA at k ≤ 64, else the wide-k chain
+    (``ops/spmm.py:189-228``).  The slab plan adds the remainder it carries;
+    the ring's result gets it here."""
+    if x.shape[1] <= _WIDE_K:
+        return bdia_scalar_dia(a).spmm(x)
+    sl = default_plan_cache.get(a, "slab") if method != "pallas_bdia" else None
+    if sl is not None:
+        return sl.spmm(x, out_dtype=accum_dtype)
+    if method == "slab":
+        raise ValueError(f"method='slab': the plan has no slab plan (offsets "
+                         f"{a.block_offsets}, blocksize {a.blocksize}, nb_pad {a.nb_pad})")
+    if bdia_mm_ok(a, x.shape[1]):
+        y = bdia_spmm_ring(a, x, out_dtype=accum_dtype)
+        if a.rem_data.shape[0]:
+            y = y + remainder_spmm(a.rem_data, a.rem_row, a.rem_col, a.shape[0], x, y.dtype)
+        return y
+    if method == "pallas_bdia":
+        raise ValueError(f"method='pallas_bdia': the ring's gate refuses the plan "
+                         f"({a.npairs} pairs, block offsets {a.block_offsets})")
+    return bdia_scalar_dia(a).spmm(x)
+
+
 def spmm(a, x, *, transpose: bool = False, method: str = "auto",
          accum_dtype: Optional[object] = None):
     """``Y = a @ X`` (or ``aᵀ @ X``) with dense ``X`` of shape (n, k).  See
     the module docstring for methods."""
-    x = torch.as_tensor(x).contiguous()  # the kernels take contiguous operands
+    x = as_operand(a, x).contiguous()  # the kernels take contiguous operands
     if x.ndim != 2:
         raise ValueError(f"X must be 2-D, got shape {tuple(x.shape)}")
     n_expect = a.shape[0] if transpose else a.shape[1]
@@ -94,13 +134,11 @@ def spmm(a, x, *, transpose: bool = False, method: str = "auto",
         raise ValueError(f"dimension mismatch: A {a.shape} (transpose={transpose}) "
                          f"vs X {tuple(x.shape)}")
 
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"spmm method {method!r}: the BSR, BDIA ring and slab SpMM kernels are "
-            f"not ported yet (ROADMAP Queue A 8)")
+    if method == "pallas_bsr":
+        return spmm_bsr(a, x, transpose=transpose)
     if method == "dia":
         return spmm_dia(a, x, transpose=transpose)
-    if method not in ("auto", "xla"):
+    if method not in ("auto", "xla", "pallas_bdia", "slab"):
         raise ValueError(f"unknown spmm method {method!r}")
 
     auto = method == "auto" and not transpose and accum_dtype is None
@@ -111,14 +149,27 @@ def spmm(a, x, *, transpose: bool = False, method: str = "auto",
     if isinstance(a, COO):
         return _spmm_xla_coo(a, x, transpose, accum_dtype)
     if isinstance(a, BSR):
+        if method in ("pallas_bdia", "slab"):
+            # an explicit BDIA kernel plans the matrix: its cached plan, else anew
+            if transpose:
+                from cask_tpu_torch.formats.convert import transpose as _t
+
+                a, transpose = _t(a), False
+            plan = cached_plan(a, x) or bdia_plan(a, a.blocksize, device=x.device)
+            return _bdia_spmm(plan, x, method, accum_dtype)
         # the same cached BDIA plan as spmv(bsr, x), then the BDIA route below
         plan = cached_plan(a, x) if auto else None
         return spmm(plan, x) if plan is not None else _spmm_xla_bsr(a, x, transpose, accum_dtype)
     if isinstance(a, DiaMatrix):
         return spmm_dia(a, x, transpose=transpose)
+    if isinstance(a, BdiaSlabs):
+        # a held slab plan is the operator, its remainder included
+        if transpose:
+            raise ValueError("BdiaSlabs has no transpose plan; shear transpose_plan(bdia) "
+                             "instead")
+        return a.spmm(x, out_dtype=accum_dtype)
     if isinstance(a, BdiaMatrix):
         if transpose:
             a = _bdia_transpose(a)  # one-time host rebuild; hold the plan to reuse
-        # scalar-DIA SpMM on the expanded structure, the plan held in the cache
-        return bdia_scalar_dia(a).spmm(x)
+        return _bdia_spmm(a, x, method, accum_dtype)
     raise TypeError(f"unsupported matrix type {type(a)}")

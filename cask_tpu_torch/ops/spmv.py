@@ -10,11 +10,17 @@ The PyTorch counterpart of :mod:`cask_tpu.ops.spmv`.  Dispatch:
   (:func:`cask_tpu_torch.ops.dia.dia_plan`) and run the DIA product.
 - ``method='bdia'`` — plan the matrix's block diagonals
   (:func:`cask_tpu_torch.ops.bdia.bdia_plan`) and run the BDIA product.
-- ``method='auto'`` — on a CUDA device, a :class:`BSR` goes through a
-  cached BDIA plan and a banded :class:`CSR` through a cached DIA plan,
-  each with its CUDA kernel, when the plan qualifies (see
-  :class:`PlanCache`); everything else takes the gather formulation,
+- ``method='auto'`` — with an operand on a CUDA device, a :class:`BSR`
+  goes through a cached BDIA plan and a banded :class:`CSR` through a
+  cached DIA plan, each with its CUDA kernel, when the plan qualifies (see
+  :class:`PlanCache`); a matrix of host numpy arrays is planned onto the
+  operand's device once.  Everything else takes the gather formulation,
   which is also the JAX package's route off the TPU.
+
+Operands run on the card unless the caller asks for the CPU, and a CPU
+tensor is how a caller asks: a host (numpy) operand goes to the matrix's
+device, or to the CUDA device when the matrix's arrays are host numpy too
+(:func:`as_operand`), and raises without one.
 """
 
 from __future__ import annotations
@@ -23,16 +29,19 @@ import dataclasses
 import weakref
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from cask_tpu_torch.formats.convert import coo_to_csr
 from cask_tpu_torch.formats.matrix import BSR, COO, CSR, to_device, torch_dtype
 from cask_tpu_torch.ops.bdia import BdiaMatrix, bdia_plan, bdia_to_coo
 from cask_tpu_torch.ops.bdia import transpose_plan as _bdia_transpose
+from cask_tpu_torch.ops.bdia_slab import BdiaSlabs, slab_auto_plan
 from cask_tpu_torch.ops.dia import DiaMatrix, dia_plan, estimate_dia_traffic, spmv_dia
 from cask_tpu_torch.ops.dia import transpose_plan as _dia_transpose
 from cask_tpu_torch.ops.kernels.bdia_kernels import bdia_kernel_ok
 from cask_tpu_torch.ops.kernels.dia_kernels import dia_kernel_ok
+from cask_tpu_torch.utils.platform import default_device, plan_device
 
 # the auto route's remainder gate: a plan whose scalar remainder holds more
 # than this share of the stored entries takes the gather formulation
@@ -140,27 +149,30 @@ def transposed(a):
 
 
 class PlanCache:
-    """The auto routes' plans, one per matrix instance, for ``spmv`` and
-    ``spmm`` alike:
+    """The auto routes' plans, for ``spmv`` and ``spmm`` alike, one entry per
+    (matrix, kind):
 
-    - a :class:`BSR` gets its BDIA plan;
-    - a :class:`CSR` gets its DIA plan, when :func:`estimate_dia_traffic`
-      finds the split worth it;
-    - a :class:`BdiaMatrix` gets its scalar-DIA plan
-      (:func:`cask_tpu_torch.ops.bdia.bdia_scalar_dia`), always.
+    - a :class:`BSR` gets its BDIA plan (kind ``"bdia"``);
+    - a :class:`CSR` gets its DIA plan (``"dia"``), when
+      :func:`estimate_dia_traffic` finds the split worth it;
+    - a :class:`BdiaMatrix` gets its scalar-DIA plan (``"scalar_dia"``,
+      :func:`cask_tpu_torch.ops.bdia.bdia_scalar_dia`), always, and its slab
+      plan (``"slab"``, :func:`cask_tpu_torch.ops.bdia_slab.slab_auto_plan`)
+      or ``None`` where the reference's gates admit none.
 
-    A plan is built once per matrix (host numpy planning, then the packed
-    values go to the matrix's device) and reused by every later call on
-    the same instance.  A BSR or CSR plan qualifies when its kernel can
-    take it and its scalar remainder holds at most
-    ``_MAX_REMAINDER_SHARE`` of the stored entries; a matrix whose plan
-    does not caches ``None``, so it never re-pays the planning probe.
-    Entries are held weakly: they go with their matrix.
+    A plan is built once per matrix and kind (host numpy planning, then the
+    packed values go to the device: the matrix's, or the operand's for a
+    matrix of host numpy arrays) and reused by every later call on the same
+    instance.  A BSR or CSR plan qualifies when its kernel can take it and
+    its scalar remainder holds at most ``_MAX_REMAINDER_SHARE`` of the
+    stored entries; a matrix whose plan does not caches ``None``, so it
+    never re-pays the planning probe.  Entries are held weakly: they go
+    with their matrix.
 
-    The plan copies the matrix's values, so each entry also keeps the
-    version counters of the matrix's tensors: a tensor changed in place
-    since (``a.data.mul_(2)``) makes the next ``get`` build the plan anew.
-    Host numpy arrays carry no such counter and are taken as frozen.
+    A plan copies the matrix's values, so each entry also keeps the version
+    counters of the matrix's tensors: a tensor changed in place since
+    (``a.data.mul_(2)``) makes the next ``get`` build the plan anew.  Host
+    numpy arrays carry no such counter and are taken as frozen.
     """
 
     def __init__(self):
@@ -172,29 +184,40 @@ class PlanCache:
                      for f in dataclasses.fields(a))
 
     @staticmethod
-    def _build(a) -> Union[BdiaMatrix, DiaMatrix, None]:
-        if isinstance(a, BdiaMatrix):
+    def _kind(a) -> str:
+        for cls, kind in ((BSR, "bdia"), (CSR, "dia"), (BdiaMatrix, "scalar_dia")):
+            if isinstance(a, cls):
+                return kind
+        raise TypeError(f"no cached plan for {type(a)}")
+
+    @staticmethod
+    def _build(a, kind: str, device) -> Union[BdiaMatrix, DiaMatrix, BdiaSlabs, None]:
+        if kind == "scalar_dia":
             return dia_plan(coo_to_csr(bdia_to_coo(a)), device=a.device)
-        if isinstance(a, BSR):
-            p = bdia_plan(a, a.blocksize)
+        if kind == "slab":
+            return slab_auto_plan(a)
+        if kind == "bdia":
+            p = bdia_plan(a, a.blocksize, device=device)
             ok = bdia_kernel_ok(p)
-        elif isinstance(a, CSR):
+        else:
             if estimate_dia_traffic(a) is None:
                 return None
-            p = dia_plan(a)
+            p = dia_plan(a, device=device)
             ok = dia_kernel_ok(p)
-        else:
-            raise TypeError(f"no cached plan for {type(a)}")
         ok = ok and p.rem_data.shape[0] <= _MAX_REMAINDER_SHARE * max(a.nnz, 1)
         return p if ok else None
 
-    def get(self, a):
+    def get(self, a, kind: Optional[str] = None, device=None):
+        """The plan of ``kind`` (default: the matrix type's) for ``a``, built
+        on first use; ``device`` places a plan built from host numpy arrays
+        (default: the CUDA device)."""
+        kind = kind or self._kind(a)
         stamp = self._stamp(a)
-        hit = self._plans.get(a)
-        if hit is not None and hit[0] == stamp:
-            return hit[1]
-        self._plans[a] = (stamp, self._build(a))
-        return self._plans[a][1]
+        entries = self._plans.setdefault(a, {})
+        hit = entries.get(kind)
+        if hit is None or hit[0] != stamp:
+            entries[kind] = hit = (stamp, self._build(a, kind, device))
+        return hit[1]
 
 
 # the one cache that the ``spmv`` and ``spmm`` auto routes use
@@ -202,25 +225,41 @@ default_plan_cache = PlanCache()
 
 
 def cached_plan(a, x: torch.Tensor):
-    """The auto route's plan for a CSR or BSR whose tensors lie on a CUDA
-    device, when it qualifies and matches ``x``'s type; else None."""
-    if not (isinstance(a.data, torch.Tensor) and a.data.is_cuda):
+    """The auto route's plan for a CSR or BSR and a CUDA operand ``x``: built
+    on ``x``'s device for a matrix of host numpy arrays, on the matrix's own
+    for one of tensors there.  None when ``x`` lies on the CPU (which asks
+    for the CPU), when the matrix's tensors lie elsewhere, or when the plan
+    does not qualify or match ``x``'s type."""
+    if not x.is_cuda or (isinstance(a.data, torch.Tensor) and a.data.device != x.device):
         return None
-    plan = default_plan_cache.get(a)
-    return plan if plan is not None and plan.dtype == x.dtype else None
+    plan = default_plan_cache.get(a, device=x.device)
+    ok = plan is not None and plan.dtype == x.dtype and plan.device == x.device
+    return plan if ok else None
+
+
+def as_operand(a, x) -> torch.Tensor:
+    """``x`` as a tensor.  A tensor stays where it is (a CPU tensor asks for
+    the CPU); host data goes to the matrix's device when its arrays are
+    tensors, else to the CUDA device (:func:`default_device`, which raises
+    without one)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    home = plan_device(a.data) if isinstance(a, (CSR, COO, BSR)) else getattr(a, "device", None)
+    return torch.as_tensor(np.asarray(x), device=home if home is not None else default_device())
 
 
 def spmv(a, x, *, transpose: bool = False, method: str = "auto",
          accum_dtype: Optional[object] = None):
     """``y = a @ x`` (or ``aᵀ @ x``).  See the module docstring for methods.
 
-    ``method='auto'`` on a :class:`BSR` or :class:`CSR` whose arrays lie
-    on a CUDA device routes through its plan in :data:`default_plan_cache`
-    (BDIA or DIA) and the CUDA kernel, so the obvious API call on the
-    obvious input is the tuned path.  A plan that does not qualify, a
-    transposed or re-typed product, and CPU tensors take the gather
+    ``method='auto'`` on a :class:`BSR` or :class:`CSR` with ``x`` on a CUDA
+    device (or host data, which goes there) routes through its plan in
+    :data:`default_plan_cache` (BDIA or DIA) and the CUDA kernel, so the
+    obvious API call on the obvious input, a generated matrix and a numpy
+    vector, is the tuned path.  A plan that does not qualify, a transposed
+    or re-typed product, and a CPU tensor ``x`` take the gather
     formulation."""
-    x = torch.as_tensor(x).contiguous()  # the kernels take contiguous operands
+    x = as_operand(a, x).contiguous()  # the kernels take contiguous operands
     if x.ndim != 1:
         raise ValueError(f"x must be 1-D, got shape {tuple(x.shape)}")
     n_expect = a.shape[0] if transpose else a.shape[1]

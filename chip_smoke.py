@@ -16,18 +16,30 @@ card.  Phases, one line each:
    on small plans: a stencil, a band, a plan with a remainder, asymmetric
    offsets, both rectangular shapes and a transposed tall plan; f32 and
    f64, SpMM at k ∈ {1, 20, 32, 100, 128}.
-5. spmv — ``spmv(bsr, x)`` through the public entry point on the
+5. small-slab — the slab (natural and padded frames), BDIA ring and BSR
+   SpMM kernels against their twins and scipy on eight small plans (dof 2
+   and 4, a remainder, far offsets not divisible by g, none, one
+   asymmetric, eight far offsets, a ragged rectangular matrix); f32 and
+   f64, k ∈ {1, 65, 128}.
+6. spmv — ``spmv(bsr, x)`` through the public entry point on the
    1,048,576-row dof-4 FEM matrix (f32).
-6. cg — ``cg(BdiaOperator(...), b)`` on an SPD block system of that size.
-7. dia-spmv — ``spmv(csr, x)`` on the 4,194,304-row 5-point stencil (f32).
-8. dia-cg — ``cg(solver_operator(S), b)`` with S = I + that stencil.
-9. spmm — ``spmm(csr, X)`` on the 1,048,576-row stencil and ``spmm(bsr, X)``
+7. cg — ``cg(BdiaOperator(...), b)`` on an SPD block system of that size.
+8. block-cg — ``block_cg`` over that system's BDIA plan with 128 right-hand
+   sides and Jacobi: the slab kernel once per iteration.
+9. dia-spmv — ``spmv(csr, x)`` on the 4,194,304-row 5-point stencil (f32).
+10. dia-cg — ``cg(solver_operator(S), b)`` with S = I + that stencil.
+11. spmm — ``spmm(csr, X)`` on the 1,048,576-row stencil and ``spmm(bsr, X)``
    on the FEM matrix, k = 32 (f32).
-10. timing — each kernel entry, its plain twin and the one PyTorch call
+12. spmm-wide — the FEM matrix at k = 128: ``spmm(bsr, X)`` (the slab
+   kernel), ``spmm(plan, X, method="pallas_bdia")`` (the ring),
+   ``spmm(bsr, X, method="pallas_bsr")`` and ``spmm`` of the scalar-DIA
+   plan (the DIA SpMM kernel, the route ``spmm(bsr, X)`` took before the
+   slab).
+13. timing — each kernel entry, its plain twin and the one PyTorch call
    that computes the same product (a cuSPARSE product through
    ``torch.sparse_csr_tensor``), with CUDA events, beside the entry's bound.
 
-Every main path (phases 5-9) runs with all launch counts set to 0 just
+Every main path (phases 6-12) runs with all launch counts set to 0 just
 before it and read just after, and must launch its kernel; its result must
 match the twin and scipy (f64, host).  It needs one CUDA device and exits
 non-zero without one; any failed check raises.  The last two lines are
@@ -48,13 +60,17 @@ DOF = 4
 GRID_SPMV = 2048  # stencil side for spmv/cg: 4,194,304 rows, 83.9 MB of f32 values
 GRID_SPMM = 1024  # stencil side for spmm: 1,048,576 rows, X and Y 134 MB each
 K = 32
+K_WIDE = 128  # BASELINE config 3's wide k; above 64 the BDIA plan's wide-k chain
+SCIPY_COLS = 8  # columns of a k = 128 product also held against scipy f64 on the host
 SEED = 0
 F32_TOL = 1e-5  # normwise relative; f32 sums of a few dozen products, same order
 F64_TOL = 1e-12  # same products in the same order as the twin
 F32_PEAK = 67e12  # FLOP/s, FP32 outside the tensor cores, H100 SXM (NVIDIA data sheet)
-KERNELS = ("bdia_spmv", "dia_spmv", "dia_spmm")
+KERNELS = ("bdia_spmv", "dia_spmv", "dia_spmm", "bdia_slab_spmm", "bdia_spmm", "bsr_spmm")
 BDIA_PY = "cask_tpu/ops/pallas/bdia_kernels.py"
 DIA_PY = "cask_tpu/ops/pallas/dia_kernels.py"
+SLAB_PY = "cask_tpu/ops/pallas/bdia_slab.py"
+BSR_PY = "cask_tpu/ops/pallas/bsr_kernels.py"
 
 
 def _relerr(y, ref) -> float:
@@ -73,10 +89,15 @@ def _card() -> str:
 
 
 def _counters():
-    from cask_tpu_torch.ops.kernels.bdia_kernels import bdia_spmv
+    from cask_tpu_torch.ops.kernels.bdia_kernels import bdia_spmm_ring, bdia_spmv
+    from cask_tpu_torch.ops.kernels.bdia_slab_kernels import (bdia_spmm_slab,
+                                                              bdia_spmm_slab_padded)
+    from cask_tpu_torch.ops.kernels.bsr_kernels import bsr_spmm
     from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmm, dia_spmv
 
-    return {"bdia_spmv": bdia_spmv, "dia_spmv": dia_spmv, "dia_spmm": dia_spmm}
+    return {"bdia_spmv": bdia_spmv, "dia_spmv": dia_spmv, "dia_spmm": dia_spmm,
+            "bdia_spmm_slab": bdia_spmm_slab, "bdia_spmm_slab_padded": bdia_spmm_slab_padded,
+            "bdia_spmm_ring": bdia_spmm_ring, "bsr_spmm": bsr_spmm}
 
 
 def _reset() -> None:
@@ -140,6 +161,43 @@ def _dia_cases():
     }
 
 
+def _blocks_on(nb, b, offsets, seed):
+    """Random b×b blocks on the given block offsets, as scipy f64 CSR."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    s = sp.lil_matrix((nb * b, nb * b))
+    for i in range(nb):
+        for d in offsets:
+            if 0 <= i + d < nb:
+                s[i * b : (i + 1) * b, (i + d) * b : (i + d + 1) * b] = rng.standard_normal((b, b))
+    return s.tocsr()
+
+
+def _slab_cases():
+    """name -> BSR (f64, host) of the small wide-k plans."""
+    import numpy as np
+
+    from cask_tpu_torch.formats.convert import csr_to_bsr, from_scipy, to_scipy
+    from cask_tpu_torch.formats.generate import fem_blocks
+
+    def bsr(s):
+        return csr_to_bsr(from_scipy(s.tocsr()), (4, 4))
+
+    eight = (-70, -49, -33, -17, -1, 0, 1, 17, 33, 49, 70)  # W = 8 + 64·9 = 584 at g = 16
+    return {
+        "fem dof2": fem_blocks(16, dof=2, return_bsr=True),
+        "fem dof4": fem_blocks(16, dof=4, return_bsr=True),
+        "remainder": _remainder_matrix(np.float64),
+        "far ±18 (g=16 does not divide)": bsr(_blocks_on(128, 4, (-18, 0, 18), 33)),
+        "no far offsets": bsr(_blocks_on(96, 4, (-1, 0, 1), 31)),
+        "one asymmetric far offset": bsr(_blocks_on(128, 4, (0, 1, 16), 32)),
+        "eight far offsets (W=584)": bsr(_blocks_on(160, 4, eight, 34)),
+        "ragged 517x576": bsr(to_scipy(fem_blocks(12, dof=4))[:517]),
+    }
+
+
 def _sparse_csr(s, dev):
     """The scipy CSR matrix as a torch sparse CSR tensor on ``dev``: the
     library call's operand (cuSPARSE), timed beside the kernels only."""
@@ -171,6 +229,15 @@ def main() -> int:
     from cask_tpu_torch.ops.kernels.dia_kernels import (dia_spmm, dia_spmm_reference,
                                                         dia_spmv, dia_spmv_reference)
     from cask_tpu_torch.ops.spmv import default_plan_cache
+    from cask_tpu_torch.ops.bdia import remainder_spmm
+    from cask_tpu_torch.ops.bdia_slab import slab_auto_plan
+    from cask_tpu_torch.ops.bsr_spmm import BsrSpmmKernel
+    from cask_tpu_torch.ops.kernels.bdia_kernels import (bdia_spmm_ring,
+                                                         bdia_spmm_ring_reference)
+    from cask_tpu_torch.ops.kernels.bdia_slab_kernels import (bdia_spmm_slab,
+                                                              bdia_spmm_slab_padded,
+                                                              bdia_spmm_slab_reference)
+    from cask_tpu_torch.ops.kernels.bsr_kernels import bsr_spmm, bsr_spmm_reference
     from cask_tpu_torch.tune.timing import time_cuda
     from cask_tpu_torch.utils.platform import default_device, hbm_bandwidth
 
@@ -253,7 +320,50 @@ def main() -> int:
           f"worst {worst[np.float32]:.2e} f32 (tol {F32_TOL:.0e}), {worst[np.float64]:.2e} "
           f"f64 (tol {F64_TOL:.0e}); vs scipy f64 within the same tolerances", flush=True)
 
-    # -- 5. main path: spmv(bsr, x) at full size ------------------------------
+    # -- 5. wide-k kernels vs plain twins and scipy, small -------------------
+    worst = {np.float32: 0.0, np.float64: 0.0}
+    n_checks, widths = 0, []
+    for name, b64 in _slab_cases().items():
+        for dt in (np.float32, np.float64):
+            bsr = b64.astype(dt)
+            s_dt = to_scipy(bsr).astype(np.float64)
+            wplan = ct.bdia_plan(bsr, device=dev)
+            sl = slab_auto_plan(wplan)
+            if sl is None:
+                raise AssertionError(f"{name}: no slab plan")
+            widths.append((sl.g, sl.width))
+            tol = F32_TOL if dt == np.float32 else F64_TOL
+            for k in (1, 65, 128):
+                x = torch.from_numpy(rng.standard_normal((bsr.shape[1], k)).astype(dt)).to(dev)
+                y_sp = torch.from_numpy(s_dt @ x.cpu().double().numpy())
+                y_rem = remainder_spmm(wplan.rem_data, wplan.rem_row, wplan.rem_col,
+                                       bsr.shape[0], x, x.dtype)
+                bp = BsrSpmmKernel.plan(bsr, k, device=dev)
+                xp = sl.to_padded(x)
+                for what, y, twin, full in (
+                        ("slab", bdia_spmm_slab(sl, x), bdia_spmm_slab_reference(sl, x), None),
+                        ("slab padded", bdia_spmm_slab_padded(sl, xp),
+                         bdia_spmm_slab_reference(sl, xp, padded=True), None),
+                        ("ring", bdia_spmm_ring(wplan, x), bdia_spmm_ring_reference(wplan, x),
+                         None),
+                        ("bsr", bp(x), bsr_spmm_reference(bp, x), 0)):
+                    torch.cuda.synchronize()
+                    err = _relerr(y, twin)
+                    _check(f"{name} {dt.__name__} k={k} {what} kernel vs twin", err, tol)
+                    if full is None:  # the slab and ring kernels leave out the remainder
+                        full = (sl.from_padded(y, k) if what == "slab padded" else y) + y_rem
+                    else:
+                        full = y
+                    _check(f"{name} {dt.__name__} k={k} {what} vs scipy f64",
+                           _relerr(full, y_sp), tol)
+                    worst[dt] = max(worst[dt], err)
+                    n_checks += 1
+    print(f"[small-slab] {n_checks} products (8 plans x f32/f64 x k in 1/65/128 x slab, slab "
+          f"padded, ring, bsr; (g, W) of the slab plans {sorted(set(widths))}): kernel vs twin "
+          f"worst {worst[np.float32]:.2e} f32 (tol {F32_TOL:.0e}), {worst[np.float64]:.2e} f64 "
+          f"(tol {F64_TOL:.0e}); vs scipy f64 within the same tolerances", flush=True)
+
+    # -- 6. main path: spmv(bsr, x) at full size ------------------------------
     t0 = time.perf_counter()
     a_host = fem_blocks(NX, dof=DOF, dtype=np.float32, seed=SEED, return_bsr=True)
     t_gen = time.perf_counter() - t0
@@ -279,7 +389,7 @@ def main() -> int:
           f"(plan + launch) {t_first:.1f} s; launches {launches_spmv}; vs twin {err_twin:.2e} "
           f"(max abs {abs_spmv:.2e}), vs scipy f64 {err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
 
-    # -- 6. CG over BdiaOperator on the SPD block system ------------------------
+    # -- 7. CG over BdiaOperator on the SPD block system ------------------------
     t0 = time.perf_counter()
     s_csr = _diag_shift(from_scipy((a_sp + a_sp.T).tocsr()), 1.1)
     s_bsr = csr_to_bsr(s_csr, (DOF, DOF))
@@ -317,9 +427,42 @@ def main() -> int:
     _check("1M operator kernel vs twin", _relerr(y_op, y_op_twin), F32_TOL)
     abs_op = float((y_op - y_op_twin).abs().max())
     sb_sp = to_scipy(s_csr)  # the operator's matrix, for the library call
-    del s_csr, s_bsr, s64, res, warm
+    del res, warm
 
-    # -- 7. main path: spmv(csr, x) on the 4M-row stencil ----------------------
+    # -- 8. main path: block_cg over the same system's BDIA plan, s = 128 -------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    B = torch.randn((s_bsr.shape[0], K_WIDE), generator=gen, device=dev, dtype=torch.float32)
+    M = ct.solvers.jacobi(s_csr, device=dev)
+    _reset()
+    t0 = time.perf_counter()
+    res = ct.solvers.block_cg(op.bdia, B, tol=1e-6, maxiter=100, M=M)
+    torch.cuda.synchronize()
+    t_bcg = time.perf_counter() - t0
+    launches_bcg = _launched("bdia_spmm_slab", "block_cg over the BDIA plan")
+    if not res.converged:
+        raise AssertionError(f"block_cg did not converge: {res.iterations} iterations, "
+                             f"worst residual {res.residual_norm:.3e}")
+    B64 = B.cpu().double().numpy()
+    col_rel = (np.linalg.norm(B64 - s64 @ res.x.cpu().double().numpy(), axis=0)
+               / np.linalg.norm(B64, axis=0))
+    if not col_rel.max() <= 1e-6:
+        raise AssertionError(f"block_cg worst true column residual {col_rel.max():.3e} > 1e-6")
+    t0 = time.perf_counter()
+    warm = ct.solvers.block_cg(op.bdia, B, tol=1e-6, maxiter=100, M=M)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    print(f"[block-cg] {s_bsr.shape[0]} rows, s = {K_WIDE} right-hand sides (torch.Generator "
+          f"on the card), jacobi, tol 1e-6: converged {res.converged} in {res.iterations} "
+          f"iterations; first solve {t_bcg * 1e3:.1f} ms (slab plan built in it), warm solve "
+          f"{t_warm * 1e3:.1f} ms = {t_warm / max(warm.iterations, 1) * 1e3:.2f} ms per "
+          f"iteration (host clock, one host sync per iteration); slab launches {launches_bcg} "
+          f"= {launches_bcg / (res.iterations + 1):.2f} per operator application "
+          f"({res.iterations} iterations + the first residual); worst true column residual "
+          f"{col_rel.max():.2e} (f64 host, tol 1e-6)", flush=True)
+    del s_csr, s_bsr, s64, res, warm, B, B64, M
+
+    # -- 9. main path: spmv(csr, x) on the 4M-row stencil ----------------------
     t0 = time.perf_counter()
     st_host = stencil_2d(GRID_SPMV, dtype=np.float32)
     st_sp = to_scipy(st_host)
@@ -345,7 +488,7 @@ def main() -> int:
           f"{launches_dspmv}; vs twin {err_twin:.2e} (max abs {abs_dspmv:.2e}), vs scipy f64 "
           f"{err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
 
-    # -- 8. main path: cg(solver_operator(S), b), S = I + stencil ---------------
+    # -- 10. main path: cg(solver_operator(S), b), S = I + stencil --------------
     t0 = time.perf_counter()
     s_sp = (sp.identity(st_sp.shape[0], dtype=np.float32, format="csr") + st_sp).tocsr()
     dop = ct.solver_operator(from_scipy(s_sp))
@@ -380,7 +523,7 @@ def main() -> int:
     abs_dop = float((yd_op - yd_twin).abs().max())
     del res, warm, x64, b64
 
-    # -- 9. main paths: spmm(csr, X) and spmm(bsr, X), k = 32 ------------------
+    # -- 11. main paths: spmm(csr, X) and spmm(bsr, X), k = 32 -----------------
     t0 = time.perf_counter()
     mm_host = stencil_2d(GRID_SPMM, dtype=np.float32)
     mm_sp = to_scipy(mm_host)
@@ -425,13 +568,77 @@ def main() -> int:
           f"f64 {err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
     del Y, Y_twin, Yb, Yb_twin
 
-    # -- 10. timing: kernel vs plain twin vs library call, every entry ---------
+    # -- 12. main paths at k = 128: slab, ring, BSR and scalar-DIA SpMM ---------
+    Xw = torch.randn((a.shape[1], K_WIDE), generator=gen, device=dev, dtype=torch.float32)
+    Yw_sp = torch.from_numpy(a_sp.astype(np.float64) @ Xw[:, :SCIPY_COLS].cpu().double().numpy())
+
+    def wide_check(what, y, twin):
+        """kernel vs twin on every column, vs scipy f64 on the first SCIPY_COLS"""
+        err = _relerr(y, twin)
+        _check(f"1M {what} kernel vs twin", err, F32_TOL)
+        err_sp = _relerr(y[:, :SCIPY_COLS], Yw_sp)
+        _check(f"1M {what} vs scipy f64 ({SCIPY_COLS} columns)", err_sp, F32_TOL)
+        return err, err_sp, float((y - twin).abs().max())
+
+    _reset()
+    t0 = time.perf_counter()
+    Yw = ct.spmm(a, Xw)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches_slab = _launched("bdia_spmm_slab", f"spmm(bsr, X) at k={K_WIDE}")
+    if _counters()["dia_spmm"].launches:
+        raise AssertionError(f"spmm(bsr, X) at k={K_WIDE} launched dia_spmm")
+    sl = default_plan_cache.get(plan, "slab")
+    err, err_sp, abs_slab = wide_check("spmm(bsr, X) slab", Yw, bdia_spmm_slab_reference(sl, Xw))
+    print(f"[spmm-wide] slab: spmm(bsr, X), {a.shape[0]} rows, k {K_WIDE}: slab plan g {sl.g}, "
+          f"W {sl.width}, {sl.slabs.numel() * sl.slabs.element_size() / 1e6:.1f} MB, far "
+          f"offsets {sl.far_offsets}; first call (slab plan built + launch) {t_first:.2f} s; "
+          f"launches slab {launches_slab}, dia_spmm 0; vs twin {err:.2e} (max abs "
+          f"{abs_slab:.2e}), vs scipy f64 {err_sp:.2e} on {SCIPY_COLS} of {K_WIDE} columns "
+          f"(tol {F32_TOL:.0e})", flush=True)
+    del Yw
+    _reset()
+    Yr = ct.spmm(plan, Xw, method="pallas_bdia")
+    torch.cuda.synchronize()
+    launches_ring = _launched("bdia_spmm_ring", "spmm(plan, X, method='pallas_bdia')")
+    err, err_sp, abs_ring = wide_check("ring", Yr, bdia_spmm_ring_reference(plan, Xw))
+    print(f"[spmm-wide] ring: spmm(plan, X, method='pallas_bdia'): {plan.npairs} pairs; "
+          f"launches {launches_ring}; vs twin {err:.2e} (max abs {abs_ring:.2e}), vs scipy f64 "
+          f"{err_sp:.2e} on {SCIPY_COLS} columns", flush=True)
+    del Yr
+    _reset()
+    t0 = time.perf_counter()
+    Yb = ct.spmm(a, Xw, method="pallas_bsr")
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches_bsr = _launched("bsr_spmm", "spmm(bsr, X, method='pallas_bsr')")
+    bplan = BsrSpmmKernel.plan(a, K_WIDE)
+    err, err_sp, abs_bsr = wide_check("bsr", Yb, bsr_spmm_reference(bplan, Xw))
+    print(f"[spmm-wide] bsr: spmm(bsr, X, method='pallas_bsr'): ELL vals "
+          f"{tuple(bplan.vals.shape)}, G {bplan.G}, K {bplan.K}; first call (ELL plan + "
+          f"launch) {t_first:.2f} s; launches {launches_bsr}; vs twin {err:.2e} (max abs "
+          f"{abs_bsr:.2e}), vs scipy f64 {err_sp:.2e} on {SCIPY_COLS} columns", flush=True)
+    del Yb
+    _reset()
+    Yd = ct.spmm(splan, Xw)
+    torch.cuda.synchronize()
+    launches_dia_w = _launched("dia_spmm", f"spmm(scalar-DIA plan, X) at k={K_WIDE}")
+    err, err_sp, abs_dia_w = wide_check("scalar DIA", Yd, splan._spmm_reference(Xw))
+    print(f"[spmm-wide] scalar DIA: spmm(scalar-DIA plan, X), {splan.ndiags} diagonals (the "
+          f"route spmm(bsr, X) took at k > 64 before the slab); launches {launches_dia_w}; vs "
+          f"twin {err:.2e} (max abs {abs_dia_w:.2e}), vs scipy f64 {err_sp:.2e} on "
+          f"{SCIPY_COLS} columns", flush=True)
+    del Yd
+
+    # -- 13. timing: kernel vs plain twin vs library call, every entry ---------
     bw, bw_known = hbm_bandwidth()
     if not bw_known:
         bw = 3.35e12
         print(f"[timing] {kind} is not in the HBM table: bounds use the H100 SXM "
               f"3.35 TB/s", flush=True)
     entries = []
+    n, m = a.shape[1], a.shape[0]
+    xy_w = (n + m) * K_WIDE * 4  # X read once and Y written once at k = 128
     for (name, source, replaces, kernel, plain, lib_op, operand, nbytes, flops, launches,
          max_abs) in (
             ("bdia_spmv [spmv(bsr, x)]", "bdia_spmv", f"{BDIA_PY}:290 (B1; also :409, B3)",
@@ -458,14 +665,38 @@ def main() -> int:
              (mplan.vals.numel() + (mplan.shape[0] + mplan.shape[1]) * K) * 4,
              2 * mplan.vals.numel() * K, launches_mm_csr, abs_mm_csr),
             (f"dia_spmm [spmm(bsr, X), k={K}]", "dia_spmm",
-             f"{DIA_PY}:1148 (B14, k <= 64); wide k: :1023 (B13), :1314 (B15)",
+             f"{DIA_PY}:1148 (B14, k <= 64)",
              lambda: dia_spmm(splan, Xb), lambda: dia_spmm_reference(splan, Xb), a_sp, Xb,
              (splan.vals.numel() + (splan.shape[0] + splan.shape[1]) * K) * 4,
-             2 * splan.vals.numel() * K, launches_mm_bsr, abs_mm_bsr)):
+             2 * splan.vals.numel() * K, launches_mm_bsr, abs_mm_bsr),
+            (f"bdia_spmm_slab [spmm(bsr, X), k={K_WIDE}]", "bdia_slab_spmm",
+             f"{SLAB_PY}:518 (B6; entries :505, :494), :290 (B5)",
+             lambda: bdia_spmm_slab(sl, Xw), lambda: bdia_spmm_slab_reference(sl, Xw), a_sp, Xw,
+             # operations: those A @ X needs (the BDIA plan's stored values), not
+             # the zeros the sheared slab multiplies as well
+             sl.slabs.numel() * 4 + xy_w, 2 * plan.vals.numel() * K_WIDE, launches_slab,
+             abs_slab),
+            (f"bdia_spmm_ring [spmm(plan, X, method='pallas_bdia'), k={K_WIDE}]", "bdia_spmm",
+             f"{BDIA_PY}:607 (B4)", lambda: bdia_spmm_ring(plan, Xw),
+             lambda: bdia_spmm_ring_reference(plan, Xw), a_sp, Xw,
+             plan.vals.numel() * 4 + xy_w, 2 * plan.vals.numel() * K_WIDE, launches_ring,
+             abs_ring),
+            (f"bsr_spmm [spmm(bsr, X, method='pallas_bsr'), k={K_WIDE}]", "bsr_spmm",
+             f"{BSR_PY}:91 (B7)", lambda: bsr_spmm(bplan, Xw),
+             lambda: bsr_spmm_reference(bplan, Xw), a_sp, Xw,
+             (bplan.vals.numel() + bplan.cols.numel()) * 4 + xy_w,
+             2 * bplan.vals.numel() * K_WIDE, launches_bsr, abs_bsr),
+            (f"dia_spmm [spmm(scalar-DIA plan, X), k={K_WIDE}]", "dia_spmm",
+             f"{DIA_PY}:1023 (B13), :1314 (B15)", lambda: dia_spmm(splan, Xw),
+             lambda: dia_spmm_reference(splan, Xw), a_sp, Xw,
+             splan.vals.numel() * 4 + xy_w, 2 * splan.vals.numel() * K_WIDE, launches_dia_w,
+             abs_dia_w)):
         S = _sparse_csr(lib_op, dev)
         library = lambda S=S, v=operand: S @ v  # noqa: E731
         _check(f"{name} library call vs kernel", _relerr(library(), kernel()), F32_TOL)
-        runs = [time_cuda(f, warmup=3, runs=20, reps=10)
+        # the k = 128 entries take milliseconds a call (their twins tens): fewer samples
+        nr, reps = (20, 10) if operand is not Xw else (10, 3)
+        runs = [time_cuda(f, warmup=3, runs=nr, reps=reps)
                 for f in (plain, kernel, library, library, kernel, plain)]
         ms = float(np.median(runs[1].samples_ms + runs[4].samples_ms))
         plain_ms = float(np.median(runs[0].samples_ms + runs[5].samples_ms))
@@ -479,8 +710,8 @@ def main() -> int:
               f"library (torch.sparse_csr_tensor @, cuSPARSE) {library_ms * 1e3:.1f} us; "
               f"{nbytes / 1e6:.1f} MB moved -> {gbs:.0f} GB/s, HBM fraction "
               f"{gbs * 1e9 / bw:.3f} of {bw / 1e12:.2f} TB/s; bound {bound_ms * 1e3:.1f} us "
-              f"({bound_by}); card {card}; median of 2x20 samples of 10 calls (CUDA events)",
-              flush=True)
+              f"({bound_by}: {flops / 1e9:.2f} GFLOP); card {card}; median of 2x{nr} samples "
+              f"of {reps} calls (CUDA events)", flush=True)
         entries.append({"name": name, "route": "cuda",
                         "source": f"cask_tpu_torch/csrc/{source}.cu", "replaces": replaces,
                         "launches": launches, "max_abs_err": max_abs, "ms": ms,

@@ -115,6 +115,31 @@ def test_slice_end_to_end_on_cpu():
     assert res.converged
 
 
+@pytest.mark.parametrize("solver", ["cg", "block_cg"])
+@pytest.mark.parametrize("operator", ["matrix", "callable"])
+def test_host_rhs_runs_on_the_card_unless_asked(monkeypatch, solver, operator):
+    # a numpy b with a matrix of host arrays (or a plain callable) is not a
+    # request for the CPU: with no card the solve raises instead of running there
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = tgen.stencil_2d(8)
+    b = _b(a.shape[0], 6)
+    if solver == "block_cg":
+        b = np.stack([b, b + 1.0], axis=1)
+    op = a if operator == "matrix" else (lambda v: ct.spmv(a, v))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(ct.solvers, solver)(op, b, tol=1e-8)
+
+
+def test_host_rhs_follows_a_cpu_operator():
+    # an operator whose plan was built on the CPU takes a numpy b there
+    _, st, _ = _spd_system(6, 2)
+    b = _b(st.shape[0], 7)
+    res = cg(ct.BdiaOperator(ct.bdia_plan(st, device="cpu")), b, tol=1e-10)
+    assert res.x.device.type == "cpu" and res.converged
+    s = tconv.to_scipy(st)
+    assert np.linalg.norm(b - s @ res.x.numpy()) / np.linalg.norm(b) <= 1e-9
+
+
 def test_time_cuda_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):

@@ -1,9 +1,10 @@
-"""Parity of the port's SpMM formulations, DIA SpMM twin and ``spmm`` dispatch
-with the JAX package, on the CPU (the kernel on the card:
+"""Parity of the port's SpMM formulations, DIA and BDIA ring SpMM twins and
+``spmm`` dispatch with the JAX package, on the CPU (the kernels on the card:
 tests/test_torch_gpu.py).
 
-The reference's DIA SpMM Pallas kernels (B12-B15) run in interpret mode, as
-tests/test_spmm.py and tests/test_pallas_kernels.py run them.  Tolerances:
+The reference's DIA SpMM Pallas kernels (B12-B15), its BDIA ring (B4) and
+the wide-k ``spmm`` chain run in interpret mode, as tests/test_spmm.py,
+tests/test_bdia.py and tests/test_pallas_kernels.py run them.  Tolerances:
 f64 ≤ 1e-12 normwise, f32 ≤ 1e-5; B15 multiplies its near band in bf16 and
 is held within its own 5e-3 (tests/test_spmm.py::TestRingMxuHybrid).
 """
@@ -24,16 +25,20 @@ import cask_tpu.ops.dia as jdia
 import cask_tpu_torch.formats.convert as tconv
 import cask_tpu_torch.formats.generate as tgen
 import cask_tpu_torch.ops.bdia as tbdia
+import cask_tpu_torch.ops.bdia_slab as tslab
 import cask_tpu_torch.ops.dia as tdia
+from cask_tpu.ops.pallas import bdia_kernels as jbk
 from cask_tpu.ops.pallas import dia_kernels as jdk
 from cask_tpu.ops.spmm import spmm as jax_spmm
 from cask_tpu_torch.formats.matrix import torch_dtype
+from cask_tpu_torch.ops.kernels.bdia_kernels import bdia_mm_ok, bdia_spmm_ring
 from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmm, dia_spmm_reference
 from cask_tpu_torch.ops.spmm import spmm
 from cask_tpu_torch.ops.spmv import PlanCache
 
 # the module itself: ``cask_tpu_torch.ops.spmv`` as an attribute is the function
 spmv_mod = importlib.import_module("cask_tpu_torch.ops.spmv")
+jspmv_mod = importlib.import_module("cask_tpu.ops.spmv")
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
 
 
@@ -217,14 +222,135 @@ class TestScalarDia:
         assert np.array_equal(np.asarray(js.rem_data), ts.rem_data.numpy())
 
 
+def _blocks_on(nb, b, offsets, seed):
+    """A scipy matrix of random b×b blocks on the given block offsets."""
+    rng = np.random.default_rng(seed)
+    s = sp.lil_matrix((nb * b, nb * b))
+    for i in range(nb):
+        for d in offsets:
+            if 0 <= i + d < nb:
+                s[i * b : (i + 1) * b, (i + d) * b : (i + d + 1) * b] = rng.standard_normal((b, b))
+    return s.tocsr()
+
+
+def _with_remainder():
+    """fem_blocks(8, dof=4) plus scattered 4×4 blocks that spill to the COO
+    remainder."""
+    s = tconv.to_scipy(tgen.fem_blocks(8, dof=4)).tolil()
+    rng = np.random.default_rng(16)
+    for _ in range(6):
+        bi, bj = int(rng.integers(0, 64)), int(rng.integers(0, 64))
+        s[bi * 4 : bi * 4 + 4, bj * 4 : bj * 4 + 4] = rng.standard_normal((4, 4))
+    return s.tocsr()
+
+
+BDIA_CASES = {  # name -> (scipy f64, blocksize)
+    "fem2": lambda: (tconv.to_scipy(tgen.fem_blocks(8, dof=2)), 2),
+    "fem3_ragged": lambda: (tconv.to_scipy(tgen.fem_blocks(7, dof=3)), 3),
+    "remainder": lambda: (_with_remainder(), 4),
+    "84_pairs": lambda: (_blocks_on(64, 4, range(-10, 11), 3), 4),
+    "81_pairs_b3": lambda: (_blocks_on(64, 3, range(-13, 14), 5), 3),  # no slab, no ring
+    "offset_1100": lambda: (_blocks_on(1200, 2, (-1100, 0, 1100), 4), 2),
+}
+
+
+def _bdia_plans(name, dtype=np.float64):
+    """(reference BDIA plan, port BDIA plan on the CPU, scipy)."""
+    s, b = BDIA_CASES[name]()
+    s = s.astype(dtype)
+    jp = jbdia.bdia_plan(jconv.csr_to_bsr(jconv.from_scipy(s), (b, b)), (b, b))
+    tp = tbdia.bdia_plan(tconv.csr_to_bsr(tconv.from_scipy(s), (b, b)), (b, b), device="cpu")
+    return jp, tp, s
+
+
+class TestRingTwin:
+    @pytest.mark.parametrize("name,k", [("remainder", 128), ("fem3_ragged", 65)])
+    def test_matches_the_reference_ring_kernel(self, name, k):
+        # B4 (bdia_spmm_pallas_ring), the remainder left out by both
+        jp, tp, s = _bdia_plans(name)
+        x = _X(s.shape[1], k, seed=21)
+        y_ref = np.asarray(jbk.bdia_spmm_pallas_ring(jp, jnp.asarray(x)))
+        y = bdia_spmm_ring(tp, torch.from_numpy(x))
+        assert y.shape == y_ref.shape and _relerr(y, y_ref) <= 1e-12
+        rem = sp.csr_matrix((tp.rem_data.numpy(), (tp.rem_row.numpy(), tp.rem_col.numpy())),
+                            shape=s.shape)
+        assert _relerr(y.numpy() + rem @ x, s @ x) <= 1e-12
+
+    def test_types(self):
+        _, tp, s = _bdia_plans("fem2", np.float32)
+        x = torch.from_numpy(_X(s.shape[1], 70, np.float32, seed=22))
+        y = bdia_spmm_ring(tp, x)
+        assert y.dtype == torch.float32
+        assert _relerr(y, s @ x.double().numpy()) <= TOL[np.float32]
+        assert bdia_spmm_ring(tp, x, out_dtype=np.float64).dtype == torch.float64
+
+    @pytest.mark.parametrize("name", list(BDIA_CASES))
+    @pytest.mark.parametrize("k", [8, 128, 600])
+    def test_mm_ok_equals_the_reference(self, name, k):
+        jp, tp, _ = _bdia_plans(name)
+        assert bdia_mm_ok(tp, k) == jbk.bdia_mm_ok(jp, k)
+
+
 class TestDispatch:
     @pytest.mark.parametrize("method", ["slab", "pallas_bdia", "pallas_bsr"])
-    def test_unported_kernels_raise(self, method):
-        # no silent fallback from an explicit kernel (ROADMAP Queue C 2)
-        a = tgen.fem_blocks(4, dof=4, return_bsr=True)
-        p = tbdia.bdia_plan(a, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue A 8"):
-            spmm(p, torch.zeros((a.shape[1], 128), dtype=torch.float64), method=method)
+    @pytest.mark.parametrize("k", [65, 128])
+    def test_wide_k_methods_match_the_reference(self, method, k, monkeypatch):
+        # each explicit kernel runs (its twin on the CPU) and equals the
+        # reference's spmm, with the BSR auto route forced on off the TPU
+        monkeypatch.setattr(jspmv_mod, "_AUTO_BSR_PLAN_FORCE", True)
+        a_j = jgen.fem_blocks(8, dof=4, return_bsr=True)
+        a_t = tgen.fem_blocks(8, dof=4, return_bsr=True)
+        if method == "pallas_bsr":
+            j, t = a_j, a_t
+        else:
+            j, t = jbdia.bdia_plan(a_j), tbdia.bdia_plan(a_t, device="cpu")
+        x = _X(a_j.shape[1], k, seed=23)
+        y_ref = np.asarray(jax_spmm(j, jnp.asarray(x), method=method))
+        y = spmm(t, torch.from_numpy(x), method=method)
+        assert _relerr(y, y_ref) <= 1e-12
+        assert _relerr(y, jconv.to_scipy(a_j) @ x) <= 1e-12
+
+    @pytest.mark.parametrize("method,name", [("slab", "fem3_ragged"),
+                                             ("pallas_bdia", "offset_1100"),
+                                             ("pallas_bdia", "84_pairs")])
+    def test_explicit_kernel_refuses_a_plan_it_cannot_take(self, method, name):
+        # ROADMAP Queue C 2: no silent fallback from an explicit kernel at
+        # k > 64; at k ≤ 64 both methods run scalar DIA, as the reference does
+        jp, tp, s = _bdia_plans(name)
+        with pytest.raises(ValueError, match=method):
+            spmm(tp, torch.from_numpy(_X(s.shape[1], 65, seed=24)), method=method)
+        x = _X(s.shape[1], 8, seed=25)
+        y = spmm(tp, torch.from_numpy(x), method=method)
+        assert _relerr(y, np.asarray(jax_spmm(jp, jnp.asarray(x), method=method))) <= 1e-12
+        assert _relerr(y, s @ x) <= 1e-12
+
+    @pytest.mark.parametrize("name,route", [("fem3_ragged", "ring"), ("81_pairs_b3", "scalar_dia"),
+                                            ("remainder", "slab")])
+    def test_auto_wide_k_chain(self, name, route, monkeypatch):
+        # slab where the slab gates admit a plan, else the ring where its
+        # gate does, else scalar DIA; the remainder is added once
+        plans = PlanCache()
+        monkeypatch.setattr(spmv_mod, "default_plan_cache", plans)
+        _, tp, s = _bdia_plans(name)
+        x = _X(s.shape[1], 100, seed=26)
+        y = spmm(tp, torch.from_numpy(x))
+        assert _relerr(y, s @ x) <= 1e-12
+        has_slab = plans.get(tp, "slab") is not None
+        assert (has_slab, bdia_mm_ok(tp, 100)) == {"slab": (True, True), "ring": (False, True),
+                                                   "scalar_dia": (False, False)}[route]
+        # the slab entry (a plan or a cached None), plus scalar DIA's when it ran
+        assert set(plans._plans[tp]) == ({"slab", "scalar_dia"} if route == "scalar_dia"
+                                         else {"slab"})
+
+    def test_held_slab_operand(self):
+        a = tgen.fem_blocks(8, dof=4, return_bsr=True)
+        sl = tslab.bdia_slab_plan(tbdia.bdia_plan(a, device="cpu"), 8)
+        x = _X(a.shape[1], 12, seed=27)
+        s = tconv.to_scipy(a)
+        assert _relerr(spmm(sl, torch.from_numpy(x)), s @ x) <= 1e-12
+        assert spmm(sl, torch.from_numpy(x), accum_dtype=np.float64).dtype == torch.float64
+        with pytest.raises(ValueError, match="transpose"):
+            spmm(sl, torch.from_numpy(x), transpose=True)
 
     def test_rejects_bad_arguments(self):
         _, t = _pair("csr")
@@ -240,7 +366,8 @@ class TestDispatch:
     @pytest.mark.parametrize("k", [8, 100])
     @pytest.mark.parametrize("transpose", [False, True])
     def test_bdia_plan_operand_matches_the_reference(self, k, transpose):
-        # at every k a BDIA plan multiplies through its scalar-DIA plan
+        # scalar DIA at k = 8, the slab at k = 100 (the reference off the TPU
+        # takes scalar DIA at both)
         a_j, a_t = jgen.fem_blocks(6, dof=2), tgen.fem_blocks(6, dof=2)
         jp, tp = jbdia.bdia_plan(a_j, (2, 2)), tbdia.bdia_plan(a_t, (2, 2), device="cpu")
         x = _X(a_j.shape[0], k, seed=11)

@@ -197,6 +197,20 @@ class TestDispatch:
         with pytest.raises(TypeError):
             spmv(np.eye(3), torch.zeros(3))
 
+    @pytest.mark.parametrize("op", ["spmv", "spmm"])
+    def test_host_operand_needs_a_card(self, op, monkeypatch):
+        # a numpy operand with a matrix of host arrays goes to the CUDA
+        # device, never silently to the CPU: without a card it raises
+        from cask_tpu_torch.ops.spmm import spmm
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        a = tgen.stencil_2d(8)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            spmv(a, np.ones(64)) if op == "spmv" else spmm(a, np.ones((64, 2)))
+        # a matrix whose tensors lie on the CPU takes a host operand there
+        y = spmv(a.to("cpu"), np.ones(64)) if op == "spmv" else spmm(a.to("cpu"), np.ones((64, 2)))
+        assert y.device.type == "cpu"
+
     def test_interop_bsr_through_the_public_entry(self):
         j, _ = _pair("bsr", np.float64)
         t = interop.bsr_from_arrays(np.asarray(j.data), np.asarray(j.indices),
