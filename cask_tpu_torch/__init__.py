@@ -14,7 +14,11 @@ ELL-packed BSR SpMM with its kernel, the DIA plan with its CUDA SpMV and
 SpMM kernels, the ``spmv`` and ``spmm`` dispatch with their cached plans
 (the wide-k chain above k = 64 included), CG with a Jacobi preconditioner
 over a :class:`BdiaOperator` or a :class:`DiaOperator`
-(:func:`solver_operator`), and block CG over ``spmm``.
+(:func:`solver_operator`), block CG over ``spmm``, and the
+unstructured-matrix path: Matrix Market input (:func:`read_mtx`,
+:func:`write_mtx`), the panel one-hot plan (:func:`poh_plan`) with its CUDA
+SpMV and SpMM kernels, under ``spmv``, ``spmm``, ``transposed`` and CG, and
+the lane-bucketed ELL plans (:func:`lell_plan_hyb`) with their CUDA kernel.
 """
 
 __version__ = "0.1.0"
@@ -30,8 +34,11 @@ from cask_tpu_torch.formats.convert import (  # noqa: F401
     transpose,
 )
 from cask_tpu_torch.formats import generate  # noqa: F401
+from cask_tpu_torch.formats.mtx import read_mtx, write_mtx  # noqa: F401
 from cask_tpu_torch.ops import spmm, spmv  # noqa: F401
 from cask_tpu_torch.ops.spmv import PlanCache, transposed  # noqa: F401
 from cask_tpu_torch.ops.bdia import BdiaMatrix, BdiaOperator, bdia_plan  # noqa: F401
 from cask_tpu_torch.ops.dia import DiaMatrix, DiaOperator, dia_plan, solver_operator  # noqa: F401
+from cask_tpu_torch.ops.lell import HybLell, LellMatrix, lell_plan, lell_plan_hyb  # noqa: F401
+from cask_tpu_torch.ops.poh import PohMatrix, poh_plan  # noqa: F401
 from cask_tpu_torch import solvers  # noqa: F401

@@ -9,6 +9,8 @@ the JAX package's.
 - ``fem_blocks``    — stencil graph with dense (b×b) node blocks: multi-dof
                       FEM, the natural BSR workload
 - ``power_law``     — scale-free graph (Barabási–Albert-ish)
+- ``random_uniform`` — Erdős–Rényi uniform random sparsity
+- ``suite``          — a named set of the above (SuiteSparse stand-in)
 
 All return host-side CSR with sorted, deduplicated indices.
 """
@@ -96,6 +98,29 @@ def stencil_2d(nx: int, ny: Optional[int] = None, *, points: int = 5, dtype=np.f
     return _finish(data, np.concatenate(rows), np.concatenate(cols), (n, n))
 
 
+def stencil_3d(nx: int, ny: Optional[int] = None, nz: Optional[int] = None, *,
+               dtype=np.float64) -> CSR:
+    """7-point Laplacian on an nx×ny×nz grid.  SPD."""
+    ny = ny or nx
+    nz = nz or nx
+    n = nx * ny * nz
+    idx = np.arange(n).reshape(nx, ny, nz)
+    rows = [idx.ravel()]
+    cols = [idx.ravel()]
+    vals = [np.full(n, 6.0)]
+
+    def link(src, dst):
+        rows.extend([src.ravel(), dst.ravel()])
+        cols.extend([dst.ravel(), src.ravel()])
+        vals.extend([np.full(src.size, -1.0)] * 2)
+
+    link(idx[:-1, :, :], idx[1:, :, :])
+    link(idx[:, :-1, :], idx[:, 1:, :])
+    link(idx[:, :, :-1], idx[:, :, 1:])
+    data = np.concatenate(vals).astype(dtype)
+    return _finish(data, np.concatenate(rows), np.concatenate(cols), (n, n))
+
+
 def fem_blocks(nx: int, ny: Optional[int] = None, *, dof: int = 4, dtype=np.float64,
                seed=0, return_bsr: bool = False):
     """Stencil connectivity with dense dof×dof node blocks — multi-dof FEM.
@@ -143,3 +168,39 @@ def power_law(n: int, *, avg_degree: int = 8, exponent: float = 2.1, dtype=np.fl
         src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
     data = rng.standard_normal(src.shape[0]).astype(dtype)
     return _finish(data, src, dst, (n, n))
+
+
+def random_uniform(m: int, n: Optional[int] = None, *, density: float = 0.01,
+                   dtype=np.float64, seed=0) -> CSR:
+    """Erdős–Rényi uniform random sparsity."""
+    n = n or m
+    rng = _rng(seed)
+    nnz = max(1, int(round(m * n * density)))
+    row = rng.integers(0, m, size=nnz).astype(np.int64)
+    col = rng.integers(0, n, size=nnz).astype(np.int64)
+    data = rng.standard_normal(nnz).astype(dtype)
+    return _finish(data, row, col, (m, n))
+
+
+def suite(size: str = "small"):
+    """A named matrix suite for tests/benchmarks (SuiteSparse stand-in).
+
+    Returns ``{name: CSR}``.  Sizes: small (~2k rows), medium (~100k rows).
+    """
+    if size == "small":
+        return {
+            "bcsstk_like": banded(2003, 40, density=0.35, seed=1, spd=True),
+            "stencil5_45x45": stencil_2d(45),
+            "fem_dof4_23x23": fem_blocks(23, dof=4),
+            "powerlaw_2k": power_law(2000, avg_degree=8, seed=2),
+            "rand_2k": random_uniform(2000, density=0.005, seed=3),
+        }
+    if size == "medium":
+        return {
+            "stencil5_317x317": stencil_2d(317),  # ~100k rows
+            "stencil9_317x317": stencil_2d(317, points=9),
+            "stencil7_47": stencil_3d(47),  # ~104k rows
+            "fem_dof4_158x158": fem_blocks(158, dof=4),  # ~100k rows
+            "powerlaw_100k": power_law(100_000, avg_degree=16, seed=5),
+        }
+    raise ValueError(f"unknown suite size {size!r}")

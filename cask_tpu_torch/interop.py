@@ -16,6 +16,8 @@ from cask_tpu_torch.ops.bdia import _LANE, BdiaMatrix
 from cask_tpu_torch.ops.bdia_slab import BdiaSlabs
 from cask_tpu_torch.ops.bsr_spmm import BsrSpmmKernel
 from cask_tpu_torch.ops.dia import DiaMatrix
+from cask_tpu_torch.ops.lell import ChunkedLell, HybLell, LellMatrix
+from cask_tpu_torch.ops.poh import PohMatrix
 
 
 def _index(x, name: str) -> np.ndarray:
@@ -128,3 +130,68 @@ def bsr_spmm_from_arrays(vals, cols, *, shape: Tuple[int, int], blocksize: Tuple
     return BsrSpmmKernel(vals=to_device(vals, device), cols=to_device(cols, device),
                          shape=(int(shape[0]), int(shape[1])), blocksize=(br, bc), G=G, K=K,
                          k=int(k))
+
+
+def poh_from_arrays(vals, cloc, rloc, wlo, whi, panel, first, last, *,
+                    shape: Tuple[int, int], row_panel: int, col_window: int,
+                    device) -> PohMatrix:
+    """A reference ``PohMatrix``'s packed arrays and fields (its ``rloc_t``,
+    a TPU layout, is not taken)."""
+    vals = np.asarray(vals)
+    cloc, rloc = np.asarray(cloc), np.asarray(rloc)
+    if vals.ndim != 3 or vals.shape[2] != 128 or cloc.shape != vals.shape \
+            or rloc.shape != vals.shape or cloc.dtype.kind not in "iu" \
+            or rloc.dtype.kind not in "iu":
+        raise ValueError(f"vals {vals.shape} / cloc {cloc.shape} / rloc {rloc.shape} are not "
+                         f"the POH packing (ntiles, S, 128) with integer indices")
+    tile = [_index(t, name) for t, name in ((wlo, "wlo"), (whi, "whi"), (panel, "panel"),
+                                            (first, "first"), (last, "last"))]
+    if any(t.shape != (vals.shape[0],) for t in tile):
+        raise ValueError(f"per-tile arrays must have length ntiles = {vals.shape[0]}")
+    wlo, whi, panel, first, last = (to_device(t, device) for t in tile)
+    return PohMatrix(vals=to_device(vals, device),
+                     cloc=to_device(cloc.astype(np.int32), device),
+                     rloc=to_device(rloc.astype(np.int32), device), wlo=wlo, whi=whi,
+                     panel=panel, first=first, last=last,
+                     shape=(int(shape[0]), int(shape[1])), row_panel=int(row_panel),
+                     col_window=int(col_window))
+
+
+def _lell_pack(vals, idx):
+    vals, idx = np.asarray(vals), np.asarray(idx)
+    if vals.ndim != 3 or vals.shape[2] != 128 or idx.shape != vals.shape \
+            or idx.dtype.kind not in "iu":
+        raise ValueError(f"vals {vals.shape} / idx {idx.shape} are not the LELL packing "
+                         f"(L, S_pad, 128) with integer indices")
+    return vals, idx.astype(np.int32)
+
+
+def lell_from_arrays(vals, idx, rem_data, rem_row, rem_col, *, shape: Tuple[int, int],
+                     groups: int, device) -> LellMatrix:
+    """A reference ``LellMatrix``'s packed arrays, remainder and fields."""
+    vals, idx = _lell_pack(vals, idx)
+    if int(groups) < 1 or 128 % int(groups):
+        raise ValueError(f"groups must divide 128, got {groups}")
+    rem_data = np.asarray(rem_data)
+    rem_row, rem_col = _index(rem_row, "rem_row"), _index(rem_col, "rem_col")
+    if not rem_data.shape == rem_row.shape == rem_col.shape:
+        raise ValueError("remainder arrays must have equal length")
+    return LellMatrix(vals=to_device(vals, device), idx=to_device(idx, device),
+                      rem_data=to_device(rem_data, device),
+                      rem_row=to_device(rem_row, device), rem_col=to_device(rem_col, device),
+                      shape=(int(shape[0]), int(shape[1])), groups=int(groups))
+
+
+def hyb_from_arrays(vals, idx, rem_data, rem_row, rem_col, hub_vals, hub_idx, slot2row, *,
+                    shape: Tuple[int, int], groups: int, device) -> HybLell:
+    """A reference ``HybLell``: its grouped tier's arrays (as
+    :func:`lell_from_arrays` takes them), then its hub tier's."""
+    main = lell_from_arrays(vals, idx, rem_data, rem_row, rem_col, shape=shape, groups=groups,
+                            device=device)
+    hub_vals, hub_idx = _lell_pack(hub_vals, hub_idx)
+    slot2row = _index(slot2row, "slot2row")
+    if slot2row.shape != (hub_vals.shape[1],):
+        raise ValueError(f"slot2row must have length S_pad = {hub_vals.shape[1]}")
+    hub = ChunkedLell(vals=to_device(hub_vals, device), idx=to_device(hub_idx, device),
+                      slot2row=to_device(slot2row, device), shape=main.shape)
+    return HybLell(main=main, hub=hub)

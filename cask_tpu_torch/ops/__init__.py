@@ -1,4 +1,4 @@
-"""Sparse ops: SpMV, SpMM and the DIA and BDIA plans.
+"""Sparse ops: SpMV, SpMM and the DIA, BDIA, POH and LELL plans.
 
 Each op has an always-available plain PyTorch formulation and, on the
 main path, a hand-written CUDA kernel (:mod:`cask_tpu_torch.ops.kernels`).

@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface, loaded with ``ctypes``.  The library lands in the
 package's own ``build/kernels/`` (``$CASK_TPU_TORCH_BUILD_DIR`` instead,
 where the package is installed read-only), under a name keyed by a hash
-of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once.  A missing ``nvcc`` or a failed build raises
-with the compiler's output.
+of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source or header rebuilds and an unchanged one loads at once.  A
+missing ``nvcc`` or a failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -39,7 +39,10 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
 
 

@@ -26,6 +26,8 @@ The PyTorch counterpart of :mod:`cask_tpu.ops.spmm`.  Dispatch:
   formulation.
 - A held :class:`cask_tpu_torch.ops.bdia_slab.BdiaSlabs` is the operator
   itself: the slab kernel plus the remainder the plan carries.
+- A :class:`cask_tpu_torch.ops.poh.PohMatrix` runs the POH SpMM kernel at
+  any k.
 
 Every route runs its kernel on CUDA tensors and the kernel's plain twin on
 CPU tensors.
@@ -44,6 +46,7 @@ from cask_tpu_torch.ops.bdia_slab import BdiaSlabs
 from cask_tpu_torch.ops.bsr_spmm import spmm_bsr
 from cask_tpu_torch.ops.dia import DiaMatrix, spmm_dia
 from cask_tpu_torch.ops.kernels.bdia_kernels import bdia_mm_ok, bdia_spmm_ring
+from cask_tpu_torch.ops.poh import PohMatrix, poh_transpose_plan
 from cask_tpu_torch.ops.spmv import (_accum_dtype, _on, as_operand, cached_plan,
                                      default_plan_cache, row_ids_from_indptr)
 
@@ -168,6 +171,10 @@ def spmm(a, x, *, transpose: bool = False, method: str = "auto",
             raise ValueError("BdiaSlabs has no transpose plan; shear transpose_plan(bdia) "
                              "instead")
         return a.spmm(x, out_dtype=accum_dtype)
+    if isinstance(a, PohMatrix):
+        if transpose:
+            a = poh_transpose_plan(a)  # one-time host repack; hold transposed(a) to reuse
+        return a.spmm(x)
     if isinstance(a, BdiaMatrix):
         if transpose:
             a = _bdia_transpose(a)  # one-time host rebuild; hold the plan to reuse

@@ -15,7 +15,10 @@ The PyTorch counterpart of :mod:`cask_tpu.ops.spmv`.  Dispatch:
   cached DIA plan, each with its CUDA kernel, when the plan qualifies (see
   :class:`PlanCache`); a matrix of host numpy arrays is planned onto the
   operand's device once.  Everything else takes the gather formulation,
-  which is also the JAX package's route off the TPU.
+  which is also the JAX package's route off the TPU.  As in the JAX
+  package, an unstructured CSR is not routed to a POH plan: the caller
+  plans it (:func:`cask_tpu_torch.ops.poh.poh_plan`) and passes the plan,
+  which runs its CUDA kernel.
 
 Operands run on the card unless the caller asks for the CPU, and a CPU
 tensor is how a caller asks: a host (numpy) operand goes to the matrix's
@@ -41,6 +44,7 @@ from cask_tpu_torch.ops.dia import DiaMatrix, dia_plan, estimate_dia_traffic, sp
 from cask_tpu_torch.ops.dia import transpose_plan as _dia_transpose
 from cask_tpu_torch.ops.kernels.bdia_kernels import bdia_kernel_ok
 from cask_tpu_torch.ops.kernels.dia_kernels import dia_kernel_ok
+from cask_tpu_torch.ops.poh import PohMatrix, poh_transpose_plan
 from cask_tpu_torch.utils.platform import default_device, plan_device
 
 # the auto route's remainder gate: a plan whose scalar remainder holds more
@@ -140,6 +144,8 @@ def transposed(a):
         return _dia_transpose(a)
     if isinstance(a, BdiaMatrix):
         return _bdia_transpose(a)
+    if isinstance(a, PohMatrix):
+        return poh_transpose_plan(a)
     raise TypeError(f"cannot transpose {type(a)}")
 
 
@@ -293,4 +299,8 @@ def spmv(a, x, *, transpose: bool = False, method: str = "auto",
         return a.spmv(x)
     if isinstance(a, DiaMatrix):
         return spmv_dia(a, x, transpose=transpose)
+    if isinstance(a, PohMatrix):
+        if transpose:
+            a = poh_transpose_plan(a)  # one-time host repack; hold transposed(a) to reuse
+        return a.spmv(x)
     raise TypeError(f"unsupported matrix type {type(a)}")

@@ -21,27 +21,45 @@ card.  Phases, one line each:
    and 4, a remainder, far offsets not divisible by g, none, one
    asymmetric, eight far offsets, a ragged rectangular matrix); f32 and
    f64, k ∈ {1, 65, 128}.
-6. spmv — ``spmv(bsr, x)`` through the public entry point on the
+6. small-poh — the POH SpMV and SpMM kernels against their twins and scipy
+   on the edge plans of the JAX package's POH tests (power law, both
+   rectangles, a band, one dense column, empty rows and columns, the
+   all-zero matrix, n below the window, other panel, window and tile
+   sizes, and ``graph_pattern_120.mtx`` through ``read_mtx``): ``spmv``,
+   ``transposed`` and ``spmm`` at k ∈ {1, 32, 150}, f32 and f64.
+7. small-lell — the LELL kernel against its twin and scipy: ``lell_plan``
+   at groups ∈ {1, 4, 8, 16} and ``lell_plan_hyb`` on a uniform matrix, a
+   power law, a rectangle and a plan wider than the reference's 4096·B cap.
+8. spmv — ``spmv(bsr, x)`` through the public entry point on the
    1,048,576-row dof-4 FEM matrix (f32).
-7. cg — ``cg(BdiaOperator(...), b)`` on an SPD block system of that size.
-8. block-cg — ``block_cg`` over that system's BDIA plan with 128 right-hand
+9. cg — ``cg(BdiaOperator(...), b)`` on an SPD block system of that size.
+10. block-cg — ``block_cg`` over that system's BDIA plan with 128 right-hand
    sides and Jacobi: the slab kernel once per iteration.
-9. dia-spmv — ``spmv(csr, x)`` on the 4,194,304-row 5-point stencil (f32).
-10. dia-cg — ``cg(solver_operator(S), b)`` with S = I + that stencil.
-11. spmm — ``spmm(csr, X)`` on the 1,048,576-row stencil and ``spmm(bsr, X)``
+11. dia-spmv — ``spmv(csr, x)`` on the 4,194,304-row 5-point stencil (f32).
+12. dia-cg — ``cg(solver_operator(S), b)`` with S = I + that stencil.
+13. spmm — ``spmm(csr, X)`` on the 1,048,576-row stencil and ``spmm(bsr, X)``
    on the FEM matrix, k = 32 (f32).
-12. spmm-wide — the FEM matrix at k = 128: ``spmm(bsr, X)`` (the slab
+14. spmm-wide — the FEM matrix at k = 128: ``spmm(bsr, X)`` (the slab
    kernel), ``spmm(plan, X, method="pallas_bdia")`` (the ring),
    ``spmm(bsr, X, method="pallas_bsr")`` and ``spmm`` of the scalar-DIA
    plan (the DIA SpMM kernel, the route ``spmm(bsr, X)`` took before the
    slab).
-13. timing — each kernel entry, its plain twin and the one PyTorch call
+15. poh-spmv — ``spmv(poh_plan(A), x)`` on ``power_law(1_000_000,
+   avg_degree=12)`` (f32): the unstructured path, one ``poh_spmv`` launch.
+16. poh-spmm — ``spmm(plan, X)`` on the same plan at k = 32.
+17. lell — ``lell_plan_hyb(A).spmv(x)``: the LELL kernel on the grouped and
+   the hub tier.
+18. poh-cg — CG with Jacobi over the POH plan of the SPD ``A + Aᵀ`` with a
+   shifted diagonal: one ``poh_spmv`` launch per operator application.
+19. timing — each kernel entry, its plain twin and the one PyTorch call
    that computes the same product (a cuSPARSE product through
    ``torch.sparse_csr_tensor``), with CUDA events, beside the entry's bound.
 
-Every main path (phases 6-12) runs with all launch counts set to 0 just
-before it and read just after, and must launch its kernel; its result must
-match the twin and scipy (f64, host).  It needs one CUDA device and exits
+The host-side power law (generated once, shared by phases 15-18) and its
+plans add about a minute of host time.  Every main path (phases 8-18)
+runs with all launch counts set to 0 just before it and read just after,
+and must launch its kernel; its result must match the twin and scipy
+(f64, host).  It needs one CUDA device and exits
 non-zero without one; any failed check raises.  The last two lines are
 JSON: the kernels that ran (launches, errors and times measured in this
 run), then the device.
@@ -61,16 +79,22 @@ GRID_SPMV = 2048  # stencil side for spmv/cg: 4,194,304 rows, 83.9 MB of f32 val
 GRID_SPMM = 1024  # stencil side for spmm: 1,048,576 rows, X and Y 134 MB each
 K = 32
 K_WIDE = 128  # BASELINE config 3's wide k; above 64 the BDIA plan's wide-k chain
+PL_N = 1_000_000  # power-law rows and columns for the unstructured path
+PL_DEGREE = 12
+PL_SEED = 3
 SCIPY_COLS = 8  # columns of a k = 128 product also held against scipy f64 on the host
 SEED = 0
 F32_TOL = 1e-5  # normwise relative; f32 sums of a few dozen products, same order
 F64_TOL = 1e-12  # same products in the same order as the twin
 F32_PEAK = 67e12  # FLOP/s, FP32 outside the tensor cores, H100 SXM (NVIDIA data sheet)
-KERNELS = ("bdia_spmv", "dia_spmv", "dia_spmm", "bdia_slab_spmm", "bdia_spmm", "bsr_spmm")
+KERNELS = ("bdia_spmv", "dia_spmv", "dia_spmm", "bdia_slab_spmm", "bdia_spmm", "bsr_spmm",
+           "poh_spmv", "poh_spmm", "lell_spmv")
 BDIA_PY = "cask_tpu/ops/pallas/bdia_kernels.py"
 DIA_PY = "cask_tpu/ops/pallas/dia_kernels.py"
 SLAB_PY = "cask_tpu/ops/pallas/bdia_slab.py"
 BSR_PY = "cask_tpu/ops/pallas/bsr_kernels.py"
+POH_PY = "cask_tpu/ops/pallas/poh_kernels.py"
+LELL_PY = "cask_tpu/ops/pallas/lell_kernels.py"
 
 
 def _relerr(y, ref) -> float:
@@ -94,10 +118,13 @@ def _counters():
                                                               bdia_spmm_slab_padded)
     from cask_tpu_torch.ops.kernels.bsr_kernels import bsr_spmm
     from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmm, dia_spmv
+    from cask_tpu_torch.ops.kernels.lell_kernels import lell_lane_sums
+    from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmm, poh_spmv
 
     return {"bdia_spmv": bdia_spmv, "dia_spmv": dia_spmv, "dia_spmm": dia_spmm,
             "bdia_spmm_slab": bdia_spmm_slab, "bdia_spmm_slab_padded": bdia_spmm_slab_padded,
-            "bdia_spmm_ring": bdia_spmm_ring, "bsr_spmm": bsr_spmm}
+            "bdia_spmm_ring": bdia_spmm_ring, "bsr_spmm": bsr_spmm, "poh_spmv": poh_spmv,
+            "poh_spmm": poh_spmm, "lell_spmv": lell_lane_sums}
 
 
 def _reset() -> None:
@@ -198,6 +225,70 @@ def _slab_cases():
     }
 
 
+def _poh_cases():
+    """name -> (scipy f64 CSR, poh_plan arguments): the edge plans of the JAX
+    package's POH tests, and a Matrix Market graph through ``read_mtx``."""
+    import os
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    from cask_tpu_torch.formats.convert import to_scipy
+    from cask_tpu_torch.formats.generate import banded, power_law, random_uniform
+    from cask_tpu_torch.formats.mtx import read_mtx
+
+    def ru(*args, **kw):
+        return to_scipy(random_uniform(*args, **kw))
+
+    holes = ru(400, 400, density=0.02, seed=8).tolil()
+    holes[100:200, :] = 0
+    holes[:, 100:200] = 0
+    m = 3000
+    column = sp.csr_matrix((np.random.default_rng(0).standard_normal(m),
+                            (np.arange(m), np.full(m, 7))), shape=(m, m))
+    pl4k = to_scipy(power_law(4000, avg_degree=8, seed=9))
+    mtx = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                       "graph_pattern_120.mtx")
+    return {
+        "power_law(5000)": (to_scipy(power_law(5000, avg_degree=12, seed=1)), {}),
+        "3000x4700": (ru(3000, 4700, density=0.002, seed=2), {}),
+        "4700x1100": (ru(4700, 1100, density=0.002, seed=3), {}),
+        "banded(2000,9)": (to_scipy(banded(2000, 9, seed=4)), {}),
+        "dense column": (column, {}),
+        "empty rows and columns": (holes.tocsr(), {}),
+        "all-zero 300x500": (sp.csr_matrix((300, 500)), {}),
+        "n below the window": (ru(5000, 300, density=0.01, seed=7), {}),
+        "50x70": (ru(50, 70, density=0.05, seed=6), {}),
+        "row_panel=1024": (pl4k, {"row_panel": 1024}),
+        "col_window=512": (pl4k, {"col_window": 512}),
+        "tile_slots=1024": (pl4k, {"tile_slots": 1024}),
+        "tile_slots=8192": (pl4k, {"row_panel": 8192, "tile_slots": 8192}),
+        "graph_pattern_120.mtx": (to_scipy(read_mtx(mtx)), {}),
+    }
+
+
+def _lell_cases():
+    """name -> scipy f64 CSR of the small LELL plans; the last is wider than
+    the reference kernel's 4096·B columns at groups 8 and 16."""
+    from cask_tpu_torch.formats.convert import to_scipy
+    from cask_tpu_torch.formats.generate import power_law, random_uniform
+
+    return {
+        "uniform 2000": to_scipy(random_uniform(2000, density=0.008, seed=3)),
+        "power_law(3000)": to_scipy(power_law(3000, avg_degree=10, seed=6)),
+        "1500x900": to_scipy(random_uniform(1500, 900, density=0.01, seed=7)),
+        "500x70000 (past the reference's cap)": to_scipy(
+            random_uniform(500, 70_000, density=2e-4, seed=43)),
+    }
+
+
+def _relerr_or_zero(y, ref) -> float:
+    """:func:`_relerr`, or the norm of ``y`` where the reference is all zero."""
+    if float(ref.double().norm()) == 0.0:
+        return float(y.double().norm())
+    return _relerr(y, ref)
+
+
 def _sparse_csr(s, dev):
     """The scipy CSR matrix as a torch sparse CSR tensor on ``dev``: the
     library call's operand (cuSPARSE), timed beside the kernels only."""
@@ -207,6 +298,14 @@ def _sparse_csr(s, dev):
     return torch.sparse_csr_tensor(torch.from_numpy(s.indptr.astype(np.int32)),
                                    torch.from_numpy(s.indices.astype(np.int32)),
                                    torch.from_numpy(s.data), size=s.shape).to(dev)
+
+
+def _pack_bytes(vals, index_bytes: int) -> int:
+    """Bytes a slot pack's product must read: every slot's value (0 marks
+    padding) and ``index_bytes`` of indices for each live slot only."""
+    import torch
+
+    return vals.numel() * vals.element_size() + int(torch.count_nonzero(vals)) * index_bytes
 
 
 def main() -> int:
@@ -238,6 +337,11 @@ def main() -> int:
                                                               bdia_spmm_slab_padded,
                                                               bdia_spmm_slab_reference)
     from cask_tpu_torch.ops.kernels.bsr_kernels import bsr_spmm, bsr_spmm_reference
+    from cask_tpu_torch.ops.kernels.lell_kernels import lell_lane_sums, lell_lane_sums_reference
+    from cask_tpu_torch.ops.kernels.poh_kernels import (poh_spmm, poh_spmm_reference, poh_spmv,
+                                                        poh_spmv_reference)
+    from cask_tpu_torch.formats.generate import power_law
+    from cask_tpu_torch.solvers import jacobi
     from cask_tpu_torch.tune.timing import time_cuda
     from cask_tpu_torch.utils.platform import default_device, hbm_bandwidth
 
@@ -363,7 +467,72 @@ def main() -> int:
           f"worst {worst[np.float32]:.2e} f32 (tol {F32_TOL:.0e}), {worst[np.float64]:.2e} f64 "
           f"(tol {F64_TOL:.0e}); vs scipy f64 within the same tolerances", flush=True)
 
-    # -- 6. main path: spmv(bsr, x) at full size ------------------------------
+
+    # -- 6. POH kernels vs plain twins and scipy, small ------------------------
+    worst = {np.float32: 0.0, np.float64: 0.0}
+    worst_sp = {np.float32: 0.0, np.float64: 0.0}
+    n_checks, tiles = 0, 0
+    for name, (s64, kw) in _poh_cases().items():
+        for dt in (np.float32, np.float64):
+            s = s64.astype(dt)
+            pplan = ct.poh_plan(from_scipy(s), device=dev, **kw)
+            pt = ct.transposed(pplan)
+            tiles += pplan.ntiles
+            tol = F32_TOL if dt == np.float32 else F64_TOL
+            for what, k in (("spmv", None), ("transposed", None), ("spmm", 1), ("spmm", 32),
+                            ("spmm", 150)):
+                q, sq = (pt, s.T) if what == "transposed" else (pplan, s)
+                shape = (sq.shape[1],) if k is None else (sq.shape[1], k)
+                x = torch.from_numpy(rng.standard_normal(shape).astype(dt)).to(dev)
+                y, y_twin = ((ct.spmv(q, x), poh_spmv_reference(q, x)) if k is None
+                             else (ct.spmm(q, x), poh_spmm_reference(q, x)))
+                torch.cuda.synchronize()
+                label = f"{name} {dt.__name__} {what}{'' if k is None else f' k={k}'}"
+                err = _relerr_or_zero(y, y_twin)
+                _check(f"{label} kernel vs twin", err, tol)
+                y_sp = torch.from_numpy(sq.astype(np.float64) @ x.cpu().double().numpy())
+                err_sp = _relerr_or_zero(y, y_sp)
+                _check(f"{label} kernel vs scipy f64", err_sp, tol)
+                worst[dt] = max(worst[dt], err)
+                worst_sp[dt] = max(worst_sp[dt], err_sp)
+                n_checks += 1
+    print(f"[small-poh] {n_checks} products ({len(_poh_cases())} plans, {tiles} tiles in all, "
+          f"x f32/f64 x spmv, transposed spmv, spmm k in 1/32/150): kernel vs twin worst "
+          f"{worst[np.float32]:.2e} f32, {worst[np.float64]:.2e} f64; vs scipy f64 worst "
+          f"{worst_sp[np.float32]:.2e} f32 (tol {F32_TOL:.0e}), {worst_sp[np.float64]:.2e} "
+          f"f64 (tol {F64_TOL:.0e})", flush=True)
+
+    # -- 7. LELL kernel vs plain twin and scipy, small -------------------------
+    worst = {np.float32: 0.0, np.float64: 0.0}
+    n_checks = 0
+    for name, s64 in _lell_cases().items():
+        for dt in (np.float32, np.float64):
+            s = s64.astype(dt)
+            tol = F32_TOL if dt == np.float32 else F64_TOL
+            x = torch.from_numpy(rng.standard_normal(s.shape[1]).astype(dt)).to(dev)
+            y_sp = torch.from_numpy(s.astype(np.float64) @ x.cpu().double().numpy())
+            plans = [(f"groups={g}", ct.lell_plan(from_scipy(s), groups=g, device=dev))
+                     for g in (1, 4, 8, 16)]
+            plans.append(("hyb", ct.lell_plan_hyb(from_scipy(s), device=dev)))
+            for what, lp in plans:
+                tiers = [lp] if what != "hyb" else [lp.main, lp.hub]
+                for tier in tiers:
+                    g = getattr(tier, "groups", 1)
+                    err = _relerr_or_zero(lell_lane_sums(tier.vals, tier.idx, x, g),
+                                          lell_lane_sums_reference(tier.vals, tier.idx, x, g))
+                    _check(f"{name} {dt.__name__} {what} kernel vs twin", err, tol)
+                    worst[dt] = max(worst[dt], err)
+                y = lp.spmv(x)
+                torch.cuda.synchronize()
+                _check(f"{name} {dt.__name__} {what} spmv vs scipy f64", _relerr(y, y_sp), tol)
+                n_checks += 1
+    print(f"[small-lell] {n_checks} products ({len(_lell_cases())} matrices x f32/f64 x "
+          f"lell_plan groups 1/4/8/16 and lell_plan_hyb; the 500x70000 one past the "
+          f"reference's 4096*B cap): kernel vs twin worst {worst[np.float32]:.2e} f32, "
+          f"{worst[np.float64]:.2e} f64; spmv vs scipy f64 within {F32_TOL:.0e} / "
+          f"{F64_TOL:.0e}", flush=True)
+
+    # -- 8. main path: spmv(bsr, x) at full size ------------------------------
     t0 = time.perf_counter()
     a_host = fem_blocks(NX, dof=DOF, dtype=np.float32, seed=SEED, return_bsr=True)
     t_gen = time.perf_counter() - t0
@@ -389,7 +558,7 @@ def main() -> int:
           f"(plan + launch) {t_first:.1f} s; launches {launches_spmv}; vs twin {err_twin:.2e} "
           f"(max abs {abs_spmv:.2e}), vs scipy f64 {err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
 
-    # -- 7. CG over BdiaOperator on the SPD block system ------------------------
+    # -- 9. CG over BdiaOperator on the SPD block system ------------------------
     t0 = time.perf_counter()
     s_csr = _diag_shift(from_scipy((a_sp + a_sp.T).tocsr()), 1.1)
     s_bsr = csr_to_bsr(s_csr, (DOF, DOF))
@@ -429,7 +598,7 @@ def main() -> int:
     sb_sp = to_scipy(s_csr)  # the operator's matrix, for the library call
     del res, warm
 
-    # -- 8. main path: block_cg over the same system's BDIA plan, s = 128 -------
+    # -- 10. main path: block_cg over the same system's BDIA plan, s = 128 -------
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     B = torch.randn((s_bsr.shape[0], K_WIDE), generator=gen, device=dev, dtype=torch.float32)
@@ -448,21 +617,24 @@ def main() -> int:
                / np.linalg.norm(B64, axis=0))
     if not col_rel.max() <= 1e-6:
         raise AssertionError(f"block_cg worst true column residual {col_rel.max():.3e} > 1e-6")
-    t0 = time.perf_counter()
-    warm = ct.solvers.block_cg(op.bdia, B, tol=1e-6, maxiter=100, M=M)
-    torch.cuda.synchronize()
-    t_warm = time.perf_counter() - t0
+    # two warm solves: the host clock of one varies from run to run
+    t_warm = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        warm = ct.solvers.block_cg(op.bdia, B, tol=1e-6, maxiter=100, M=M)
+        torch.cuda.synchronize()
+        t_warm.append((time.perf_counter() - t0) / max(warm.iterations, 1))
     print(f"[block-cg] {s_bsr.shape[0]} rows, s = {K_WIDE} right-hand sides (torch.Generator "
           f"on the card), jacobi, tol 1e-6: converged {res.converged} in {res.iterations} "
-          f"iterations; first solve {t_bcg * 1e3:.1f} ms (slab plan built in it), warm solve "
-          f"{t_warm * 1e3:.1f} ms = {t_warm / max(warm.iterations, 1) * 1e3:.2f} ms per "
-          f"iteration (host clock, one host sync per iteration); slab launches {launches_bcg} "
+          f"iterations; first solve {t_bcg * 1e3:.1f} ms (slab plan built in it), two warm "
+          f"solves {t_warm[0] * 1e3:.2f} and {t_warm[1] * 1e3:.2f} ms per iteration (host "
+          f"clock, one host sync per iteration); slab launches {launches_bcg} "
           f"= {launches_bcg / (res.iterations + 1):.2f} per operator application "
           f"({res.iterations} iterations + the first residual); worst true column residual "
           f"{col_rel.max():.2e} (f64 host, tol 1e-6)", flush=True)
     del s_csr, s_bsr, s64, res, warm, B, B64, M
 
-    # -- 9. main path: spmv(csr, x) on the 4M-row stencil ----------------------
+    # -- 11. main path: spmv(csr, x) on the 4M-row stencil ----------------------
     t0 = time.perf_counter()
     st_host = stencil_2d(GRID_SPMV, dtype=np.float32)
     st_sp = to_scipy(st_host)
@@ -488,7 +660,7 @@ def main() -> int:
           f"{launches_dspmv}; vs twin {err_twin:.2e} (max abs {abs_dspmv:.2e}), vs scipy f64 "
           f"{err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
 
-    # -- 10. main path: cg(solver_operator(S), b), S = I + stencil --------------
+    # -- 12. main path: cg(solver_operator(S), b), S = I + stencil --------------
     t0 = time.perf_counter()
     s_sp = (sp.identity(st_sp.shape[0], dtype=np.float32, format="csr") + st_sp).tocsr()
     dop = ct.solver_operator(from_scipy(s_sp))
@@ -523,7 +695,7 @@ def main() -> int:
     abs_dop = float((yd_op - yd_twin).abs().max())
     del res, warm, x64, b64
 
-    # -- 11. main paths: spmm(csr, X) and spmm(bsr, X), k = 32 -----------------
+    # -- 13. main paths: spmm(csr, X) and spmm(bsr, X), k = 32 -----------------
     t0 = time.perf_counter()
     mm_host = stencil_2d(GRID_SPMM, dtype=np.float32)
     mm_sp = to_scipy(mm_host)
@@ -568,7 +740,7 @@ def main() -> int:
           f"f64 {err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
     del Y, Y_twin, Yb, Yb_twin
 
-    # -- 12. main paths at k = 128: slab, ring, BSR and scalar-DIA SpMM ---------
+    # -- 14. main paths at k = 128: slab, ring, BSR and scalar-DIA SpMM ---------
     Xw = torch.randn((a.shape[1], K_WIDE), generator=gen, device=dev, dtype=torch.float32)
     Yw_sp = torch.from_numpy(a_sp.astype(np.float64) @ Xw[:, :SCIPY_COLS].cpu().double().numpy())
 
@@ -630,7 +802,124 @@ def main() -> int:
           f"{SCIPY_COLS} columns", flush=True)
     del Yd
 
-    # -- 13. timing: kernel vs plain twin vs library call, every entry ---------
+
+    # -- 15. main path: spmv(poh_plan(A), x) on the 1M-row power law -----------
+    t0 = time.perf_counter()
+    pl_host = power_law(PL_N, avg_degree=PL_DEGREE, dtype=np.float32, seed=PL_SEED)
+    t_gen = time.perf_counter() - t0
+    pl_sp = to_scipy(pl_host)
+    t0 = time.perf_counter()
+    pplan = ct.poh_plan(pl_host, device=dev)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    per_panel = torch.diff(pplan.panel_ptr).cpu().numpy()
+    xp = torch.from_numpy(rng.standard_normal(PL_N).astype(np.float32)).to(dev)
+    _reset()
+    yp = ct.spmv(pplan, xp)
+    torch.cuda.synchronize()
+    launches_poh = _launched("poh_spmv", "spmv(poh, x)")
+    if launches_poh != 1:
+        raise AssertionError(f"spmv(poh, x) launched poh_spmv {launches_poh} times, not 1")
+    yp_twin = poh_spmv_reference(pplan, xp)
+    err_twin = _relerr(yp, yp_twin)
+    _check("1M poh spmv kernel vs twin", err_twin, F32_TOL)
+    abs_poh = float((yp - yp_twin).abs().max())
+    err_sp = _relerr(yp, torch.from_numpy(pl_sp.astype(np.float64) @ xp.cpu().double().numpy()))
+    _check("1M poh spmv kernel vs scipy f64", err_sp, F32_TOL)
+    print(f"[poh-spmv] power_law({PL_N}, avg_degree={PL_DEGREE}, seed={PL_SEED}) f32: nnz "
+          f"{pl_host.nnz}, host gen {t_gen:.1f} s, poh_plan {t_plan:.1f} s; R {pplan.row_panel}, "
+          f"C {pplan.col_window}, {pplan.n_panels} panels, {pplan.ntiles} tiles, "
+          f"{pplan.vals.numel()} slots, fill {pplan.fill():.3f}, tiles per panel max "
+          f"{per_panel.max()} mean {per_panel.mean():.1f}; launches {launches_poh}; vs twin "
+          f"{err_twin:.2e} (max abs {abs_poh:.2e}), vs scipy f64 {err_sp:.2e} "
+          f"(tol {F32_TOL:.0e})", flush=True)
+    del yp, yp_twin
+
+    # -- 16. main path: spmm(poh, X) at k = 32 ---------------------------------
+    Xp = torch.randn((PL_N, K), generator=gen, device=dev, dtype=torch.float32)
+    _reset()
+    Yp = ct.spmm(pplan, Xp)
+    torch.cuda.synchronize()
+    launches_pohmm = _launched("poh_spmm", f"spmm(poh, X) at k={K}")
+    Yp_twin = poh_spmm_reference(pplan, Xp)
+    err_twin = _relerr(Yp, Yp_twin)
+    _check("1M poh spmm kernel vs twin", err_twin, F32_TOL)
+    abs_pohmm = float((Yp - Yp_twin).abs().max())
+    del Yp_twin
+    err_sp = _relerr(Yp[:, :SCIPY_COLS], torch.from_numpy(
+        pl_sp.astype(np.float64) @ Xp[:, :SCIPY_COLS].cpu().double().numpy()))
+    _check("1M poh spmm kernel vs scipy f64", err_sp, F32_TOL)
+    print(f"[poh-spmm] spmm(poh, X), k {K} (torch.Generator on the card): launches "
+          f"{launches_pohmm}; vs twin {err_twin:.2e} (max abs {abs_pohmm:.2e}), vs scipy f64 "
+          f"{err_sp:.2e} on {SCIPY_COLS} columns (tol {F32_TOL:.0e})", flush=True)
+    del Yp
+
+    # -- 17. main path: lell_plan_hyb(A).spmv(x) -------------------------------
+    t0 = time.perf_counter()
+    hyb = ct.lell_plan_hyb(pl_host, device=dev)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    _reset()
+    yl = hyb.spmv(xp)
+    torch.cuda.synchronize()
+    launches_lell = _launched("lell_spmv", "HybLell.spmv")
+    if launches_lell != 2:
+        raise AssertionError(f"HybLell.spmv launched the LELL kernel {launches_lell} times, "
+                             f"not 2 (grouped and hub tiers)")
+    yl_twin = hyb._spmv_reference(xp)
+    err_twin = _relerr(yl, yl_twin)
+    _check("1M HybLell.spmv kernel vs twin", err_twin, F32_TOL)
+    abs_lell = float((yl - yl_twin).abs().max())
+    err_sp = _relerr(yl, torch.from_numpy(pl_sp.astype(np.float64) @ xp.cpu().double().numpy()))
+    _check("1M HybLell.spmv vs scipy f64", err_sp, F32_TOL)
+    print(f"[lell] lell_plan_hyb {t_plan:.1f} s: grouped tier {tuple(hyb.main.vals.shape)} "
+          f"(groups {hyb.main.groups}), hub tier {tuple(hyb.hub.vals.shape)}, remainder "
+          f"{hyb.main.rem_data.shape[0]}, slot fill {hyb.main.fill():.3f} grouped, "
+          f"{hyb.hub.fill():.3f} hub, traffic {hyb.traffic_bytes / 1e6:.1f} MB; launches "
+          f"{launches_lell}; vs twin {err_twin:.2e} (max abs {abs_lell:.2e}), vs scipy f64 "
+          f"{err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
+    del yl, yl_twin
+
+    # -- 18. main path: CG with Jacobi over the POH plan of an SPD system -------
+    t0 = time.perf_counter()
+    spd = _diag_shift(from_scipy((pl_sp + pl_sp.T).tocsr()), 1.1)
+    spd_plan = ct.poh_plan(spd, device=dev)
+    Mp = jacobi(spd, device=dev)
+    bp = torch.from_numpy(rng.standard_normal(PL_N).astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    t_sys = time.perf_counter() - t0
+    _reset()
+    t0 = time.perf_counter()
+    res = ct.solvers.cg(spd_plan, bp, tol=1e-6, maxiter=200, M=Mp)
+    torch.cuda.synchronize()
+    t_cg = time.perf_counter() - t0
+    launches_pcg = _launched("poh_spmv", "cg over the POH plan")
+    if not res.converged:
+        raise AssertionError(f"poh cg did not converge: {res.iterations} iterations, "
+                             f"residual {res.residual_norm:.3e}")
+    if launches_pcg != res.iterations + 1:
+        raise AssertionError(f"poh cg launched poh_spmv {launches_pcg} times for "
+                             f"{res.iterations} iterations (want iterations + 1)")
+    spd64 = to_scipy(spd).astype(np.float64)
+    b64 = bp.cpu().double().numpy()
+    true_rel = float(np.linalg.norm(b64 - spd64 @ res.x.cpu().double().numpy())
+                     / np.linalg.norm(b64))
+    if not true_rel <= 1e-6:
+        raise AssertionError(f"poh cg true relative residual {true_rel:.3e} > 1e-6")
+    t0 = time.perf_counter()
+    warm = ct.solvers.cg(spd_plan, bp, tol=1e-6, maxiter=200, M=Mp)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    print(f"[poh-cg] _diag_shift(A + A^T, 1.1): {spd.shape[0]} rows, nnz {spd.nnz}, "
+          f"{spd_plan.ntiles} tiles; jacobi, tol 1e-6: converged in {res.iterations} "
+          f"iterations, first solve {t_cg * 1e3:.1f} ms, warm solve {t_warm * 1e3:.2f} ms = "
+          f"{t_warm / max(warm.iterations, 1) * 1e3:.3f} ms per iteration (host clock, one "
+          f"host sync per iteration); poh_spmv launches {launches_pcg} = iterations + 1; true "
+          f"relative residual {true_rel:.2e} (f64 host, tol 1e-6); system build and plan "
+          f"{t_sys:.1f} s", flush=True)
+    del res, warm, spd64, b64, spd, spd_plan, Mp, bp
+
+    # -- 19. timing: kernel vs plain twin vs library call, every entry ---------
     bw, bw_known = hbm_bandwidth()
     if not bw_known:
         bw = 3.35e12
@@ -690,12 +979,32 @@ def main() -> int:
              f"{DIA_PY}:1023 (B13), :1314 (B15)", lambda: dia_spmm(splan, Xw),
              lambda: dia_spmm_reference(splan, Xw), a_sp, Xw,
              splan.vals.numel() * 4 + xy_w, 2 * splan.vals.numel() * K_WIDE, launches_dia_w,
-             abs_dia_w)):
+             abs_dia_w),
+            # the POH and LELL rows move their values once, every slot (a
+            # value of 0 is what marks padding), and the int32 indices of the
+            # live slots only (cloc + rloc for POH, idx for LELL), as padding
+            # needs none; they count the function's operations, 2 per stored
+            # entry and column
+            ("poh_spmv [spmv(poh, x)]", "poh_spmv", f"{POH_PY}:388 (B16)",
+             lambda: poh_spmv(pplan, xp), lambda: poh_spmv_reference(pplan, xp), pl_sp, xp,
+             _pack_bytes(pplan.vals, 8) + pplan.ntiles * 4 + 2 * PL_N * 4, 2 * pl_sp.nnz,
+             launches_poh, abs_poh),
+            (f"poh_spmm [spmm(poh, X), k={K}]", "poh_spmm", f"{POH_PY}:538 (B17)",
+             lambda: poh_spmm(pplan, Xp), lambda: poh_spmm_reference(pplan, Xp), pl_sp, Xp,
+             _pack_bytes(pplan.vals, 8) + pplan.ntiles * 4 + 2 * PL_N * K * 4,
+             2 * pl_sp.nnz * K, launches_pohmm, abs_pohmm),
+            ("lell_spmv [HybLell.spmv: 2 launches + segment sum + remainder]", "lell_spmv",
+             f"{LELL_PY}:377 (B18; also :365)", lambda: hyb.spmv(xp),
+             lambda: hyb._spmv_reference(xp), pl_sp, xp,
+             _pack_bytes(hyb.main.vals, 4) + hyb.main.rem_data.numel() * 12
+             + _pack_bytes(hyb.hub.vals, 4) + hyb.hub.slot2row.numel() * 4 + 2 * PL_N * 4,
+             2 * pl_sp.nnz,
+             launches_lell, abs_lell)):
         S = _sparse_csr(lib_op, dev)
         library = lambda S=S, v=operand: S @ v  # noqa: E731
         _check(f"{name} library call vs kernel", _relerr(library(), kernel()), F32_TOL)
         # the k = 128 entries take milliseconds a call (their twins tens): fewer samples
-        nr, reps = (20, 10) if operand is not Xw else (10, 3)
+        nr, reps = (20, 10) if operand is not Xw and operand is not Xp else (10, 3)
         runs = [time_cuda(f, warmup=3, runs=nr, reps=reps)
                 for f in (plain, kernel, library, library, kernel, plain)]
         ms = float(np.median(runs[1].samples_ms + runs[4].samples_ms))

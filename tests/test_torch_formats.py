@@ -202,7 +202,10 @@ class TestInterop:
 
 def test_import_leaves_out_jax_and_the_reference():
     code = ("import sys; import cask_tpu_torch, cask_tpu_torch.interop, "
-            "cask_tpu_torch.tune.timing, cask_tpu_torch.utils.platform; "
+            "cask_tpu_torch.tune.timing, cask_tpu_torch.utils.platform, "
+            "cask_tpu_torch.formats.mtx, cask_tpu_torch.ops.poh, cask_tpu_torch.ops.lell, "
+            "cask_tpu_torch.ops.kernels.poh_kernels, cask_tpu_torch.ops.kernels.lell_kernels, "
+            "cask_tpu_torch.utils.debug; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
             "or m == 'cask_tpu' or m.startswith('cask_tpu.')]; print(bad); "
             "sys.exit(1 if bad else 0)")

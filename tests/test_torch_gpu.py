@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch twins.
 
-Kernels: BDIA SpMV, DIA SpMV and SpMM, and the wide-k block SpMM kernels
-(slab in both frames, BDIA ring, ELL-packed BSR).
+Kernels: BDIA SpMV, DIA SpMV and SpMM, the wide-k block SpMM kernels
+(slab in both frames, BDIA ring, ELL-packed BSR), and the unstructured-matrix
+kernels (POH SpMV and SpMM, LELL group sums).
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -13,7 +14,9 @@ Tolerances: f64 ≤ 1e-12 normwise (the same products in the same pair or
 diagonal order as the twin), f32 ≤ 1e-5.
 """
 
+import dataclasses
 import importlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,7 +25,8 @@ import torch
 
 import cask_tpu_torch as ct
 from cask_tpu_torch.formats.convert import coo_from_arrays, csr_to_bsr, from_scipy, to_scipy
-from cask_tpu_torch.formats.generate import _diag_shift, banded, fem_blocks, stencil_2d
+from cask_tpu_torch.formats.generate import (_diag_shift, banded, fem_blocks, power_law,
+                                             random_uniform, stencil_2d)
 from cask_tpu_torch.ops.bdia_slab import bdia_slab_plan, slab_auto_plan
 from cask_tpu_torch.ops.bsr_spmm import BsrSpmmKernel
 from cask_tpu_torch.ops.kernels.bdia_kernels import (MAX_PAIRS, bdia_spmm_ring,
@@ -33,6 +37,9 @@ from cask_tpu_torch.ops.kernels.bdia_slab_kernels import (bdia_spmm_slab,
                                                           bdia_spmm_slab_reference)
 from cask_tpu_torch.ops.kernels.bsr_kernels import bsr_spmm, bsr_spmm_reference
 from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmm, dia_spmm_reference, dia_spmv
+from cask_tpu_torch.ops.kernels.lell_kernels import lell_lane_sums, lell_lane_sums_reference
+from cask_tpu_torch.ops.kernels.poh_kernels import (poh_spmm, poh_spmm_reference, poh_spmv,
+                                                    poh_spmv_reference)
 from cask_tpu_torch.ops.spmv import PlanCache
 from cask_tpu_torch.tune import timing
 
@@ -596,3 +603,185 @@ def test_block_cg_refuses_tf32(cuda):
             ct.solvers.block_cg(ct.bdia_plan(st.astype(np.float32), device=cuda), b)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+# -- POH SpMV and SpMM (B16, B17), LELL group sums (B18) -----------------------
+
+
+def _poh_empty_rows_cols():
+    s = to_scipy(random_uniform(400, 400, density=0.02, seed=8)).tolil()
+    s[100:200, :] = 0
+    s[:, 100:200] = 0
+    return from_scipy(s.tocsr())
+
+
+def _poh_dense_column():
+    m = 3000
+    rows = np.arange(m)
+    return ct.coo_to_csr(coo_from_arrays(np.random.default_rng(0).standard_normal(m), rows,
+                                         np.full(m, 7), (m, m)))
+
+
+POH_CASES = {  # name -> (CSR f64 on the host, poh_plan arguments): tests/test_poh.py's edges
+    "power_law": lambda: (power_law(5000, avg_degree=12, seed=1), {}),
+    "wide": lambda: (random_uniform(3000, 4700, density=0.002, seed=2), {}),
+    "tall": lambda: (random_uniform(4700, 1100, density=0.002, seed=3), {}),
+    "banded": lambda: (banded(2000, 9, seed=4), {}),
+    "dense_column": lambda: (_poh_dense_column(), {}),
+    "empty_rows_cols": lambda: (_poh_empty_rows_cols(), {}),
+    "all_zero": lambda: (from_scipy(sp.csr_matrix((300, 500))), {}),
+    "n_below_window": lambda: (random_uniform(5000, 300, density=0.01, seed=7), {}),
+    "50x70": lambda: (random_uniform(50, 70, density=0.05, seed=6), {}),
+    "row_panel_1024": lambda: (power_law(4000, avg_degree=8, seed=9), {"row_panel": 1024}),
+    "col_window_512": lambda: (power_law(4000, avg_degree=8, seed=9), {"col_window": 512}),
+    "tile_slots_1024": lambda: (power_law(4000, avg_degree=8, seed=9), {"tile_slots": 1024}),
+    "tile_slots_8192": lambda: (power_law(4000, avg_degree=8, seed=9),
+                                {"row_panel": 8192, "tile_slots": 8192}),
+    "graph_pattern_120": lambda: (ct.read_mtx(Path(__file__).parent / "data"
+                                              / "graph_pattern_120.mtx"), {}),
+    # R = 8192: 64 KB of f64 accumulator, over the 48 KB a launch gets unasked
+    "row_panel_8192": lambda: (power_law(9000, avg_degree=4, seed=9), {"row_panel": 8192}),
+}
+
+
+def _poh(name, dtype, device):
+    a, kw = POH_CASES[name]()
+    a = a.astype(dtype)
+    return a, ct.poh_plan(a, device=device, **kw)
+
+
+def _close(y, twin, ref_np, dtype):
+    """kernel vs twin and vs scipy f64, normwise (an all-zero reference must
+    be matched exactly)"""
+    tol = TOL[dtype]
+    ref = torch.from_numpy(np.asarray(ref_np, np.float64))
+    for r in (twin, ref):
+        if float(r.double().norm()) == 0.0:
+            assert float(y.double().norm()) == 0.0
+        else:
+            assert _relerr(y, r) <= tol
+
+
+@pytest.mark.parametrize("name", list(POH_CASES))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_poh_kernels_match_twin(cuda, name, dtype):
+    a, p = _poh(name, dtype, cuda)
+    s64 = to_scipy(a).astype(np.float64)
+    rng = np.random.default_rng(40)
+    x = torch.from_numpy(rng.standard_normal(a.shape[1]).astype(dtype)).to(cuda)
+    y = poh_spmv(p, x)
+    _close(y, poh_spmv_reference(p, x), s64 @ x.cpu().double().numpy(), dtype)
+    pt = ct.transposed(p)
+    xt = torch.from_numpy(rng.standard_normal(a.shape[0]).astype(dtype)).to(cuda)
+    _close(ct.spmv(pt, xt), poh_spmv_reference(pt, xt), s64.T @ xt.cpu().double().numpy(),
+           dtype)
+    for k in (1, 32, 150):
+        X = torch.from_numpy(rng.standard_normal((a.shape[1], k)).astype(dtype)).to(cuda)
+        _close(poh_spmm(p, X), poh_spmm_reference(p, X), s64 @ X.cpu().double().numpy(), dtype)
+
+
+def test_poh_entry_points_launch_their_kernels(cuda):
+    a, p = _poh("power_law", np.float64, cuda)
+    x = torch.ones(a.shape[1], dtype=torch.float64, device=cuda)
+    before = (poh_spmv.launches, poh_spmm.launches)
+    ct.spmv(p, x)
+    ct.spmm(p, torch.ones((a.shape[1], 3), dtype=torch.float64, device=cuda))
+    p.spmv(x, precision="fast")
+    assert (poh_spmv.launches - before[0], poh_spmm.launches - before[1]) == (2, 1)
+    with pytest.raises(ValueError):
+        p.spmv(x, precision="bf16x3")
+
+
+def test_poh_kernels_write_every_row(cuda):
+    # spmm's Y comes from torch.empty: a row the kernel missed would hold stale bytes
+    a, p = _poh("empty_rows_cols", np.float64, cuda)
+    X = torch.zeros((a.shape[1], 5), dtype=torch.float64, device=cuda)
+    assert torch.count_nonzero(poh_spmm(p, X)) == 0
+    assert torch.count_nonzero(poh_spmv(p, X[:, 0].contiguous())) == 0
+
+
+def test_poh_kernels_raise_on_what_they_do_not_take(cuda):
+    a, p = _poh("50x70", np.float32, cuda)
+    x = torch.ones(a.shape[1], device=cuda)
+    with pytest.raises(TypeError):
+        poh_spmv(p, x.double())
+    bf = dataclasses.replace(p, vals=p.vals.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        poh_spmv(bf, x.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        poh_spmm(bf, x.to(torch.bfloat16)[:, None])
+    with pytest.raises(ValueError):
+        poh_spmv(p, x.cpu())  # plan on the card, x on the CPU
+    with pytest.raises(ValueError):
+        poh_spmv(p.to("cpu"), x)  # plan on the CPU, x on the card
+    with pytest.raises(ValueError):
+        poh_spmm(p.to("cpu"), x[:, None])
+    # R = 32768 rows of f64 accumulator (256 KB) exceed a block's shared memory
+    big = ct.poh_plan(random_uniform(33000, 100, density=1e-3, seed=46), row_panel=32768,
+                      device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        poh_spmv(big, torch.ones(100, dtype=torch.float64, device=cuda))
+
+
+def test_cg_over_poh_on_card_matches_cpu(cuda):
+    a = to_scipy(power_law(2000, avg_degree=8, seed=41))
+    spd = _diag_shift(from_scipy((a + a.T).tocsr()), 1.1)
+    b = np.random.default_rng(42).standard_normal(spd.shape[0])
+    before = poh_spmv.launches
+    res = ct.solvers.cg(ct.poh_plan(spd, device=cuda), torch.from_numpy(b).to(cuda),
+                        tol=1e-10, M=ct.solvers.jacobi(spd, device=cuda))
+    assert poh_spmv.launches - before == res.iterations + 1
+    ref = ct.solvers.cg(ct.poh_plan(spd, device="cpu"), torch.from_numpy(b), tol=1e-10,
+                        M=ct.solvers.jacobi(spd, device="cpu"))
+    assert res.converged and abs(res.iterations - ref.iterations) <= 1
+    assert _relerr(res.x, ref.x) <= 1e-9
+
+
+LELL_CASES = {  # name -> CSR f64 on the host
+    "uniform": lambda: random_uniform(2000, density=0.008, seed=3),
+    "power_law": lambda: power_law(3000, avg_degree=10, seed=6),
+    "rectangle": lambda: random_uniform(1500, 900, density=0.01, seed=7),
+    "past_sb_cap": lambda: random_uniform(500, 70_000, density=2e-4, seed=43),
+}
+
+
+@pytest.mark.parametrize("name", list(LELL_CASES))
+@pytest.mark.parametrize("groups", [1, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_lell_kernel_matches_twin(cuda, name, groups, dtype):
+    a = LELL_CASES[name]().astype(dtype)
+    p = ct.lell_plan(a, groups=groups, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(44).standard_normal(a.shape[1])
+                         .astype(dtype)).to(cuda)
+    sums = lell_lane_sums(p.vals, p.idx, x, groups)
+    assert _relerr(sums, lell_lane_sums_reference(p.vals, p.idx, x, groups)) <= TOL[dtype]
+    ref = to_scipy(a).astype(np.float64) @ x.cpu().double().numpy()
+    assert _relerr(p.spmv(x), torch.from_numpy(ref)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("name", list(LELL_CASES))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_lell_hyb_launches_both_tiers(cuda, name, dtype):
+    a = LELL_CASES[name]().astype(dtype)
+    h = ct.lell_plan_hyb(a, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(45).standard_normal(a.shape[1])
+                         .astype(dtype)).to(cuda)
+    before = lell_lane_sums.launches
+    y = h.spmv(x)
+    assert lell_lane_sums.launches - before == (2 if h.hub.vals.shape[1] else 1)
+    ref = to_scipy(a).astype(np.float64) @ x.cpu().double().numpy()
+    assert _relerr(y, torch.from_numpy(ref)) <= TOL[dtype]
+
+
+def test_lell_kernel_raises_on_what_it_does_not_take(cuda):
+    a = LELL_CASES["uniform"]().astype(np.float32)
+    p = ct.lell_plan(a, device=cuda)
+    x = torch.ones(a.shape[1], device=cuda)
+    with pytest.raises(TypeError):
+        lell_lane_sums(p.vals.to(torch.bfloat16), p.idx, x.to(torch.bfloat16), 8)
+    with pytest.raises(TypeError):
+        lell_lane_sums(p.vals, p.idx, x.double(), 8)
+    with pytest.raises(ValueError):
+        lell_lane_sums(p.vals, p.idx, x.cpu(), 8)
+    with pytest.raises(ValueError):
+        lell_lane_sums(p.vals.cpu(), p.idx.cpu(), x, 8)
