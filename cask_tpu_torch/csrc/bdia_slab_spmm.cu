@@ -22,28 +22,42 @@
 // m) and the padded chain layout of BdiaSlabs.to_padded (x_rows = the
 // frame's rows, tile0 = pad_tiles; the wrapper zeroes the pad tiles of Y).
 //
-// What bounds it: operations.  The shear inflates the value stream to
-// W slab columns per row (about 10x the stored entries for the FEM band), so
-// at k = 128 the product is 2·rows·W·k flops against slab + X + Y bytes once
-// each, above the card's FP32 balance.  It is exact-class: plain FP32 (or
-// FP64) FMAs, no tensor cores and no TF32, because the reference's auto route
-// runs this product at precision="highest" (ops/spmm.py:208).
+// What bounds it: bytes, once the product runs on the tensor cores.  The
+// shear inflates the value stream to W slab columns per row (about 10x the
+// stored entries for the FEM band): at k = 128 on fem_blocks(512, dof=4)
+// that is 53.7 GFLOP against 1.9 GB of slabs, X and Y, so even all 67
+// TFLOP/s of FP32 outside the tensor cores (801 µs) would stay above the
+// byte bound (571 µs at 3.35 TB/s).
 //
-// What the design does about it: a register-blocked product.
-// - One CTA of 256 threads per (tile, 64 slab rows, 128 columns).  Each
-//   thread accumulates a 4 × 8 micro-tile in registers (16 × 16 threads).
-// - W is covered in chunks of kBK = 16: per chunk the CTA stages the slab
-//   chunk (transposed, so a thread's 4 rows are one 16-byte load) and the
-//   matching window rows in shared memory, then runs 16 × 32 FMAs a thread.
-//   Shared memory is (kBK·(kBM + 4) + kBK·kBN) elements whatever the window
-//   count: a plan with any number of far offsets (W = 2·bc + gb_c·(1 + nfar))
-//   runs, with no budget to pick and nothing dropped.
-// - A thread's 8 columns are two runs of 4 (tx·4 and 64 + tx·4), so the
-//   window reads are 16-byte shared loads without bank conflicts and the Y
-//   stores of a row are contiguous.
-// - Slab and X loads are coalesced along w and along k respectively; a
-//   window row's X index is worked out per load from (w, tile, offsets).
-// - The far offsets ride in a by-value parameter (at most kMaxFar).
+// What the design does about it (f32, the main path):
+// - The product runs on the tensor cores in 3xTF32: each operand splits
+//   into hi = tf32(a) (rounded) and lo = a - hi (cut to TF32), and
+//   D += lo·hi + hi·lo + hi·hi with mma.sync m16n8k8 (FP32 accumulation),
+//   about 2^-21 per product: f32-class, the card's counterpart of the
+//   reference's precision="highest" (ops/spmm.py:208).  Plain 1xTF32
+//   (2^-11) is never used.  3 × 53.7 GFLOP at 495 TFLOP/s of dense TF32 is
+//   about 325 µs, under the byte bound.  The split is integer and FP32
+//   arithmetic at the full instruction rate.
+// - Work items are (tile, 64 slab rows, 128 columns); a CTA of 8 warps,
+//   each a 32 × 32 block of D in registers, holds two per SM.  W is walked
+//   in chunks of 32 window rows through a 3-stage cp.async ring (16-byte
+//   copies, zero-filled past the frame, the window and k), so chunk i + 2
+//   loads while chunk i multiplies.  The grid is two CTAs per SM, each
+//   taking a strided list of items as one chunk stream: the ring runs on
+//   across items, so a short item (7 chunks at W = 200) pays no pipeline
+//   fill, and its stores overlap the next item's loads.
+// - The slab stream carries an L2 evict-first hint (it is read once); X
+//   windows, which neighbouring tiles share, stay in L2.  Each window
+//   row's X offset from the tile's core is worked out once per block into
+//   a shared table (per row where W exceeds kTableMax), not per element.
+//   Where W or k is not a multiple of 4, or a base pointer is off the
+//   16-byte grid, the copies are 4 bytes wide.
+// - Shared rows are padded (slab rows to 40 floats, window rows to 132), so
+//   the mma fragment loads meet no bank conflict; a thread's slab values
+//   come as 8-byte loads.
+// f64, and f32 in with f64 sums (accum_dtype=float64), keep the plain FMA
+// kernel below: a register-blocked product, 16 window rows per shared chunk.
+// The far offsets ride in a by-value parameter (at most kMaxFar).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,15 +77,10 @@ struct FarOffsets {
   int d[kMaxFar];
 };
 
-__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
 
-// four consecutive shared-memory values (16-byte aligned) as one or two
-// vector loads
-__device__ __forceinline__ void lds4(const float* p, float (&o)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  o[0] = q.x; o[1] = q.y; o[2] = q.z; o[3] = q.w;
-}
+// four consecutive shared-memory values (16-byte aligned) as two vector
+// loads
 __device__ __forceinline__ void lds4(const double* p, double (&o)[4]) {
   const double2 a = *reinterpret_cast<const double2*>(p);
   const double2 b = *reinterpret_cast<const double2*>(p + 2);
@@ -89,6 +98,325 @@ __device__ __forceinline__ int64_t window_row(int w, int64_t row0, int bc, int g
   const int f = w / gb_c;                       // far segment
   return row0 + static_cast<int64_t>(far.d[f]) * bc + (w - f * gb_c);
 }
+
+// ---- f32: 3xTF32 on the tensor cores ------------------------------------
+
+constexpr int kTcBM = 64;        // slab rows per CTA
+constexpr int kTcBN = 128;       // columns per CTA
+constexpr int kWarpsN = 4;       // warps along the columns; 2 along the rows
+constexpr int kTcThreads = 64 * kWarpsN;
+constexpr int kJ = kTcBN / kWarpsN / 8;  // n8 fragments of a warp's 32 × (8·kJ) block
+constexpr int kTcBK = 32;        // window rows per stage
+constexpr int kTcStages = 3;
+// Within each step of 8 window rows, mma's k index tq is window row 2·tq and
+// k index tq + 4 is row 2·tq + 1 (any one-to-one map of the 8 rows gives
+// the same sum), so a thread's two a values of one fragment row are
+// neighbours: one 8-byte shared load.  The row strides put the 32 lanes of
+// each fragment load on 32 different banks.
+constexpr int kAStride = kTcBK + 8;
+constexpr int kBStride = kTcBN + 4;
+constexpr int kAStage = kTcBM * kAStride;
+constexpr int kBStage = kTcBK * kBStride;
+constexpr int kTcSmem = kTcStages * (kAStage + kBStage) * static_cast<int>(sizeof(float));
+constexpr int kTableMax = 2048;  // windows up to this many rows keep their X offsets in a table
+
+// 16 (or 4) bytes global -> shared; src_bytes 0 fills zeros and reads
+// nothing.  The slab stream is read once: its 16-byte copies carry an L2
+// evict-first policy, so X windows, which neighbouring tiles share, stay.
+__device__ __forceinline__ void cp_async16_once(float* dst, const float* src, int src_bytes,
+                                                uint64_t policy) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes), "l"(policy) : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes) : "memory");
+}
+
+// a ≈ hi + lo, each a TF32 value (10 explicit mantissa bits): hi is a
+// rounded to nearest (ties away from zero, as cvt.rna.tf32.f32), lo the
+// rest cut toward zero, so |a - hi - lo| <= 2^-21·|a|.  Integer and FP32
+// operations at the full instruction rate, where cvt runs on the slower
+// conversion pipe.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// not volatile: the compiler interleaves the independent products of a step
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A block's place in its stream of chunks: the work item (body tile, 64 slab
+// rows, 128 columns; the column block fastest) and the chunk of W within it.
+// It steps forward one chunk at a time, and divides only when the item
+// changes.
+struct Cursor {
+  int item, kt;
+  int64_t t;   // body tile
+  int r0, c0;  // first slab row and column
+  __device__ __forceinline__ void at(int i, int per_tile, int col_blocks) {
+    item = i;
+    kt = 0;
+    t = i / per_tile;
+    const int rc = i - static_cast<int>(t) * per_tile;
+    r0 = (rc / col_blocks) * kTcBM;
+    c0 = (rc % col_blocks) * kTcBN;
+  }
+  __device__ __forceinline__ void next(int nk, int per_tile, int col_blocks) {
+    if (++kt == nk) at(item + static_cast<int>(gridDim.x), per_tile, col_blocks);
+  }
+};
+
+// Block b takes items b, b + gridDim.x, ... as one stream of W chunks, so
+// the ring runs on across item boundaries and the next item's first chunks
+// load while this item's last ones multiply and its sums are stored.  At
+// any time the blocks work on a band of neighbouring tiles, whose windows
+// overlap (halos, and far segments a far offset apart).
+__global__ void __launch_bounds__(kTcThreads, 2)
+slab_spmm_tf32x3_kernel(const float* __restrict__ S, const float* __restrict__ X,
+                        float* __restrict__ Y, const FarOffsets far, int bc, int gb_r, int gb_c,
+                        int W, int64_t x_rows, int64_t tile0, int64_t y_rows, int k, int items,
+                        int row_blocks, int col_blocks, bool s_vec, bool x_vec, bool y_vec) {
+  extern __shared__ __align__(128) float smem[];
+  float* As = smem;                                  // [stage][slab row][w]
+  float* Bs = smem + kTcStages * kAStage;            // [stage][w][column]
+  int64_t* woff = reinterpret_cast<int64_t*>(Bs + kTcStages * kBStage);  // [w]
+  const bool table = W <= kTableMax;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wr = (warp / kWarpsN) * 32, wc = (warp % kWarpsN) * (8 * kJ);  // its block of D
+  const int g = lane >> 2, tq = lane & 3;                 // mma fragment coordinates
+  const int nk = (W + kTcBK - 1) / kTcBK;                 // chunks per item
+  const int per_tile = row_blocks * col_blocks;
+  const int my_items = (items - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int nq = my_items * nk;                           // chunks of this block
+  uint64_t once;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(once));
+
+  // each window row's X row relative to the tile's core, worked out once
+  if (table) {
+    for (int w = tid; w < W; w += kTcThreads) woff[w] = window_row(w, 0, bc, gb_c, far);
+  }
+  __syncthreads();
+
+  auto load_stage = [&](int stage, const Cursor& cu) {
+    const int w0 = cu.kt * kTcBK;
+    const float* St = S + cu.t * gb_r * static_cast<int64_t>(W);
+    const int64_t row0 = (tile0 + cu.t) * gb_c;
+    float* a = As + stage * kAStage;
+    float* b = Bs + stage * kBStage;
+    if (s_vec) {  // 64 rows × 8 runs of 4
+#pragma unroll
+      for (int p = 0; p < kTcBM * kTcBK / 4 / kTcThreads; ++p) {
+        const int e = tid + p * kTcThreads;
+        const int m = e >> 3, kk = (e & 7) * 4;
+        const bool ok = cu.r0 + m < gb_r && w0 + kk < W;
+        cp_async16_once(a + m * kAStride + kk,
+                        ok ? St + static_cast<int64_t>(cu.r0 + m) * W + w0 + kk : S, ok ? 16 : 0,
+                        once);
+      }
+    } else {
+#pragma unroll 4
+      for (int p = 0; p < kTcBM * kTcBK / kTcThreads; ++p) {
+        const int e = tid + p * kTcThreads;
+        const int m = e >> 5, kk = e & 31;
+        const bool ok = cu.r0 + m < gb_r && w0 + kk < W;
+        cp_async4(a + m * kAStride + kk,
+                  ok ? St + static_cast<int64_t>(cu.r0 + m) * W + w0 + kk : S, ok ? 4 : 0);
+      }
+    }
+    auto xrow = [&](int w) -> int64_t {  // -1 past the window
+      if (w >= W) return -1;
+      return table ? row0 + woff[w] : window_row(w, row0, bc, gb_c, far);
+    };
+    if (x_vec) {  // 32 window rows × 32 runs of 4: a warp copies whole rows
+      const int cq = (tid & 31) * 4;
+#pragma unroll
+      for (int p = 0; p < kTcBK * kTcBN / 4 / kTcThreads; ++p) {
+        const int kk = (tid >> 5) + p * (kTcThreads / 32);
+        const int64_t xr = xrow(w0 + kk);
+        const bool ok = xr >= 0 && xr < x_rows && cu.c0 + cq < k;
+        cp_async16(b + kk * kBStride + cq, ok ? X + xr * k + cu.c0 + cq : X, ok ? 16 : 0);
+      }
+    } else {  // one column a thread
+      const int col = tid % kTcBN;
+      for (int p = 0; p < kTcBK * kTcBN / kTcThreads; ++p) {
+        const int kk = tid / kTcBN + p * (kTcThreads / kTcBN);
+        const int64_t xr = xrow(w0 + kk);
+        const bool ok = xr >= 0 && xr < x_rows && cu.c0 + col < k;
+        cp_async4(b + kk * kBStride + col, ok ? X + xr * k + cu.c0 + col : X, ok ? 4 : 0);
+      }
+    }
+  };
+
+  float acc[2][kJ][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  Cursor ld, cu;  // the next chunk to load, the chunk to multiply
+  ld.at(blockIdx.x, per_tile, col_blocks);
+  cu = ld;
+#pragma unroll
+  for (int p = 0; p < kTcStages - 1; ++p) {
+    if (p < nq) {
+      load_stage(p, ld);
+      ld.next(nk, per_tile, col_blocks);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  int stage = 0;  // q % kTcStages
+  for (int q = 0; q < nq; ++q) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kTcStages - 2) : "memory");
+    __syncthreads();  // chunk q is in for all; chunk q - 1's stage is free
+    if (q + kTcStages - 1 < nq) {
+      load_stage(stage == 0 ? kTcStages - 1 : stage - 1, ld);
+      ld.next(nk, per_tile, col_blocks);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+    // warps whose rows or columns all lie past the edge skip the products
+    const bool live = cu.r0 + wr < gb_r && cu.c0 + wc < k;
+    const int kk_end = min(kTcBK, W - cu.kt * kTcBK);  // rows of W in this chunk
+    if (live) {
+      const float* a = As + stage * kAStage;
+      const float* b = Bs + stage * kBStage;
+#pragma unroll
+      for (int kk = 0; kk < kTcBK; kk += 8) {
+        if (kk >= kk_end) break;
+        uint32_t ahi[2][4], alo[2][4], bhi[kJ][2], blo[kJ][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float* p = a + (wr + i * 16 + g) * kAStride + kk + 2 * tq;
+          const float2 top = *reinterpret_cast<const float2*>(p);
+          const float2 bot = *reinterpret_cast<const float2*>(p + 8 * kAStride);
+          split_tf32(top.x, ahi[i][0], alo[i][0]);
+          split_tf32(bot.x, ahi[i][1], alo[i][1]);
+          split_tf32(top.y, ahi[i][2], alo[i][2]);
+          split_tf32(bot.y, ahi[i][3], alo[i][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          const float* p = b + (kk + 2 * tq) * kBStride + wc + j * 8 + g;
+          split_tf32(p[0], bhi[j][0], blo[j][0]);
+          split_tf32(p[kBStride], bhi[j][1], blo[j][1]);
+        }
+        // the small cross terms first; each pass is 8 independent products
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], alo[i], bhi[j]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], ahi[i], blo[j]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], ahi[i], bhi[j]);
+      }
+    }
+    stage = stage + 1 == kTcStages ? 0 : stage + 1;
+    if (cu.kt == nk - 1) {
+      // the item's last chunk: store its block of Y and start the next one
+      if (live) {
+        const int64_t frame_tile = tile0 + cu.t;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // fragment rows g and g + 8
+            const int row = cu.r0 + wr + i * 16 + g + h * 8;
+            const int64_t yr = frame_tile * gb_r + row;
+            if (row >= gb_r || yr >= y_rows) continue;
+            float* y = Y + yr * k;
+#pragma unroll
+            for (int j = 0; j < kJ; ++j) {
+              const int col = cu.c0 + wc + j * 8 + 2 * tq;
+              const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+              if (y_vec && col + 1 < k) {
+                *reinterpret_cast<float2*>(y + col) = make_float2(v0, v1);
+              } else {
+                if (col < k) y[col] = v0;
+                if (col + 1 < k) y[col + 1] = v1;
+              }
+            }
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+    cu.next(nk, per_tile, col_blocks);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+int launch_tf32x3(const float* S, const float* X, float* Y, const int* far_offsets, int nfar,
+                  int bc, int gb_r, int gb_c, int W, int64_t ntiles, int64_t x_rows,
+                  int64_t tile0, int64_t y_rows, int k, void* stream) {
+  if (nfar < 0 || nfar > kMaxFar || bc < 1 || gb_r < 1 || gb_c < 1 || k < 1 ||
+      W != 2 * bc + gb_c * (1 + nfar) || ntiles < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int row_blocks = (gb_r + kTcBM - 1) / kTcBM;
+  const int col_blocks = (k + kTcBN - 1) / kTcBN;
+  const int64_t items = ntiles * row_blocks * col_blocks;
+  const int64_t nk = (W + kTcBK - 1) / kTcBK;
+  if (items * nk > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  FarOffsets far = {};
+  for (int f = 0; f < nfar; ++f) far.d[f] = far_offsets[f];
+  const auto aligned = [](const void* p, int bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  const bool s_vec = W % 4 == 0 && aligned(S, 16);
+  const bool x_vec = k % 4 == 0 && aligned(X, 16);
+  const bool y_vec = k % 2 == 0 && aligned(Y, 8);
+  const int smem = kTcSmem + (W <= kTableMax ? W * static_cast<int>(sizeof(int64_t)) : 0);
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(slab_spmm_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kTcSmem + kTableMax * static_cast<int>(sizeof(int64_t)));
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t blocks = items < 2LL * sms ? items : 2LL * sms;  // two resident per SM
+  slab_spmm_tf32x3_kernel<<<static_cast<unsigned>(blocks), kTcThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      S, X, Y, far, bc, gb_r, gb_c, W, x_rows, tile0, y_rows, k, static_cast<int>(items),
+      row_blocks, col_blocks, s_vec, x_vec, y_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- f64 and f32 -> f64: plain FMAs -------------------------------------
+// One CTA of 256 threads per (tile, 64 slab rows, 128 columns), each thread
+// a 4 × 8 micro-tile of sums in registers.  W is covered in chunks of kBK =
+// 16: per chunk the CTA stages the slab chunk (transposed, so a thread's 4
+// rows are one 16-byte load) and the matching window rows in shared memory,
+// whose size does not grow with the window count.  A thread's 8 columns are
+// two runs of 4 (tx·4 and 64 + tx·4): 16-byte shared loads without bank
+// conflicts, and contiguous Y stores.
 
 // T: slab and X type; O: output and accumulation type
 template <typename T, typename O>
@@ -201,8 +529,8 @@ int cask_slab_spmm_f32(const float* S, const float* X, float* Y, const int* far_
                        int nfar, int bc, int gb_r, int gb_c, int W, long long ntiles,
                        long long x_rows, long long tile0, long long y_rows, int k,
                        void* stream) {
-  return launch<float, float>(S, X, Y, far_offsets, nfar, bc, gb_r, gb_c, W, ntiles, x_rows,
-                              tile0, y_rows, k, stream);
+  return launch_tf32x3(S, X, Y, far_offsets, nfar, bc, gb_r, gb_c, W, ntiles, x_rows, tile0,
+                       y_rows, k, stream);
 }
 
 int cask_slab_spmm_f64(const double* S, const double* X, double* Y, const int* far_offsets,

@@ -8,15 +8,17 @@ tensor it runs its plain PyTorch twin.  They replace
 ``cask_tpu/ops/pallas/poh_kernels.py:poh_spmv_pallas`` (B16) and
 ``:poh_spmm_pallas`` (B17), whose one-hot MXU products are the TPU's way to
 gather and scatter: the Hopper kernels gather x and scatter into a
-shared-memory panel accumulator directly, in plain FP32/FP64.
+shared-memory panel accumulator directly, in plain FP32/FP64.  The SpMM
+kernel works in the pieces of :func:`spmm_pieces`, built once with the plan.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Optional
 
+import numpy as np
 import torch
 
 from cask_tpu_torch.ops.kernels import build
@@ -43,6 +45,30 @@ def _x_padded(p: "PohMatrix", x: torch.Tensor) -> torch.Tensor:
     xp = x.new_zeros(((p.nseg + 1) * p.col_window,) + tuple(x.shape[1:]))
     xp[: p.shape[1]] = x
     return xp
+
+
+def spmm_pieces(panel_ptr: torch.Tensor, cap: Optional[int] = None) -> torch.Tensor:
+    """The SpMM kernel's work pieces, ``(P, 4)`` int32 rows ``(panel, first
+    tile, end tile, cut)`` on ``panel_ptr``'s device.  A panel of more than
+    ``cap`` tiles (default: the mean tile count, rounded up) is cut into the
+    fewest even runs of at most ``cap`` tiles, each flagged ``cut``; any
+    other panel, an empty one too, is one piece.  Every tile lies in exactly
+    one piece, and every panel has at least one, so every row of Y is
+    written.  Pieces are ordered largest first, so the longest blocks start
+    first."""
+    ptr = panel_ptr.cpu().numpy().astype(np.int64)
+    counts = np.diff(ptr)
+    if cap is None:
+        cap = -(-int(ptr[-1]) // max(len(counts), 1))
+    cap = max(int(cap), 1)
+    n = np.maximum(-(-counts // cap), 1)  # pieces per panel
+    panel = np.repeat(np.arange(len(counts)), n)
+    i = np.arange(len(panel)) - np.repeat(np.cumsum(n) - n, n)  # index within the panel
+    lo = ptr[panel] + counts[panel] * i // n[panel]
+    hi = ptr[panel] + counts[panel] * (i + 1) // n[panel]
+    pieces = np.stack([panel, lo, hi, (n[panel] > 1).astype(np.int64)], axis=1)
+    pieces = pieces[np.argsort(lo - hi, kind="stable")]
+    return torch.from_numpy(pieces.astype(np.int32)).to(panel_ptr.device)
 
 
 def poh_spmv_reference(p: "PohMatrix", x: torch.Tensor) -> torch.Tensor:
@@ -77,7 +103,7 @@ def _lib(name: str) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "poh_spmv":  # ..., x, y, n_panels, splits, R, C, T, m, n, stream
         args = [p] * 7 + [i, i, i, i, i, ll, ll, p]
-    else:  # ..., X, Y, n_panels, R, C, T, m, n, k, stream
+    else:  # ..., pieces, X, Y, n_pieces, R, C, T, m, n, k, stream
         args = [p] * 7 + [i, i, i, i, ll, ll, i, p]
     for fn in (getattr(lib, f"cask_{name}_f32"), getattr(lib, f"cask_{name}_f64")):
         fn.argtypes = args
@@ -92,8 +118,9 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check(p: "PohMatrix", x: torch.Tensor, ndim: int, what: str) -> None:
-    """Raise on what the kernels do not take."""
+def _check(p: "PohMatrix", x: torch.Tensor, ndim: int, what: str, whole_panel: bool) -> None:
+    """Raise on what the kernels do not take (``whole_panel``: the kernel
+    holds a panel's R partial sums in shared memory)."""
     n = p.shape[1]
     if any(t.device != x.device for t in (p.vals, p.cloc, p.rloc, p.wlo, p.panel_ptr)):
         raise ValueError(f"{what} on {x.device} but the plan on {p.vals.device}")
@@ -111,7 +138,7 @@ def _check(p: "PohMatrix", x: torch.Tensor, ndim: int, what: str) -> None:
                          "with int32 indices")
     if not all(t.is_contiguous() for t in (x, p.vals, p.cloc, p.rloc, p.wlo)):
         raise ValueError("kernel needs contiguous operands and slot arrays")
-    if p.row_panel * x.element_size() > _MAX_SMEM:
+    if whole_panel and p.row_panel * x.element_size() > _MAX_SMEM:
         raise ValueError(f"row_panel {p.row_panel} needs {p.row_panel * x.element_size()} "
                          f"bytes of shared memory; a block has at most {_MAX_SMEM}")
 
@@ -123,7 +150,7 @@ def poh_spmv(p: "PohMatrix", x: torch.Tensor) -> torch.Tensor:
         if p.vals.is_cuda:
             raise ValueError(f"x on {x.device} but the plan on {p.vals.device}")
         return poh_spmv_reference(p, x)
-    _check(p, x, 1, "x")
+    _check(p, x, 1, "x", whole_panel=True)
     m, n = p.shape
     y = torch.zeros(m, dtype=x.dtype, device=x.device)  # the kernel adds into it
     if m == 0 or n == 0:
@@ -152,18 +179,21 @@ def poh_spmm(p: "PohMatrix", x: torch.Tensor) -> torch.Tensor:
         if p.vals.is_cuda:
             raise ValueError(f"X on {x.device} but the plan on {p.vals.device}")
         return poh_spmm_reference(p, x)
-    _check(p, x, 2, "X")
+    _check(p, x, 2, "X", whole_panel=False)  # the kernel splits a panel's rows
     m, n = p.shape
     k = int(x.shape[1])
     if m == 0 or n == 0 or k == 0:
         return torch.zeros((m, k), dtype=x.dtype, device=x.device)
-    y = torch.empty((m, k), dtype=x.dtype, device=x.device)  # every element is written
+    pieces = p.spmm_pieces
+    # a cut panel's pieces add into Y; otherwise every element is written
+    cut = pieces.shape[0] > p.n_panels
+    y = (torch.zeros if cut else torch.empty)((m, k), dtype=x.dtype, device=x.device)
     lib = _lib("poh_spmm")
     fn = lib.cask_poh_spmm_f32 if x.dtype == torch.float32 else lib.cask_poh_spmm_f64
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(p.vals.data_ptr(), p.cloc.data_ptr(), p.rloc.data_ptr(), p.wlo.data_ptr(),
-                 p.panel_ptr.data_ptr(), x.data_ptr(), y.data_ptr(), p.n_panels, p.row_panel,
+                 pieces.data_ptr(), x.data_ptr(), y.data_ptr(), pieces.shape[0], p.row_panel,
                  p.col_window, p.slot_rows * 128, m, n, k, stream)
     raise_on(lib, err, "poh_spmm")
     poh_spmm.launches += 1

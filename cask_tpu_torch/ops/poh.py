@@ -15,7 +15,9 @@ CUDA device).  The reference also stores ``rloc`` transposed per tile
 the Hopper kernels gather and scatter directly and never read it, so the
 port's plan leaves it out.  ``panel_ptr`` (the first tile of each panel,
 built once with the plan on its device) is the port's own addition: the
-kernels split each panel's tile run by it.
+kernels split each panel's tile run by it.  So is ``spmm_pieces``, the SpMM
+kernel's work pieces (panels above the mean tile count cut into runs of
+about the mean), also built once with the plan.
 
 The products run in the CUDA kernels of
 :mod:`cask_tpu_torch.ops.kernels.poh_kernels` on a CUDA device, or in
@@ -32,7 +34,7 @@ import torch
 
 from cask_tpu_torch.formats.convert import coo_to_csr
 from cask_tpu_torch.formats.matrix import COO, CSR, host, to_device
-from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmm, poh_spmv
+from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmm, poh_spmv, spmm_pieces
 from cask_tpu_torch.utils.platform import plan_device
 
 _LANE = 128
@@ -66,12 +68,15 @@ class PohMatrix:
     col_window: int
     # (n_panels + 1,) int32: panel I owns tiles panel_ptr[I] .. panel_ptr[I+1]
     panel_ptr: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # (P, 4) int32 (panel, first tile, end tile, cut): see spmm_pieces
+    spmm_pieces: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         bounds = torch.arange(self.n_panels + 1, dtype=self.panel.dtype,
                               device=self.panel.device)
         object.__setattr__(self, "panel_ptr", torch.searchsorted(
             self.panel.contiguous(), bounds, out_int32=True))
+        object.__setattr__(self, "spmm_pieces", spmm_pieces(self.panel_ptr))
 
     @property
     def ntiles(self) -> int:

@@ -1,0 +1,287 @@
+"""Take apart what sets the time of the POH SpMM and slab SpMM kernels.
+
+    python3 -m cask_tpu_torch.tune.kernel_probe
+    env PYTHONPATH=<another checkout> python3 <this checkout>/cask_tpu_torch/tune/kernel_probe.py
+
+The second form times another checkout's kernels with this script (it uses
+only entry points that every version of the port has), so two versions can
+be compared in one run on one card.  Needs a CUDA device.  One line per
+measurement, CUDA events, median of 10 samples of 3 calls:
+
+- POH SpMM (``poh_spmm``) on ``power_law(1_000_000, avg_degree=12,
+  seed=3)``, f32, at k = 4 and k = 32 (does the time follow the number of
+  column passes?), the heaviest panel alone (its tiles as a one-panel plan:
+  the least time of the panel's blocks), and ``random_uniform`` of the same
+  size and nonzero count (hub rows and uneven panels against none).
+- The same POH SpMM at k = 32 through variants of ``csrc/poh_spmm.cu``,
+  each built from a text edit of the source into the build directory and
+  called directly (Y zeroed per call, the kernel as it stands among them):
+  without its shared-memory atomics (plain adds, racy: timing only),
+  without its X gathers (a constant in place of each X element), without
+  both, with only the slot stream and its sifting into the queues (over
+  the row parts, and over one part), and with its partial sums added
+  straight into Y by global atomics, with no row parts.  What each
+  removes is what it costs.  A checkout whose source the edits do not fit
+  skips them.
+- Slab SpMM (``bdia_spmm_slab``) on ``fem_blocks(512, dof=4)`` at k = 128,
+  f32 and f64, and the f32 kernel's variants (through its own wrapper):
+  without its tensor-core products, without its copies, with 4 stages, and
+  without the L2 evict-first hint on the slab stream.
+- ``mma.sync`` m16n8k8 TF32 alone, every SM full of warps: the ceiling of
+  the slab's products on this card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+
+PL_N = 1_000_000
+
+# text edits of csrc/poh_spmm.cu (old, new), combined into the variants below
+_NO_ATOMICS = ("atomicAdd(acc + key * KC + cl, sum)", "acc[key * KC + cl] += sum")
+_NO_GATHERS = ("__ldg(X + static_cast<int64_t>(qc[e]) * k + c0 + cl)", "static_cast<T>(qc[e] & 1)")
+_NO_QUEUE = ("for (int s0 = 0; s0 < cnt; s0 += G * U)", "for (int s0 = 0; s0 < 0; s0 += G * U)")
+_NO_ACC = ("  for (int i = threadIdx.x; i < rows * KC; i += kThreads) acc[i] = T(0);\n"
+           "  __syncthreads();\n", "")
+_ONE_PART = ("const int parts = static_cast<int>((R * row_bytes + budget - 1) / budget);",
+             "const int parts = 1;")
+_NO_ACC_BYTES = ("const int acc_bytes = static_cast<int>((RP * row_bytes + 127) / 128 * 128);",
+                 "const int acc_bytes = 0;")
+_NO_STORE = ("  __syncthreads();\n\n  const int64_t row0", "  return;\n  const int64_t row0")
+
+# name -> the edits of a variant
+POH_VARIANTS = {
+    "as built": [],
+    "no shared atomics": [_NO_ATOMICS],
+    "no X gathers": [_NO_GATHERS],
+    "no atomics, no gathers": [_NO_ATOMICS, _NO_GATHERS],
+    "sift only (no queue work)": [_NO_QUEUE],
+    "sift only, one pass (no row parts)": [_NO_QUEUE, _NO_ACC, _ONE_PART, _NO_ACC_BYTES,
+                                           _NO_STORE],
+    "global atomics, no row parts": [
+        _NO_ACC, ("qr[pos] = r[i] - rp0;", "qr[pos] = r[i] + I * R;"),
+        ("atomicAdd(acc + key * KC + cl, sum)", "if (key < m) atomicAdd(Y + key * k + c0 + cl, sum)"),
+        _NO_STORE, _ONE_PART, _NO_ACC_BYTES],
+}
+
+
+def _ms(fn) -> float:
+    from cask_tpu_torch.tune.timing import time_cuda
+
+    return time_cuda(fn, warmup=3, runs=10, reps=3).ms
+
+
+# name -> text edits of csrc/bdia_slab_spmm.cu: the f32 kernel without its
+# tensor-core products (only the copies, barriers and stores stay), and
+# without its copies (products on whatever shared memory holds)
+SLAB_VARIANTS = {
+    "as built": [],
+    "no products": [("          for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], alo[i], bhi[j]);",
+                     "          for (int j = 0; j < kJ; ++j) {}"),
+                    ("          for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], ahi[i], blo[j]);",
+                     "          for (int j = 0; j < kJ; ++j) {}"),
+                    ("          for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], ahi[i], bhi[j]);",
+                     "          for (int j = 0; j < kJ; ++j) {}")],
+    "4 stages": [("constexpr int kTcStages = 3;", "constexpr int kTcStages = 4;"),
+                 ("constexpr int kTableMax = 2048;", "constexpr int kTableMax = 512;")],
+    "no L2 evict-first hint on the slabs": [
+        ('asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\\n" : "=l"(once));',
+         'asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\\n" : "=l"(once));')],
+    "no copies": [('  asm volatile("cp.async.cg.shared.global.L2::cache_hint',
+                   '  if (0) asm volatile("cp.async.cg.shared.global.L2::cache_hint'),
+                  ('  asm volatile("cp.async.cg.shared.global [',
+                   '  if (0) asm volatile("cp.async.cg.shared.global ['),
+                  ('  asm volatile("cp.async.ca.shared.global [',
+                   '  if (0) asm volatile("cp.async.ca.shared.global [')],
+}
+
+
+def _build_variants(source: str, variants: dict) -> dict:
+    """{name: path of the built library} of the text-edited variants of
+    ``csrc/<source>.cu`` that fit it, all compiled at once."""
+    from cask_tpu_torch.ops.kernels import build
+
+    src = (build.CSRC / f"{source}.cu").read_text()
+    out = build.BUILD_DIR / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for i, (name, edits) in enumerate(variants.items()):
+        text = src
+        for old, new in edits:
+            if old not in text:
+                print(f"[probe] variant '{name}' does not fit this source: skipped", flush=True)
+                break
+            text = text.replace(old, new)
+        else:
+            cu = out / f"{source}_v{i}.cu"
+            cu.write_text(text)
+            jobs[name] = (cu.with_suffix(".so"), _nvcc(cu))
+    return {name: _wait(so, proc, name) for name, (so, proc) in jobs.items()}
+
+
+def _nvcc(cu):
+    from cask_tpu_torch.ops.kernels import build
+
+    cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+           str(cu.with_suffix(".so")), str(cu)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(so, proc, name):
+    log = proc.communicate()[0]
+    if proc.returncode:
+        raise RuntimeError(f"'{name}' failed to build:\n{log}")
+    return so
+
+
+def _poh_variants():
+    """{name: ctypes f32 entry} of the POH SpMM source variants."""
+    p, i_, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fns = {}
+    for name, so in _build_variants("poh_spmm", POH_VARIANTS).items():
+        fn = ctypes.CDLL(str(so)).cask_poh_spmm_f32
+        fn.argtypes, fn.restype = [p] * 7 + [i_, i_, i_, i_, ll, ll, i_, p], ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def _mma_peak() -> float:
+    """TFLOP/s of mma.sync m16n8k8 TF32 alone: every SM full of warps, each
+    with 8 independent accumulators."""
+    import torch
+    from cask_tpu_torch.ops.kernels import build
+
+    cu = build.BUILD_DIR / "probe" / "mma_peak.cu"
+    cu.parent.mkdir(parents=True, exist_ok=True)
+    cu.write_text(MMA_PEAK_CU)
+    lib = ctypes.CDLL(str(_wait(cu.with_suffix(".so"), _nvcc(cu), "mma_peak")))
+    lib.run.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, iters = 4 * sms, 4096
+    out = torch.empty(blocks * 256, device="cuda")
+
+    def run():
+        if lib.run(out.data_ptr(), blocks, iters, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("mma_peak launch failed")
+    ms = _ms(run)
+    return blocks * 8 * iters * 8 * 2048 / (ms * 1e-3) / 1e12
+
+
+MMA_PEAK_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void __launch_bounds__(256) mma_peak(float* out, int iters) {
+  uint32_t a[4], b[2];
+  for (int i = 0; i < 4; ++i) a[i] = __float_as_uint(1.0f + threadIdx.x * 1e-3f + i);
+  for (int i = 0; i < 2; ++i) b[i] = __float_as_uint(1.0f - threadIdx.x * 1e-3f + i);
+  float d[8][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+          "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  float s = 0.f;
+  for (int j = 0; j < 8; ++j) s += d[j][0] + d[j][1] + d[j][2] + d[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int run(float* out, int blocks, int iters, void* stream) {
+  mma_peak<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _one_panel(p, i: int):
+    """Panel ``i``'s tiles as a plan of their own (R rows)."""
+    ptr = p.panel_ptr.cpu()
+    ta, tb = int(ptr[i]), int(ptr[i + 1])
+    cut = {f: getattr(p, f)[ta:tb] for f in ("vals", "cloc", "rloc", "wlo", "whi", "first",
+                                             "last")}
+    return type(p)(panel=p.panel[ta:tb] * 0, shape=(p.row_panel, p.shape[1]),
+                   row_panel=p.row_panel, col_window=p.col_window, **cut)
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+    from cask_tpu_torch.formats.generate import fem_blocks, power_law, random_uniform
+    from cask_tpu_torch.ops.bdia_slab import slab_auto_plan
+    import cask_tpu_torch.ops.kernels.bdia_slab_kernels as bsk
+    from cask_tpu_torch.ops.kernels import build
+    from cask_tpu_torch.ops.kernels.bdia_slab_kernels import bdia_spmm_slab
+    from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmm
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_probe: needs a CUDA device")
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"[probe] package {ct.__file__}; card {card}", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    variants = _poh_variants()
+    slab_variants = _build_variants("bdia_slab_spmm", SLAB_VARIANTS)
+    pl = power_law(PL_N, avg_degree=12, dtype=np.float32, seed=3)
+    ru = random_uniform(PL_N, density=pl.nnz / PL_N ** 2, dtype=np.float32, seed=3)
+    for name, a in (("power_law", pl), ("random_uniform", ru)):
+        p = ct.poh_plan(a, device=dev)
+        per = torch.diff(p.panel_ptr).cpu().numpy()
+        pieces = getattr(p, "spmm_pieces", None)
+        print(f"[probe] {name}: nnz {a.nnz}, {p.ntiles} tiles, {p.n_panels} panels, tiles per "
+              f"panel max {per.max()} mean {per.mean():.1f}, fill {p.fill():.3f}, spmm pieces "
+              f"{'none' if pieces is None else pieces.shape[0]}", flush=True)
+        for k in (4, 32):
+            X = torch.randn((PL_N, k), generator=gen, device=dev)
+            print(f"[probe] poh_spmm {name} k={k}: {_ms(lambda: poh_spmm(p, X)) * 1e3:.1f} us",
+                  flush=True)
+        i = int(per.argmax())
+        one = _one_panel(p, i)
+        X = torch.randn((PL_N, 32), generator=gen, device=dev)
+        print(f"[probe] poh_spmm {name} k=32, heaviest panel {i} alone ({per[i]} tiles): "
+              f"{_ms(lambda: poh_spmm(one, X)) * 1e3:.1f} us", flush=True)
+        if pieces is not None:
+            for vname, fn in variants.items():
+                def call(fn=fn):
+                    Y = torch.zeros((PL_N, 32), device=dev)
+                    err = fn(p.vals.data_ptr(), p.cloc.data_ptr(), p.rloc.data_ptr(),
+                             p.wlo.data_ptr(), pieces.data_ptr(), X.data_ptr(), Y.data_ptr(),
+                             pieces.shape[0], p.row_panel, p.col_window, p.slot_rows * 128, PL_N,
+                             PL_N, 32, torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"variant '{vname}': CUDA error {err}")
+                print(f"[probe] poh_spmm {name} k=32, variant '{vname}' (Y zeroed per call): "
+                      f"{_ms(call) * 1e3:.1f} us", flush=True)
+        del p, one, X
+
+    for dt in (torch.float32, torch.float64):
+        a = fem_blocks(512, dof=4, dtype=np.float32 if dt == torch.float32 else np.float64,
+                       seed=0, return_bsr=True)
+        sl = slab_auto_plan(ct.bdia_plan(a, device=dev))
+        X = torch.randn((a.shape[1], 128), generator=gen, device=dev, dtype=dt)
+        print(f"[probe] bdia_spmm_slab {str(dt)[6:]} k=128 (g {sl.g}, W {sl.width}): "
+              f"{_ms(lambda: bdia_spmm_slab(sl, X)) * 1e3:.1f} us", flush=True)
+        if dt == torch.float32:  # the wrapper pointed at each variant's library in turn
+            load = build.load
+            try:
+                for vname, so in slab_variants.items():
+                    build.load = lambda name, so=so: ctypes.CDLL(str(so))
+                    bsk._lib.cache_clear()
+                    print(f"[probe] bdia_spmm_slab float32 k=128, variant '{vname}': "
+                          f"{_ms(lambda: bdia_spmm_slab(sl, X)) * 1e3:.1f} us", flush=True)
+            finally:
+                build.load = load
+                bsk._lib.cache_clear()
+        del sl, X
+    print(f"[probe] mma.sync m16n8k8 TF32 alone: {_mma_peak():.1f} TFLOP/s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

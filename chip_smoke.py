@@ -8,7 +8,9 @@ card.  Phases, one line each:
 
 1. device — the card's name and power limit; TF32 off.
 2. build — ``nvcc`` builds every kernel from ``cask_tpu_torch/csrc``, one
-   compiler per source, all at once; the ptxas register and spill lines.
+   compiler per source, all at once; the ptxas register and spill lines,
+   per instantiation for the redesigned kernels (the f32 slab's 3xTF32
+   kernel and POH SpMM), none of which may spill.
 3. small — the BDIA kernel against its plain PyTorch twin on small FEM
    matrices (dof 2/4/8), one with a COO remainder and one with (4, 2)
    blocks, in f32 and f64.
@@ -20,12 +22,14 @@ card.  Phases, one line each:
    SpMM kernels against their twins and scipy on eight small plans (dof 2
    and 4, a remainder, far offsets not divisible by g, none, one
    asymmetric, eight far offsets, a ragged rectangular matrix); f32 and
-   f64, k ∈ {1, 65, 128}.
+   f64, k ∈ {1, 65, 128}; and the f32 slab kernel (3xTF32) within 2e-6 of
+   f64 on values whose low mantissa bits one TF32 pass would drop.
 6. small-poh — the POH SpMV and SpMM kernels against their twins and scipy
    on the edge plans of the JAX package's POH tests (power law, both
    rectangles, a band, one dense column, empty rows and columns, the
    all-zero matrix, n below the window, other panel, window and tile
-   sizes, and ``graph_pattern_120.mtx`` through ``read_mtx``): ``spmv``,
+   sizes, ``graph_pattern_120.mtx`` through ``read_mtx``, and one hub row
+   whose panel the SpMM kernel cuts into pieces): ``spmv``,
    ``transposed`` and ``spmm`` at k ∈ {1, 32, 150}, f32 and f64.
 7. small-lell — the LELL kernel against its twin and scipy: ``lell_plan``
    at groups ∈ {1, 4, 8, 16} and ``lell_plan_hyb`` on a uniform matrix, a
@@ -46,7 +50,8 @@ card.  Phases, one line each:
    slab).
 15. poh-spmv — ``spmv(poh_plan(A), x)`` on ``power_law(1_000_000,
    avg_degree=12)`` (f32): the unstructured path, one ``poh_spmv`` launch.
-16. poh-spmm — ``spmm(plan, X)`` on the same plan at k = 32.
+16. poh-spmm — ``spmm(plan, X)`` on the same plan at k = 32, in the
+   plan's pieces.
 17. lell — ``lell_plan_hyb(A).spmv(x)``: the LELL kernel on the grouped and
    the hub tier.
 18. poh-cg — CG with Jacobi over the POH plan of the SPD ``A + Aᵀ`` with a
@@ -67,6 +72,7 @@ run), then the device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -86,6 +92,7 @@ SCIPY_COLS = 8  # columns of a k = 128 product also held against scipy f64 on th
 SEED = 0
 F32_TOL = 1e-5  # normwise relative; f32 sums of a few dozen products, same order
 F64_TOL = 1e-12  # same products in the same order as the twin
+TF32_TOL = 2e-6  # the f32 slab's 3xTF32 products where one TF32 pass misses by > 1e-5
 F32_PEAK = 67e12  # FLOP/s, FP32 outside the tensor cores, H100 SXM (NVIDIA data sheet)
 KERNELS = ("bdia_spmv", "dia_spmv", "dia_spmm", "bdia_slab_spmm", "bdia_spmm", "bsr_spmm",
            "poh_spmv", "poh_spmm", "lell_spmv")
@@ -95,6 +102,36 @@ SLAB_PY = "cask_tpu/ops/pallas/bdia_slab.py"
 BSR_PY = "cask_tpu/ops/pallas/bsr_kernels.py"
 POH_PY = "cask_tpu/ops/pallas/poh_kernels.py"
 LELL_PY = "cask_tpu/ops/pallas/lell_kernels.py"
+
+
+# the instantiations this version redesigned (mangled names): no spills allowed
+REDESIGNED = r"(slab_spmm_tf32x3_kernel|poh_spmm_kernelI[fd]Li\d+E)"
+
+
+def _ptxas(log: str):
+    """(mangled kernel name, registers, spill bytes) of each entry function
+    in an ``nvcc -Xptxas -v`` log."""
+    out = []
+    for part in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", part)
+        spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", part))
+        out.append((part.split("'", 1)[0], int(regs.group(1)) if regs else 0, spills))
+    return out
+
+
+def _tf32(x):
+    """f32 rounded to TF32 (10 explicit mantissa bits) as cvt.rna.tf32.f32."""
+    import torch
+
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _low_bits(a):
+    """``a`` (f32 numpy) with the 12 mantissa bits below TF32's set on every
+    nonzero: one TF32 pass rounds each value by about 2^-11."""
+    bits = a.view("int32").copy()
+    bits[a != 0] |= 0x0FFF
+    return bits.view("float32")
 
 
 def _relerr(y, ref) -> float:
@@ -264,7 +301,25 @@ def _poh_cases():
         "tile_slots=1024": (pl4k, {"tile_slots": 1024}),
         "tile_slots=8192": (pl4k, {"row_panel": 8192, "tile_slots": 8192}),
         "graph_pattern_120.mtx": (to_scipy(read_mtx(mtx)), {}),
+        "hub row (a cut panel)": (_hub_row(), {}),
     }
+
+
+def _hub_row():
+    """20,000 rows of 4 entries and row 5 with 15,000: its panel holds twice
+    the mean tile count, so the POH SpMM kernel cuts it into pieces."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from cask_tpu_torch.formats.convert import to_scipy
+    from cask_tpu_torch.formats.generate import random_uniform
+
+    s = to_scipy(random_uniform(20000, 20000, density=2e-4, seed=47))
+    rng = np.random.default_rng(48)
+    hub = sp.csr_matrix((rng.standard_normal(15000),
+                         (np.full(15000, 5), rng.choice(20000, 15000, replace=False))),
+                        shape=s.shape)
+    return (s + hub).tocsr()
 
 
 def _lell_cases():
@@ -360,12 +415,18 @@ def main() -> int:
     libs = build.build_all(KERNELS)
     t_build = time.perf_counter() - t0
     for name, lib in libs.items():
-        log = lib.with_suffix(".log").read_text()
-        regs = re.findall(r"Used (\d+) registers", log)
-        spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", log))
+        entries = _ptxas(lib.with_suffix(".log").read_text())
+        regs = "/".join(str(r) for _, r, _ in entries)
         print(f"[build] {name}.cu ({t_build:.1f} s for all {len(libs)}, built together); "
-              f"ptxas: {len(regs)} kernels, registers {'/'.join(regs)}, spill bytes {spills}",
-              flush=True)
+              f"ptxas: {len(entries)} kernels, registers {regs}, spill bytes "
+              f"{sum(sp for _, _, sp in entries)}", flush=True)
+        for kernel, r, spilled in entries:
+            short = re.search(REDESIGNED, kernel)
+            if short is None:
+                continue
+            print(f"[build]   {short.group(0)}: {r} registers, {spilled} spill bytes", flush=True)
+            if spilled:
+                raise AssertionError(f"{short.group(0)} spills {spilled} bytes")
 
     # -- 3. BDIA kernel vs plain twin, small ---------------------------------
     rng = np.random.default_rng(SEED)
@@ -466,18 +527,52 @@ def main() -> int:
           f"padded, ring, bsr; (g, W) of the slab plans {sorted(set(widths))}): kernel vs twin "
           f"worst {worst[np.float32]:.2e} f32 (tol {F32_TOL:.0e}), {worst[np.float64]:.2e} f64 "
           f"(tol {F64_TOL:.0e}); vs scipy f64 within the same tolerances", flush=True)
+    # the f32 slab kernel's 3xTF32 on values whose low mantissa bits one TF32
+    # pass drops: it must stay within TF32_TOL of f64 where one pass does not
+    low = fem_blocks(16, dof=4, dtype=np.float32, return_bsr=True)
+    low = dataclasses.replace(low, data=_low_bits(np.asarray(low.data)))
+    sl = slab_auto_plan(ct.bdia_plan(low, device=dev))
+    x = torch.from_numpy(_low_bits(rng.standard_normal((low.shape[1], K_WIDE))
+                                   .astype(np.float32))).to(dev)
+    sl64 = dataclasses.replace(sl, slabs=sl.slabs.double())
+    errs = []
+    for padded, entry in ((False, bdia_spmm_slab), (True, bdia_spmm_slab_padded)):
+        xin = sl.to_padded(x) if padded else x
+        y = entry(sl, xin)
+        torch.cuda.synchronize()
+        exact = bdia_spmm_slab_reference(sl64, xin.double(), padded=padded)
+        one = bdia_spmm_slab_reference(dataclasses.replace(sl, slabs=_tf32(sl.slabs)),
+                                       _tf32(xin), padded=padded)
+        what = f"TF32-sensitive slab{' padded' if padded else ''}"
+        errs += [_relerr(y, bdia_spmm_slab_reference(sl, xin, padded=padded)),
+                 _relerr(y, exact), _relerr(one, exact)]
+        _check(f"{what} kernel vs twin", errs[-3], TF32_TOL)
+        _check(f"{what} kernel vs f64", errs[-2], TF32_TOL)
+        if not errs[-1] > 1e-5:
+            raise AssertionError(f"{what}: one TF32 pass is within 1e-5 ({errs[-1]:.2e}); "
+                                 f"the case does not test 3xTF32")
+    err_sp = _relerr(bdia_spmm_slab(sl, x), torch.from_numpy(
+        to_scipy(low).astype(np.float64) @ x.cpu().double().numpy()))
+    _check("TF32-sensitive slab kernel vs scipy f64", err_sp, TF32_TOL)
+    print(f"[small-slab] TF32-sensitive fem_blocks(16, dof=4) f32, k {K_WIDE}, low 12 mantissa "
+          f"bits set in values and X: kernel (3xTF32) vs twin {errs[0]:.2e} / {errs[3]:.2e} "
+          f"padded, vs f64 {errs[1]:.2e} / {errs[4]:.2e}, vs scipy f64 {err_sp:.2e} (tol "
+          f"{TF32_TOL:.0e}); one TF32 pass (emulated) {errs[2]:.2e} vs f64", flush=True)
+    del low, sl, sl64, x
 
 
     # -- 6. POH kernels vs plain twins and scipy, small ------------------------
     worst = {np.float32: 0.0, np.float64: 0.0}
     worst_sp = {np.float32: 0.0, np.float64: 0.0}
-    n_checks, tiles = 0, 0
+    n_checks, tiles, cut = 0, 0, []
     for name, (s64, kw) in _poh_cases().items():
         for dt in (np.float32, np.float64):
             s = s64.astype(dt)
             pplan = ct.poh_plan(from_scipy(s), device=dev, **kw)
             pt = ct.transposed(pplan)
             tiles += pplan.ntiles
+            if pplan.spmm_pieces.shape[0] > pplan.n_panels:
+                cut.append(name)
             tol = F32_TOL if dt == np.float32 else F64_TOL
             for what, k in (("spmv", None), ("transposed", None), ("spmm", 1), ("spmm", 32),
                             ("spmm", 150)):
@@ -496,8 +591,11 @@ def main() -> int:
                 worst[dt] = max(worst[dt], err)
                 worst_sp[dt] = max(worst_sp[dt], err_sp)
                 n_checks += 1
+    if "hub row (a cut panel)" not in cut:
+        raise AssertionError("the hub-row plan has no cut panel")
     print(f"[small-poh] {n_checks} products ({len(_poh_cases())} plans, {tiles} tiles in all, "
-          f"x f32/f64 x spmv, transposed spmv, spmm k in 1/32/150): kernel vs twin worst "
+          f"x f32/f64 x spmv, transposed spmv, spmm k in 1/32/150; plans with a cut panel "
+          f"{sorted(set(cut))}): kernel vs twin worst "
           f"{worst[np.float32]:.2e} f32, {worst[np.float64]:.2e} f64; vs scipy f64 worst "
           f"{worst_sp[np.float32]:.2e} f32 (tol {F32_TOL:.0e}), {worst_sp[np.float64]:.2e} "
           f"f64 (tol {F64_TOL:.0e})", flush=True)
@@ -609,6 +707,9 @@ def main() -> int:
     torch.cuda.synchronize()
     t_bcg = time.perf_counter() - t0
     launches_bcg = _launched("bdia_spmm_slab", "block_cg over the BDIA plan")
+    if launches_bcg != res.iterations + 1:
+        raise AssertionError(f"block_cg launched the slab kernel {launches_bcg} times for "
+                             f"{res.iterations} iterations (want iterations + 1)")
     if not res.converged:
         raise AssertionError(f"block_cg did not converge: {res.iterations} iterations, "
                              f"worst residual {res.residual_norm:.3e}")
@@ -758,6 +859,9 @@ def main() -> int:
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     launches_slab = _launched("bdia_spmm_slab", f"spmm(bsr, X) at k={K_WIDE}")
+    if launches_slab != 1:
+        raise AssertionError(f"spmm(bsr, X) at k={K_WIDE} launched the slab kernel "
+                             f"{launches_slab} times, not 1")
     if _counters()["dia_spmm"].launches:
         raise AssertionError(f"spmm(bsr, X) at k={K_WIDE} launched dia_spmm")
     sl = default_plan_cache.get(plan, "slab")
@@ -769,6 +873,16 @@ def main() -> int:
           f"{abs_slab:.2e}), vs scipy f64 {err_sp:.2e} on {SCIPY_COLS} of {K_WIDE} columns "
           f"(tol {F32_TOL:.0e})", flush=True)
     del Yw
+    # the f64 slab keeps the plain FMA kernel: right, and its time
+    sl64 = dataclasses.replace(sl, slabs=sl.slabs.double())
+    Xw64 = Xw.double()
+    err64 = _relerr(bdia_spmm_slab(sl64, Xw64), bdia_spmm_slab_reference(sl64, Xw64))
+    _check("1M f64 slab kernel vs twin", err64, F64_TOL)
+    ms64 = time_cuda(lambda: bdia_spmm_slab(sl64, Xw64), warmup=2, runs=10, reps=3).ms
+    print(f"[spmm-wide] slab f64 (FMA kernel), k {K_WIDE}: vs twin {err64:.2e} (tol "
+          f"{F64_TOL:.0e}); kernel {ms64 * 1e3:.1f} us (CUDA events, median of 10 samples of 3 "
+          f"calls); card {card}", flush=True)
+    del sl64, Xw64
     _reset()
     Yr = ct.spmm(plan, Xw, method="pallas_bdia")
     torch.cuda.synchronize()
@@ -841,6 +955,8 @@ def main() -> int:
     Yp = ct.spmm(pplan, Xp)
     torch.cuda.synchronize()
     launches_pohmm = _launched("poh_spmm", f"spmm(poh, X) at k={K}")
+    if launches_pohmm != 1:
+        raise AssertionError(f"spmm(poh, X) launched poh_spmm {launches_pohmm} times, not 1")
     Yp_twin = poh_spmm_reference(pplan, Xp)
     err_twin = _relerr(Yp, Yp_twin)
     _check("1M poh spmm kernel vs twin", err_twin, F32_TOL)
@@ -849,8 +965,11 @@ def main() -> int:
     err_sp = _relerr(Yp[:, :SCIPY_COLS], torch.from_numpy(
         pl_sp.astype(np.float64) @ Xp[:, :SCIPY_COLS].cpu().double().numpy()))
     _check("1M poh spmm kernel vs scipy f64", err_sp, F32_TOL)
-    print(f"[poh-spmm] spmm(poh, X), k {K} (torch.Generator on the card): launches "
-          f"{launches_pohmm}; vs twin {err_twin:.2e} (max abs {abs_pohmm:.2e}), vs scipy f64 "
+    pieces = pplan.spmm_pieces.cpu().numpy()
+    print(f"[poh-spmm] spmm(poh, X), k {K} (torch.Generator on the card): {pieces.shape[0]} "
+          f"pieces ({int(pieces[:, 3].sum())} of them from {len(set(pieces[pieces[:, 3] == 1, 0]))} "
+          f"cut panels, at most {int((pieces[:, 2] - pieces[:, 1]).max())} tiles) of "
+          f"{pplan.n_panels} panels; launches {launches_pohmm}; vs twin {err_twin:.2e} (max abs {abs_pohmm:.2e}), vs scipy f64 "
           f"{err_sp:.2e} on {SCIPY_COLS} columns (tol {F32_TOL:.0e})", flush=True)
     del Yp
 

@@ -11,7 +11,8 @@ that has no JAX, without the suite's conftest (which configures JAX):
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
 Tolerances: f64 ≤ 1e-12 normwise (the same products in the same pair or
-diagonal order as the twin), f32 ≤ 1e-5.
+diagonal order as the twin), f32 ≤ 1e-5; the f32 slab kernel's 3xTF32
+products ≤ 2e-6 on a case where one TF32 pass is off by more than 1e-5.
 """
 
 import dataclasses
@@ -426,6 +427,79 @@ def test_slab_kernel_matches_twin(cuda, name, dtype, k):
 
 @pytest.mark.parametrize("name", list(WIDE_CASES))
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [1, 7, 65, 127, 128, 130])
+def test_slab_kernel_takes_ragged_k_in_both_frames(cuda, name, dtype, k):
+    # column edges inside and past one 128-column block, k not a multiple of
+    # 4 (4-byte copies of X); each entry launches the kernel exactly once
+    bsr, x, y_sp = _wide(name, dtype, k, cuda, seed=29)
+    sl = slab_auto_plan(ct.bdia_plan(bsr, device=cuda))
+    if sl is None:
+        assert bsr.blocksize[1] == 3  # blocks of 3 fail the reference's slab gate
+        return
+    before = bdia_spmm_slab.launches
+    y = bdia_spmm_slab(sl, x)
+    torch.cuda.synchronize()
+    assert bdia_spmm_slab.launches == before + 1
+    assert _relerr(y, bdia_spmm_slab_reference(sl, x)) <= TOL[dtype]
+    y_rem = torch.from_numpy(sp.csr_matrix(
+        (sl.rem_data.cpu().double().numpy(), (sl.rem_row.cpu().numpy(),
+                                              sl.rem_col.cpu().numpy())),
+        shape=bsr.shape) @ x.cpu().double().numpy())
+    assert _relerr(y.double().cpu() + y_rem, y_sp) <= TOL[dtype]
+    if sl.blocksize[0] == sl.blocksize[1]:
+        xp = sl.to_padded(x)
+        before = bdia_spmm_slab_padded.launches
+        yp = bdia_spmm_slab_padded(sl, xp)
+        torch.cuda.synchronize()
+        assert bdia_spmm_slab_padded.launches == before + 1
+        assert _relerr(yp, bdia_spmm_slab_reference(sl, xp, padded=True)) <= TOL[dtype]
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 explicit mantissa bits), to nearest with ties
+    away from zero, as cvt.rna.tf32.f32."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _low_bits(a: np.ndarray) -> np.ndarray:
+    """``a`` (f32) with the 12 mantissa bits below TF32's set on every
+    nonzero: values a single TF32 pass rounds by about 2^-11."""
+    bits = a.view(np.int32).copy()
+    bits[a != 0] |= 0x0FFF
+    return bits.view(np.float32)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_slab_kernel_is_f32_class_where_tf32_is_not(cuda, padded):
+    # 3xTF32 keeps the low mantissa bits that one TF32 pass drops
+    bsr = fem_blocks(16, dof=4, dtype=np.float32, return_bsr=True)
+    bsr = dataclasses.replace(bsr, data=_low_bits(np.asarray(bsr.data)))
+    sl = slab_auto_plan(ct.bdia_plan(bsr, device=cuda))
+    rng = np.random.default_rng(28)
+    x = torch.from_numpy(_low_bits(rng.standard_normal((bsr.shape[1], 128))
+                                   .astype(np.float32))).to(cuda)
+    xin = sl.to_padded(x) if padded else x
+    counter = bdia_spmm_slab_padded if padded else bdia_spmm_slab
+    before = counter.launches
+    y = counter(sl, xin)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    s64 = dataclasses.replace(sl, slabs=sl.slabs.double())
+    exact = bdia_spmm_slab_reference(s64, xin.double(), padded=padded)
+    assert _relerr(y, bdia_spmm_slab_reference(sl, xin, padded=padded)) <= 2e-6
+    assert _relerr(y, exact) <= 2e-6
+    if not padded:  # and vs scipy f64 (the slab part: this plan has no remainder)
+        assert sl.rem_data.numel() == 0
+        assert _relerr(y, torch.from_numpy(to_scipy(bsr).astype(np.float64)
+                                           @ x.cpu().double().numpy())) <= 2e-6
+    # the case is built right: one TF32 pass misses by more than 1e-5
+    one = bdia_spmm_slab_reference(dataclasses.replace(sl, slabs=_tf32(sl.slabs)), _tf32(xin),
+                                   padded=padded)
+    assert _relerr(one, exact) > 1e-5
+
+
+@pytest.mark.parametrize("name", list(WIDE_CASES))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("k", WIDE_KS)
 def test_ring_kernel_matches_twin(cuda, name, dtype, k):
     bsr, x, y_sp = _wide(name, dtype, k, cuda, seed=31)
@@ -622,6 +696,17 @@ def _poh_dense_column():
                                          np.full(m, 7), (m, m)))
 
 
+def _poh_hub_row():
+    # 4 entries a row, and row 5 with 15,000: its panel holds twice the mean
+    # tile count, so the SpMM kernel cuts it into pieces
+    s = to_scipy(random_uniform(20000, 20000, density=2e-4, seed=47))
+    rng = np.random.default_rng(48)
+    hub = sp.csr_matrix((rng.standard_normal(15000),
+                         (np.full(15000, 5), rng.choice(20000, 15000, replace=False))),
+                        shape=s.shape)
+    return from_scipy((s + hub).tocsr())
+
+
 POH_CASES = {  # name -> (CSR f64 on the host, poh_plan arguments): tests/test_poh.py's edges
     "power_law": lambda: (power_law(5000, avg_degree=12, seed=1), {}),
     "wide": lambda: (random_uniform(3000, 4700, density=0.002, seed=2), {}),
@@ -641,6 +726,7 @@ POH_CASES = {  # name -> (CSR f64 on the host, poh_plan arguments): tests/test_p
                                               / "graph_pattern_120.mtx"), {}),
     # R = 8192: 64 KB of f64 accumulator, over the 48 KB a launch gets unasked
     "row_panel_8192": lambda: (power_law(9000, avg_degree=4, seed=9), {"row_panel": 8192}),
+    "hub_row": lambda: (_poh_hub_row(), {}),
 }
 
 
@@ -678,6 +764,24 @@ def test_poh_kernels_match_twin(cuda, name, dtype):
     for k in (1, 32, 150):
         X = torch.from_numpy(rng.standard_normal((a.shape[1], k)).astype(dtype)).to(cuda)
         _close(poh_spmm(p, X), poh_spmm_reference(p, X), s64 @ X.cpu().double().numpy(), dtype)
+
+
+@pytest.mark.parametrize("name", list(POH_CASES))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [1, 7, 8, 9, 31, 32, 33, 150])
+def test_poh_spmm_matches_twin_at_every_chunk_edge(cuda, name, dtype, k):
+    # k around the 8-column (f32) and 4-column (f64) chunks; one launch per call
+    a, p = _poh(name, dtype, cuda)
+    X = torch.from_numpy(np.random.default_rng(49).standard_normal((a.shape[1], k))
+                         .astype(dtype)).to(cuda)
+    before = poh_spmm.launches
+    Y = ct.spmm(p, X)
+    torch.cuda.synchronize()
+    assert poh_spmm.launches == before + 1 and Y.shape == (a.shape[0], k)
+    _close(Y, poh_spmm_reference(p, X),
+           to_scipy(a).astype(np.float64) @ X.cpu().double().numpy(), dtype)
+    if name == "hub_row":  # the hub row's panel is cut: its pieces add into Y
+        assert p.spmm_pieces.shape[0] > p.n_panels
 
 
 def test_poh_entry_points_launch_their_kernels(cuda):

@@ -29,7 +29,8 @@ import cask_tpu_torch as ct
 import cask_tpu_torch.formats.convert as tconv
 from cask_tpu_torch import interop
 from cask_tpu_torch.formats.generate import _diag_shift
-from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmm, poh_spmv
+from cask_tpu_torch.ops.kernels.poh_kernels import (poh_spmm, poh_spmm_reference, poh_spmv,
+                                                    spmm_pieces)
 from cask_tpu_torch.ops.poh import poh_plan, poh_to_coo, poh_transpose_plan
 from cask_tpu_torch.utils.debug import check_poh
 
@@ -162,6 +163,78 @@ class TestPlan:
                                                               for f in FIELDS[4:]),
                                     shape=j.shape, row_panel=j.row_panel,
                                     col_window=j.col_window, device=CPU)
+
+
+PIECE_PTRS = {  # name -> panel_ptr
+    "even": [0, 4, 8, 12],
+    "one_heavy": [0, 3, 3 + 17, 24, 27],
+    "empty_panels": [0, 0, 5, 5, 9, 9],
+    "all_empty": [0, 0, 0],
+    "one_panel": [0, 7],
+    "power_law_like": [0, 62, 321, 390, 455, 700],
+}
+
+
+def _check_pieces(ptr, pieces, cap):
+    ptr = np.asarray(ptr)
+    pc = pieces.numpy()
+    assert pieces.dtype == torch.int32 and pc.shape[1] == 4
+    covered = np.zeros(int(ptr[-1]), int)
+    for panel, lo, hi, cut in pc:
+        assert ptr[panel] <= lo <= hi <= ptr[panel + 1]  # within one panel
+        assert hi - lo <= cap
+        covered[lo:hi] += 1
+    assert (covered == 1).all()  # every tile exactly once
+    per_panel = np.bincount(pc[:, 0], minlength=len(ptr) - 1)
+    assert (per_panel >= 1).all()  # every panel's rows get written
+    assert (pc[:, 3] == (per_panel[pc[:, 0]] > 1)).all()  # cut = the panel has pieces
+    sizes = pc[:, 2] - pc[:, 1]
+    assert (np.diff(sizes) <= 0).all()  # largest first
+
+
+class TestSpmmPieces:
+    @pytest.mark.parametrize("name", list(PIECE_PTRS))
+    @pytest.mark.parametrize("cap", [None, 1, 3, 100])
+    def test_pieces_cover_every_tile_once_within_one_panel(self, name, cap):
+        ptr = PIECE_PTRS[name]
+        pieces = spmm_pieces(torch.tensor(ptr, dtype=torch.int32), cap)
+        want = cap or max(-(-ptr[-1] // (len(ptr) - 1)), 1)  # the mean, rounded up
+        _check_pieces(ptr, pieces, want)
+
+    def test_only_panels_above_the_mean_are_cut(self):
+        pieces = spmm_pieces(torch.tensor(PIECE_PTRS["power_law_like"], dtype=torch.int32))
+        cap = -(-700 // 5)  # 140
+        pc = pieces.numpy()
+        assert sorted(set(pc[pc[:, 3] == 1, 0])) == [1, 4]  # 259 and 245 tiles
+        assert (np.bincount(pc[:, 0]) == [1, 2, 1, 1, 2]).all()
+        _check_pieces(PIECE_PTRS["power_law_like"], pieces, cap)
+
+    @pytest.mark.parametrize("name", ["power_law", "banded", "empty_rows_cols", "all_zero"])
+    def test_plan_carries_its_pieces(self, mats, name):
+        p = poh_plan(tconv.from_scipy(mats[name]), device=CPU, row_panel=1024)
+        torch.testing.assert_close(p.spmm_pieces, spmm_pieces(p.panel_ptr), rtol=0, atol=0)
+        _check_pieces(p.panel_ptr.numpy(), p.spmm_pieces,
+                      max(-(-p.ntiles // p.n_panels), 1))
+        assert p.to(CPU).spmm_pieces.shape == p.spmm_pieces.shape
+
+    @pytest.mark.parametrize("cap", [1, 2, 5])
+    def test_pieces_reassemble_the_product(self, mats, cap):
+        # the kernel's schedule in plain PyTorch: each piece's tiles summed on
+        # their own, stored for an uncut panel, added for a cut one
+        s = mats["power_law"]
+        p = poh_plan(tconv.from_scipy(s), device=CPU, row_panel=1024)
+        X = torch.from_numpy(np.random.default_rng(12).standard_normal((s.shape[1], 5)))
+        R = p.row_panel
+        Y = torch.zeros((p.n_panels * R, 5), dtype=X.dtype)
+        for panel, lo, hi, cut in spmm_pieces(p.panel_ptr, cap).tolist():
+            part = dataclasses.replace(p, vals=p.vals[lo:hi], cloc=p.cloc[lo:hi],
+                                       rloc=p.rloc[lo:hi], wlo=p.wlo[lo:hi], whi=p.whi[lo:hi],
+                                       panel=p.panel[lo:hi] * 0, first=p.first[lo:hi],
+                                       last=p.last[lo:hi], shape=(R, s.shape[1]))
+            block = poh_spmm_reference(part, X)
+            rows = slice(panel * R, (panel + 1) * R)
+            Y[rows] = Y[rows] + block if cut else block
+        assert _relerr(Y[: s.shape[0]].numpy(), s @ X.numpy()) <= 1e-12
 
 
 class TestProducts:

@@ -5,8 +5,11 @@ The reference's slab kernels (B5 ``bdia_spmm_slab_padded``, B6
 ``_slab_ring_call`` through ``bdia_spmm_pallas_slab`` and
 ``bdia_spmm_slab_ring_padded``) run in interpret mode, as
 tests/test_bdia_slab.py runs them.  The packed slabs must equal the
-reference's exactly.  Tolerances: f64 ≤ 1e-12 normwise, f32 ≤ 1e-5.
+reference's exactly.  Tolerances: f64 ≤ 1e-12 normwise, f32 ≤ 1e-5; the
+3xTF32 products of the kernel's f32 route, emulated here, ≤ 2e-6.
 """
+
+import dataclasses
 
 import jax  # noqa: F401  (kept on the CPU with x64 by conftest)
 import jax.numpy as jnp
@@ -228,3 +231,52 @@ def test_padded_entry_checks():
     # the natural frame takes rectangular blocks
     x = np.random.default_rng(9).standard_normal((s.shape[1], 8))
     assert _relerr(tr.spmm(torch.from_numpy(x)), s @ x) <= 1e-12
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 explicit mantissa bits), to nearest with ties
+    away from zero: the kernel's hi part (as cvt.rna.tf32.f32)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_cut(x: torch.Tensor) -> torch.Tensor:
+    """f32 cut toward zero to TF32: the kernel's lo part."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _low_bits(a: np.ndarray) -> np.ndarray:
+    """``a`` (f32) with the 12 mantissa bits below TF32's set on every
+    nonzero, so that one TF32 pass rounds each value by about 2^-11."""
+    bits = a.view(np.int32).copy()
+    bits[a != 0] |= 0x0FFF
+    return bits.view(np.float32)
+
+
+@pytest.mark.parametrize("name,k", [("fem4", 128), ("fem2", 65), ("far18_not_div_g", 130),
+                                    ("eight_far", 8)])
+def test_three_tf32_passes_are_f32_class_and_one_is_not(name, k):
+    # the f32 slab kernel's arithmetic (csrc/bdia_slab_spmm.cu): each operand
+    # split into TF32 hi (rounded) and lo (the rest, cut), D = lo·hi + hi·lo +
+    # hi·hi with f32 sums, here as three f32 bmm's of the plain twin
+    s, b, g = CASES[name]()
+    s = s.astype(np.float32)
+    s.data = _low_bits(s.data)
+    tp = tbdia.bdia_plan(tconv.csr_to_bsr(tconv.from_scipy(s), (b, b)), (b, b), device="cpu")
+    ts = tslab.bdia_slab_plan(tp, g)
+    x = torch.from_numpy(_low_bits(np.random.default_rng(10).standard_normal((s.shape[1], k))
+                                   .astype(np.float32)))
+
+    def product(slabs, xs):
+        return bdia_spmm_slab_reference(dataclasses.replace(ts, slabs=slabs), xs)
+
+    a_hi, x_hi = _tf32(ts.slabs), _tf32(x)
+    a_lo, x_lo = _tf32_cut(ts.slabs - a_hi), _tf32_cut(x - x_hi)
+    for v, hi, lo in ((ts.slabs, a_hi, a_lo), (x, x_hi, x_lo)):
+        assert ((hi + lo).double() - v.double()).abs().max() <= 2.0 ** -21 * v.abs().max()
+    three = product(a_lo, x_hi) + product(a_hi, x_lo) + product(a_hi, x_hi)
+    exact = product(ts.slabs.double(), x.double())
+    assert three.dtype == torch.float32
+    assert _relerr(exact, tconv.to_scipy(tconv.from_scipy(s)).astype(np.float64)
+                   @ x.double().numpy()) <= 1e-12
+    assert _relerr(three, exact) <= 2e-6
+    assert _relerr(product(a_hi, x_hi), exact) > 1e-5  # one TF32 pass is not f32-class
