@@ -55,12 +55,30 @@
 // - Shared rows are padded (slab rows to 40 floats, window rows to 132), so
 //   the mma fragment loads meet no bank conflict; a thread's slab values
 //   come as 8-byte loads.
+// bf16 slabs or X (the reference's bf16 slab option, run at its
+// precision="highest", so exact-class in the f32 operand): the same kernel,
+// templated on the slab, X and Y types.  A bf16 value is a TF32 value as it
+// stands (8 exponent bits, 7 of TF32's 10 mantissa bits), so its lo part is
+// zero: bf16 slabs with f32 X take two passes, A·X_hi + A·X_lo, f32 slabs
+// with bf16 X take A_lo·X + A_hi·X, and bf16 with bf16 one pass.  X is never
+// rounded to bf16.  The fragment loads turn a bf16 into its TF32 bit
+// pattern by a 16-bit shift, exactly, with no cvt.  bf16 operands sit in
+// shared memory as bf16 (window rows padded to 136, 16-byte aligned) and
+// are copied in 16-byte runs of 8 where W or k and the base pointer allow,
+// else in 4-byte runs of 2 (W is even for every g the auto route picks),
+// else one element at a time by the thread itself; no copy reads past a
+// row and the packed slabs stay unpadded.  Y is f32, or bf16 rounded once
+// at the store (the reference's fully-bf16 chain).
 // f64, and f32 in with f64 sums (accum_dtype=float64), keep the plain FMA
 // kernel below: a register-blocked product, 16 window rows per shared chunk.
 // The far offsets ride in a by-value parameter (at most kMaxFar).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "value_types.cuh"
 
 namespace {
 
@@ -99,7 +117,7 @@ __device__ __forceinline__ int64_t window_row(int w, int64_t row0, int bc, int g
   return row0 + static_cast<int64_t>(far.d[f]) * bc + (w - f * gb_c);
 }
 
-// ---- f32: 3xTF32 on the tensor cores ------------------------------------
+// ---- f32 and bf16: split TF32 products on the tensor cores --------------
 
 constexpr int kTcBM = 64;        // slab rows per CTA
 constexpr int kTcBN = 128;       // columns per CTA
@@ -111,33 +129,45 @@ constexpr int kTcStages = 3;
 // Within each step of 8 window rows, mma's k index tq is window row 2·tq and
 // k index tq + 4 is row 2·tq + 1 (any one-to-one map of the 8 rows gives
 // the same sum), so a thread's two a values of one fragment row are
-// neighbours: one 8-byte shared load.  The row strides put the 32 lanes of
-// each fragment load on 32 different banks.
+// neighbours: one 8-byte (bf16: 4-byte) shared load.  The row strides put
+// the 32 lanes of each fragment load on 32 different banks (bf16 window
+// rows: two lanes share a word) and keep every row 16-byte aligned.
 constexpr int kAStride = kTcBK + 8;
-constexpr int kBStride = kTcBN + 4;
+template <typename T>
+constexpr int kBStride = kTcBN + 16 / static_cast<int>(sizeof(T));
 constexpr int kAStage = kTcBM * kAStride;
-constexpr int kBStage = kTcBK * kBStride;
-constexpr int kTcSmem = kTcStages * (kAStage + kBStage) * static_cast<int>(sizeof(float));
+template <typename T>
+constexpr int kBStage = kTcBK * kBStride<T>;
+template <typename S, typename X>
+constexpr int kTcSmem = kTcStages * (kAStage * static_cast<int>(sizeof(S)) +
+                                     kBStage<X> * static_cast<int>(sizeof(X)));
 constexpr int kTableMax = 2048;  // windows up to this many rows keep their X offsets in a table
 
-// 16 (or 4) bytes global -> shared; src_bytes 0 fills zeros and reads
-// nothing.  The slab stream is read once: its 16-byte copies carry an L2
-// evict-first policy, so X windows, which neighbouring tiles share, stay.
-__device__ __forceinline__ void cp_async16_once(float* dst, const float* src, int src_bytes,
-                                                uint64_t policy) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes), "l"(policy) : "memory");
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes) : "memory");
+// E elements of T global -> shared (E·sizeof(T) of 4, 8 or 16 bytes, as one
+// cp.async; `ok` false fills zeros and reads nothing); 2 bytes (one bf16)
+// are copied by the thread itself.  The slab stream is read once: its
+// 16-byte copies carry an L2 evict-first policy, so X windows, which
+// neighbouring tiles share, stay.
+template <typename T, int E, bool kOnce = false>
+__device__ __forceinline__ void copy_chunk(T* dst, const T* src, bool ok, uint64_t policy) {
+  constexpr int kBytes = E * static_cast<int>(sizeof(T));
+  if constexpr (kBytes == 2) {
+    *reinterpret_cast<unsigned short*>(dst) =
+        ok ? __ldg(reinterpret_cast<const unsigned short*>(src)) : static_cast<unsigned short>(0);
+  } else {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    const int n = ok ? kBytes : 0;
+    if constexpr (kBytes == 16 && kOnce) {
+      asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(d),
+                   "l"(src), "r"(n), "l"(policy) : "memory");
+    } else if constexpr (kBytes == 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                   : "memory");
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+                   "n"(kBytes), "r"(n) : "memory");
+    }
+  }
 }
 
 // a ≈ hi + lo, each a TF32 value (10 explicit mantissa bits): hi is a
@@ -150,6 +180,35 @@ __device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) 
   lo = __float_as_uint(a - __uint_as_float(hi)) & 0xffffe000u;
 }
 
+// An operand's TF32 parts: an f32 splits into hi + lo; a bf16 (8 exponent
+// and 7 mantissa bits) is a TF32 value as it stands, its f32 bit pattern the
+// bf16 bits shifted up by 16, exactly (its lo part is zero and is skipped).
+__device__ __forceinline__ void tf32_parts(float a, uint32_t& hi, uint32_t& lo) {
+  split_tf32(a, hi, lo);
+}
+__device__ __forceinline__ void tf32_parts(__nv_bfloat16 a, uint32_t& hi, uint32_t&) {
+  hi = static_cast<uint32_t>(__bfloat16_as_ushort(a)) << 16;
+}
+// an A fragment's four values: two neighbouring shared values in row g (at
+// p) and in row g + 8 (at p + 8 rows), in mma's register order
+__device__ __forceinline__ void tf32_frag(const float* p, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float2 top = *reinterpret_cast<const float2*>(p);
+  const float2 bot = *reinterpret_cast<const float2*>(p + 8 * kAStride);
+  split_tf32(top.x, hi[0], lo[0]);
+  split_tf32(bot.x, hi[1], lo[1]);
+  split_tf32(top.y, hi[2], lo[2]);
+  split_tf32(bot.y, hi[3], lo[3]);
+}
+__device__ __forceinline__ void tf32_frag(const __nv_bfloat16* p, uint32_t (&hi)[4],
+                                          uint32_t (&)[4]) {
+  const uint32_t top = *reinterpret_cast<const uint32_t*>(p);
+  const uint32_t bot = *reinterpret_cast<const uint32_t*>(p + 8 * kAStride);
+  hi[0] = top << 16;
+  hi[1] = bot << 16;
+  hi[2] = top & 0xffff0000u;
+  hi[3] = bot & 0xffff0000u;
+}
+
 // not volatile: the compiler interleaves the independent products of a step
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -157,6 +216,27 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two neighbouring sums of a Y row: one 8-byte (f32) or 4-byte (bf16,
+// rounded to nearest even) store where `vec`, else one or two scalar ones
+__device__ __forceinline__ void store_pair(float* y, int col, int k, bool vec, float v0,
+                                           float v1) {
+  if (vec && col + 1 < k) {
+    *reinterpret_cast<float2*>(y + col) = make_float2(v0, v1);
+  } else {
+    if (col < k) y[col] = v0;
+    if (col + 1 < k) y[col + 1] = v1;
+  }
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* y, int col, int k, bool vec, float v0,
+                                           float v1) {
+  if (vec && col + 1 < k) {
+    *reinterpret_cast<uint32_t*>(y + col) = cask::pack_bf16x2(v0, v1);
+  } else {
+    if (col < k) y[col] = __float2bfloat16_rn(v0);
+    if (col + 1 < k) y[col + 1] = __float2bfloat16_rn(v1);
+  }
 }
 
 // A block's place in its stream of chunks: the work item (body tile, 64 slab
@@ -180,20 +260,32 @@ struct Cursor {
   }
 };
 
+// S: slab type; X: X type (each f32 or bf16); O: output type (f32, or bf16
+// rounded at the store).  The products an exact-class f32 result needs:
+// lo·hi + hi·lo + hi·hi when both are f32 (3xTF32); hi·lo + hi·hi when one
+// is bf16 (its lo is zero); one hi·hi pass when both are bf16.
+//
 // Block b takes items b, b + gridDim.x, ... as one stream of W chunks, so
 // the ring runs on across item boundaries and the next item's first chunks
 // load while this item's last ones multiply and its sums are stored.  At
 // any time the blocks work on a band of neighbouring tiles, whose windows
 // overlap (halos, and far segments a far offset apart).
+//
+// s_chunk / x_chunk: elements per copy of a slab and an X row (16 bytes,
+// else 4 bytes, else one element), the widest that W or k and the base
+// pointer's alignment allow.
+template <typename S, typename X, typename O>
 __global__ void __launch_bounds__(kTcThreads, 2)
-slab_spmm_tf32x3_kernel(const float* __restrict__ S, const float* __restrict__ X,
-                        float* __restrict__ Y, const FarOffsets far, int bc, int gb_r, int gb_c,
-                        int W, int64_t x_rows, int64_t tile0, int64_t y_rows, int k, int items,
-                        int row_blocks, int col_blocks, bool s_vec, bool x_vec, bool y_vec) {
-  extern __shared__ __align__(128) float smem[];
-  float* As = smem;                                  // [stage][slab row][w]
-  float* Bs = smem + kTcStages * kAStage;            // [stage][w][column]
-  int64_t* woff = reinterpret_cast<int64_t*>(Bs + kTcStages * kBStage);  // [w]
+slab_spmm_tc_kernel(const S* __restrict__ Sm, const X* __restrict__ Xm, O* __restrict__ Y,
+                    const FarOffsets far, int bc, int gb_r, int gb_c, int W, int64_t x_rows,
+                    int64_t tile0, int64_t y_rows, int k, int items, int row_blocks,
+                    int col_blocks, int s_chunk, int x_chunk, bool y_vec) {
+  constexpr bool kSplitA = sizeof(S) == 4, kSplitB = sizeof(X) == 4;
+  constexpr int kBS = kBStride<X>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  S* As = reinterpret_cast<S*>(smem_raw);                       // [stage][slab row][w]
+  X* Bs = reinterpret_cast<X*>(As + kTcStages * kAStage);       // [stage][w][column]
+  int64_t* woff = reinterpret_cast<int64_t*>(Bs + kTcStages * kBStage<X>);  // [w]
   const bool table = W <= kTableMax;
 
   const int tid = threadIdx.x;
@@ -213,52 +305,106 @@ slab_spmm_tf32x3_kernel(const float* __restrict__ S, const float* __restrict__ X
   }
   __syncthreads();
 
+  // bf16 slabs or X: the slab chunk, 64 rows × 32 window columns in runs of E
+  auto load_slab = [&](auto elems, S* a, const S* St, const Cursor& cu, int w0) {
+    constexpr int E = decltype(elems)::value;
+    constexpr int kRuns = kTcBK / E;  // runs a row
+#pragma unroll 4
+    for (int p = 0; p < kTcBM * kRuns / kTcThreads; ++p) {
+      const int e = tid + p * kTcThreads;
+      const int m = e / kRuns, kk = (e % kRuns) * E;
+      const bool ok = cu.r0 + m < gb_r && w0 + kk < W;
+      copy_chunk<S, E, true>(a + m * kAStride + kk,
+                             ok ? St + static_cast<int64_t>(cu.r0 + m) * W + w0 + kk : Sm, ok,
+                             once);
+    }
+  };
+  // the window chunk: 32 window rows × 128 columns in runs of E (a run of
+  // 16 bytes: a warp copies whole rows)
+  auto load_window = [&](auto elems, X* b, const Cursor& cu, int w0, int64_t row0) {
+    constexpr int E = decltype(elems)::value;
+    constexpr int kRuns = kTcBN / E;
+#pragma unroll 4
+    for (int p = 0; p < kTcBK * kRuns / kTcThreads; ++p) {
+      const int e = tid + p * kTcThreads;
+      const int kk = e / kRuns, cq = (e % kRuns) * E;
+      const int w = w0 + kk;
+      int64_t xr = -1;  // -1 past the window
+      if (w < W) xr = table ? row0 + woff[w] : window_row(w, row0, bc, gb_c, far);
+      const bool ok = xr >= 0 && xr < x_rows && cu.c0 + cq < k;
+      copy_chunk<X, E>(b + kk * kBS + cq, ok ? Xm + xr * k + cu.c0 + cq : Xm, ok, once);
+    }
+  };
+  constexpr int kS16 = 16 / sizeof(S), kS4 = 4 / sizeof(S);
+  constexpr int kX16 = 16 / sizeof(X), kX4 = 4 / sizeof(X);
   auto load_stage = [&](int stage, const Cursor& cu) {
     const int w0 = cu.kt * kTcBK;
-    const float* St = S + cu.t * gb_r * static_cast<int64_t>(W);
+    const S* St = Sm + cu.t * gb_r * static_cast<int64_t>(W);
     const int64_t row0 = (tile0 + cu.t) * gb_c;
-    float* a = As + stage * kAStage;
-    float* b = Bs + stage * kBStage;
-    if (s_vec) {  // 64 rows × 8 runs of 4
+    S* a = As + stage * kAStage;
+    X* b = Bs + stage * kBStage<X>;
+    if constexpr (sizeof(S) == 4 && sizeof(X) == 4) {
+      // f32 slabs and X: loops of their own, 16- or 4-byte copies (through
+      // the generic loops above the f32 kernel takes 108 registers, not 98,
+      // and measured 3.7 % slower on an H100: kernel_probe --slab)
+      if (s_chunk == 4) {  // 64 rows × 8 runs of 4
 #pragma unroll
-      for (int p = 0; p < kTcBM * kTcBK / 4 / kTcThreads; ++p) {
-        const int e = tid + p * kTcThreads;
-        const int m = e >> 3, kk = (e & 7) * 4;
-        const bool ok = cu.r0 + m < gb_r && w0 + kk < W;
-        cp_async16_once(a + m * kAStride + kk,
-                        ok ? St + static_cast<int64_t>(cu.r0 + m) * W + w0 + kk : S, ok ? 16 : 0,
-                        once);
+        for (int p = 0; p < kTcBM * kTcBK / 4 / kTcThreads; ++p) {
+          const int e = tid + p * kTcThreads;
+          const int m = e >> 3, kk = (e & 7) * 4;
+          const bool ok = cu.r0 + m < gb_r && w0 + kk < W;
+          copy_chunk<S, 4, true>(a + m * kAStride + kk,
+                                 ok ? St + static_cast<int64_t>(cu.r0 + m) * W + w0 + kk : Sm,
+                                 ok, once);
+        }
+      } else {
+#pragma unroll 4
+        for (int p = 0; p < kTcBM * kTcBK / kTcThreads; ++p) {
+          const int e = tid + p * kTcThreads;
+          const int m = e >> 5, kk = e & 31;
+          const bool ok = cu.r0 + m < gb_r && w0 + kk < W;
+          copy_chunk<S, 1, true>(a + m * kAStride + kk,
+                                 ok ? St + static_cast<int64_t>(cu.r0 + m) * W + w0 + kk : Sm,
+                                 ok, once);
+        }
+      }
+      auto xrow = [&](int w) -> int64_t {  // -1 past the window
+        if (w >= W) return -1;
+        return table ? row0 + woff[w] : window_row(w, row0, bc, gb_c, far);
+      };
+      if (x_chunk == 4) {  // 32 window rows × 32 runs of 4: a warp copies whole rows
+        const int cq = (tid & 31) * 4;
+#pragma unroll
+        for (int p = 0; p < kTcBK * kTcBN / 4 / kTcThreads; ++p) {
+          const int kk = (tid >> 5) + p * (kTcThreads / 32);
+          const int64_t xr = xrow(w0 + kk);
+          const bool ok = xr >= 0 && xr < x_rows && cu.c0 + cq < k;
+          copy_chunk<X, 4>(b + kk * kBS + cq, ok ? Xm + xr * k + cu.c0 + cq : Xm, ok, once);
+        }
+      } else {  // one column a thread
+        const int col = tid % kTcBN;
+        for (int p = 0; p < kTcBK * kTcBN / kTcThreads; ++p) {
+          const int kk = tid / kTcBN + p * (kTcThreads / kTcBN);
+          const int64_t xr = xrow(w0 + kk);
+          const bool ok = xr >= 0 && xr < x_rows && cu.c0 + col < k;
+          copy_chunk<X, 1>(b + kk * kBS + col, ok ? Xm + xr * k + cu.c0 + col : Xm, ok, once);
+        }
       }
     } else {
-#pragma unroll 4
-      for (int p = 0; p < kTcBM * kTcBK / kTcThreads; ++p) {
-        const int e = tid + p * kTcThreads;
-        const int m = e >> 5, kk = e & 31;
-        const bool ok = cu.r0 + m < gb_r && w0 + kk < W;
-        cp_async4(a + m * kAStride + kk,
-                  ok ? St + static_cast<int64_t>(cu.r0 + m) * W + w0 + kk : S, ok ? 4 : 0);
+      // a 4-byte run of an f32 operand is one element: one path, not two
+      if (s_chunk == kS16) {
+        load_slab(std::integral_constant<int, kS16>{}, a, St, cu, w0);
+      } else if (kS4 > 1 && s_chunk == kS4) {
+        load_slab(std::integral_constant<int, kS4>{}, a, St, cu, w0);
+      } else {
+        load_slab(std::integral_constant<int, 1>{}, a, St, cu, w0);
       }
-    }
-    auto xrow = [&](int w) -> int64_t {  // -1 past the window
-      if (w >= W) return -1;
-      return table ? row0 + woff[w] : window_row(w, row0, bc, gb_c, far);
-    };
-    if (x_vec) {  // 32 window rows × 32 runs of 4: a warp copies whole rows
-      const int cq = (tid & 31) * 4;
-#pragma unroll
-      for (int p = 0; p < kTcBK * kTcBN / 4 / kTcThreads; ++p) {
-        const int kk = (tid >> 5) + p * (kTcThreads / 32);
-        const int64_t xr = xrow(w0 + kk);
-        const bool ok = xr >= 0 && xr < x_rows && cu.c0 + cq < k;
-        cp_async16(b + kk * kBStride + cq, ok ? X + xr * k + cu.c0 + cq : X, ok ? 16 : 0);
-      }
-    } else {  // one column a thread
-      const int col = tid % kTcBN;
-      for (int p = 0; p < kTcBK * kTcBN / kTcThreads; ++p) {
-        const int kk = tid / kTcBN + p * (kTcThreads / kTcBN);
-        const int64_t xr = xrow(w0 + kk);
-        const bool ok = xr >= 0 && xr < x_rows && cu.c0 + col < k;
-        cp_async4(b + kk * kBStride + col, ok ? X + xr * k + cu.c0 + col : X, ok ? 4 : 0);
+      if (x_chunk == kX16) {
+        load_window(std::integral_constant<int, kX16>{}, b, cu, w0, row0);
+      } else if (kX4 > 1 && x_chunk == kX4) {
+        load_window(std::integral_constant<int, kX4>{}, b, cu, w0, row0);
+      } else {
+        load_window(std::integral_constant<int, 1>{}, b, cu, w0, row0);
       }
     }
   };
@@ -297,37 +443,35 @@ slab_spmm_tf32x3_kernel(const float* __restrict__ S, const float* __restrict__ X
     const bool live = cu.r0 + wr < gb_r && cu.c0 + wc < k;
     const int kk_end = min(kTcBK, W - cu.kt * kTcBK);  // rows of W in this chunk
     if (live) {
-      const float* a = As + stage * kAStage;
-      const float* b = Bs + stage * kBStage;
+      const S* a = As + stage * kAStage;
+      const X* b = Bs + stage * kBStage<X>;
 #pragma unroll
       for (int kk = 0; kk < kTcBK; kk += 8) {
         if (kk >= kk_end) break;
         uint32_t ahi[2][4], alo[2][4], bhi[kJ][2], blo[kJ][2];
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const float* p = a + (wr + i * 16 + g) * kAStride + kk + 2 * tq;
-          const float2 top = *reinterpret_cast<const float2*>(p);
-          const float2 bot = *reinterpret_cast<const float2*>(p + 8 * kAStride);
-          split_tf32(top.x, ahi[i][0], alo[i][0]);
-          split_tf32(bot.x, ahi[i][1], alo[i][1]);
-          split_tf32(top.y, ahi[i][2], alo[i][2]);
-          split_tf32(bot.y, ahi[i][3], alo[i][3]);
+          tf32_frag(a + (wr + i * 16 + g) * kAStride + kk + 2 * tq, ahi[i], alo[i]);
         }
 #pragma unroll
         for (int j = 0; j < kJ; ++j) {
-          const float* p = b + (kk + 2 * tq) * kBStride + wc + j * 8 + g;
-          split_tf32(p[0], bhi[j][0], blo[j][0]);
-          split_tf32(p[kBStride], bhi[j][1], blo[j][1]);
+          const X* p = b + (kk + 2 * tq) * kBS + wc + j * 8 + g;
+          tf32_parts(p[0], bhi[j][0], blo[j][0]);
+          tf32_parts(p[kBS], bhi[j][1], blo[j][1]);
         }
         // the small cross terms first; each pass is 8 independent products
+        if constexpr (kSplitA) {
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+          for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], alo[i], bhi[j]);
+            for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], alo[i], bhi[j]);
+        }
+        if constexpr (kSplitB) {
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+          for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], ahi[i], blo[j]);
+            for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], ahi[i], blo[j]);
+        }
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -346,17 +490,11 @@ slab_spmm_tf32x3_kernel(const float* __restrict__ S, const float* __restrict__ X
             const int row = cu.r0 + wr + i * 16 + g + h * 8;
             const int64_t yr = frame_tile * gb_r + row;
             if (row >= gb_r || yr >= y_rows) continue;
-            float* y = Y + yr * k;
+            O* y = Y + yr * k;
 #pragma unroll
             for (int j = 0; j < kJ; ++j) {
-              const int col = cu.c0 + wc + j * 8 + 2 * tq;
-              const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-              if (y_vec && col + 1 < k) {
-                *reinterpret_cast<float2*>(y + col) = make_float2(v0, v1);
-              } else {
-                if (col < k) y[col] = v0;
-                if (col + 1 < k) y[col + 1] = v1;
-              }
+              store_pair(y, cu.c0 + wc + j * 8 + 2 * tq, k, y_vec, acc[i][j][2 * h],
+                         acc[i][j][2 * h + 1]);
             }
           }
       }
@@ -372,9 +510,23 @@ slab_spmm_tf32x3_kernel(const float* __restrict__ S, const float* __restrict__ X
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-int launch_tf32x3(const float* S, const float* X, float* Y, const int* far_offsets, int nfar,
-                  int bc, int gb_r, int gb_c, int W, int64_t ntiles, int64_t x_rows,
-                  int64_t tile0, int64_t y_rows, int k, void* stream) {
+// the widest copy (elements of T) that rows of `len` elements at `p` allow:
+// 16 bytes, else 4 bytes, else one element
+template <typename T>
+int chunk_elems(const T* p, int64_t len) {
+  const auto fits = [&](int bytes) {
+    const int e = bytes / static_cast<int>(sizeof(T));
+    return e >= 1 && len % e == 0 && reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  if (fits(16)) return 16 / static_cast<int>(sizeof(T));
+  if (fits(4)) return 4 / static_cast<int>(sizeof(T));
+  return 1;
+}
+
+template <typename S, typename X, typename O>
+int launch_tc(const S* Sm, const X* Xm, O* Y, const int* far_offsets, int nfar, int bc,
+              int gb_r, int gb_c, int W, int64_t ntiles, int64_t x_rows, int64_t tile0,
+              int64_t y_rows, int k, void* stream) {
   if (nfar < 0 || nfar > kMaxFar || bc < 1 || gb_r < 1 || gb_c < 1 || k < 1 ||
       W != 2 * bc + gb_c * (1 + nfar) || ntiles < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -386,26 +538,25 @@ int launch_tf32x3(const float* S, const float* X, float* Y, const int* far_offse
   if (items * nk > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   FarOffsets far = {};
   for (int f = 0; f < nfar; ++f) far.d[f] = far_offsets[f];
-  const auto aligned = [](const void* p, int bytes) {
-    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-  };
-  const bool s_vec = W % 4 == 0 && aligned(S, 16);
-  const bool x_vec = k % 4 == 0 && aligned(X, 16);
-  const bool y_vec = k % 2 == 0 && aligned(Y, 8);
-  const int smem = kTcSmem + (W <= kTableMax ? W * static_cast<int>(sizeof(int64_t)) : 0);
+  const int s_chunk = chunk_elems(Sm, W);
+  const int x_chunk = chunk_elems(Xm, k);
+  const bool y_vec = k % 2 == 0 && reinterpret_cast<uintptr_t>(Y) % (2 * sizeof(O)) == 0;
+  constexpr int kSmem = kTcSmem<S, X>;
+  const int smem = kSmem + (W <= kTableMax ? W * static_cast<int>(sizeof(int64_t)) : 0);
   int device = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(slab_spmm_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kTcSmem + kTableMax * static_cast<int>(sizeof(int64_t)));
+    e = cudaFuncSetAttribute(slab_spmm_tc_kernel<S, X, O>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem + kTableMax * static_cast<int>(sizeof(int64_t)));
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t blocks = items < 2LL * sms ? items : 2LL * sms;  // two resident per SM
-  slab_spmm_tf32x3_kernel<<<static_cast<unsigned>(blocks), kTcThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      S, X, Y, far, bc, gb_r, gb_c, W, x_rows, tile0, y_rows, k, static_cast<int>(items),
-      row_blocks, col_blocks, s_vec, x_vec, y_vec);
+  slab_spmm_tc_kernel<S, X, O><<<static_cast<unsigned>(blocks), kTcThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      Sm, Xm, Y, far, bc, gb_r, gb_c, W, x_rows, tile0, y_rows, k, static_cast<int>(items),
+      row_blocks, col_blocks, s_chunk, x_chunk, y_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -529,8 +680,8 @@ int cask_slab_spmm_f32(const float* S, const float* X, float* Y, const int* far_
                        int nfar, int bc, int gb_r, int gb_c, int W, long long ntiles,
                        long long x_rows, long long tile0, long long y_rows, int k,
                        void* stream) {
-  return launch_tf32x3(S, X, Y, far_offsets, nfar, bc, gb_r, gb_c, W, ntiles, x_rows, tile0,
-                       y_rows, k, stream);
+  return launch_tc(S, X, Y, far_offsets, nfar, bc, gb_r, gb_c, W, ntiles, x_rows, tile0,
+                   y_rows, k, stream);
 }
 
 int cask_slab_spmm_f64(const double* S, const double* X, double* Y, const int* far_offsets,
@@ -549,6 +700,23 @@ int cask_slab_spmm_f32_f64(const float* S, const float* X, double* Y,
   return launch<float, double>(S, X, Y, far_offsets, nfar, bc, gb_r, gb_c, W, ntiles,
                                x_rows, tile0, y_rows, k, stream);
 }
+
+// bf16 slabs and/or X (the other bf16 or f32) on the tensor cores, f32
+// sums; Y f32 or bf16.  The name gives the slab, X and Y types.
+#define CASK_SLAB_SPMM(NAME, S_T, X_T, O_T)                                                  \
+  int NAME(const S_T* S, const X_T* X, O_T* Y, const int* far_offsets, int nfar, int bc,     \
+           int gb_r, int gb_c, int W, long long ntiles, long long x_rows, long long tile0,   \
+           long long y_rows, int k, void* stream) {                                          \
+    return launch_tc(S, X, Y, far_offsets, nfar, bc, gb_r, gb_c, W, ntiles, x_rows, tile0,   \
+                     y_rows, k, stream);                                                     \
+  }
+CASK_SLAB_SPMM(cask_slab_spmm_bf16_bf16_f32, __nv_bfloat16, __nv_bfloat16, float)
+CASK_SLAB_SPMM(cask_slab_spmm_bf16_bf16_bf16, __nv_bfloat16, __nv_bfloat16, __nv_bfloat16)
+CASK_SLAB_SPMM(cask_slab_spmm_bf16_f32_f32, __nv_bfloat16, float, float)
+CASK_SLAB_SPMM(cask_slab_spmm_bf16_f32_bf16, __nv_bfloat16, float, __nv_bfloat16)
+CASK_SLAB_SPMM(cask_slab_spmm_f32_bf16_f32, float, __nv_bfloat16, float)
+CASK_SLAB_SPMM(cask_slab_spmm_f32_bf16_bf16, float, __nv_bfloat16, __nv_bfloat16)
+#undef CASK_SLAB_SPMM
 
 const char* cask_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -32,11 +32,19 @@
 //   one 32-byte sector, so the value stream crosses HBM about once.
 // - X rows outside [0, n) are skipped (they read as zero); rows i·br + r at
 //   or beyond m are not written, so rectangular plans work either way.
-// - Sums are taken in the output type, in the plan's pair order, the order
-//   of the plain PyTorch twin.
+// - Sums are taken in the output type's working type, in the plan's pair
+//   order, the order of the plain PyTorch twin.
+// - bf16 (value_types.cuh), the reference's bf16 value path and its
+//   fully-bf16 chain (bdia_kernels.py:607-611): values and X are each bf16
+//   or f32, at least one bf16, widened exactly in registers and summed in
+//   f32; Y is f32, or bf16 rounded once at the store.  A bf16 X row moves in
+//   8-byte vectors of 4 (16-byte ones of 8 would leave half of a row's
+//   warp idle at k = 128).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "value_types.cuh"
 
 namespace {
 
@@ -51,39 +59,13 @@ struct DiagOffsets {
 __device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
 
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* p, T (&out)[VEC]) {
-  if constexpr (VEC == 1) {
-    out[0] = __ldg(p);
-  } else if constexpr (sizeof(T) == 4) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    out[0] = q.x; out[1] = q.y; out[2] = q.z; out[3] = q.w;
-  } else {
-    const double2 q = __ldg(reinterpret_cast<const double2*>(p));
-    out[0] = q.x; out[1] = q.y;
-  }
-}
-
-// VEC values of the output type; a 16-byte store when the type's 16 bytes
-// hold exactly VEC of them, scalar stores otherwise
-template <typename O, int VEC>
-__device__ __forceinline__ void store_vec(O* p, const O (&v)[VEC]) {
-  if constexpr (VEC == 4 && sizeof(O) == 4) {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  } else if constexpr (VEC == 2 && sizeof(O) == 8) {
-    __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
-  } else {
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) __stcs(p + e, v[e]);
-  }
-}
-
-// T: value and X type; O: output and accumulation type
-template <typename T, typename O, int VEC, int RB>
+// V: value type; X: X type; O: output type, summed in its working type A
+template <typename V, typename X, typename O, int VEC, int RB>
 __global__ void __launch_bounds__(kThreads)
-bdia_spmm_kernel(const T* __restrict__ vals, const T* __restrict__ X, O* __restrict__ Y,
+bdia_spmm_kernel(const V* __restrict__ vals, const X* __restrict__ Xm, O* __restrict__ Y,
                  const DiagOffsets offs, int ndiag, int br, int bc, int64_t m, int64_t n,
                  int64_t nbr, int n_tiles, int tile, int k) {
+  using A = typename cask::Work<O>::type;
   constexpr int kRows = kThreads / kWarp;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kRows + threadIdx.x / kWarp;
   if (i >= nbr) return;
@@ -93,29 +75,29 @@ bdia_spmm_kernel(const T* __restrict__ vals, const T* __restrict__ X, O* __restr
   const int npairs = ndiag * bc;
   // vals[r, t, j, s, l] lives at ((r·T + t)·npairs + j)·tile + (i − t·tile)
   const int64_t r_stride = static_cast<int64_t>(n_tiles) * npairs * tile;
-  const T* v = vals + (static_cast<int64_t>(r0) * n_tiles + t) * npairs * tile + (i - t * tile);
+  const V* v = vals + (static_cast<int64_t>(r0) * n_tiles + t) * npairs * tile + (i - t * tile);
   const int nvec = k / VEC;
 
   for (int cv = lane; cv < nvec; cv += kWarp) {
-    O acc[RB][VEC];
+    A acc[RB][VEC];
 #pragma unroll
     for (int q = 0; q < RB; ++q)
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[q][e] = O(0);
+      for (int e = 0; e < VEC; ++e) acc[q][e] = A(0);
     for (int dp = 0; dp < ndiag; ++dp) {
       const int64_t col0 = (i + offs.d[dp]) * bc;
       for (int c = 0; c < bc; ++c) {
         const int64_t col = col0 + c;
         if (col < 0 || col >= n) continue;
-        T xv[VEC];
-        load_vec<T, VEC>(X + col * k + static_cast<int64_t>(cv) * VEC, xv);
-        const T* vj = v + static_cast<int64_t>(dp * bc + c) * tile;
+        A xv[VEC];
+        cask::load_vec<X, VEC>(Xm + col * k + static_cast<int64_t>(cv) * VEC, xv);
+        const V* vj = v + static_cast<int64_t>(dp * bc + c) * tile;
 #pragma unroll
         for (int q = 0; q < RB; ++q) {
           if (r0 + q < br) {
-            const O a = O(__ldg(vj + q * r_stride));
+            const A a = A(cask::widen(__ldg(vj + q * r_stride)));
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) acc[q][e] = fma_t(a, O(xv[e]), acc[q][e]);
+            for (int e = 0; e < VEC; ++e) acc[q][e] = fma_t(a, xv[e], acc[q][e]);
           }
         }
       }
@@ -124,40 +106,42 @@ bdia_spmm_kernel(const T* __restrict__ vals, const T* __restrict__ X, O* __restr
     for (int q = 0; q < RB; ++q) {
       const int64_t row = i * br + r0 + q;
       if (r0 + q < br && row < m) {
-        store_vec<O, VEC>(Y + row * k + static_cast<int64_t>(cv) * VEC, acc[q]);
+        cask::store_vec<O, VEC>(Y + row * k + static_cast<int64_t>(cv) * VEC, acc[q]);
       }
     }
   }
 }
 
-template <typename T, typename O, int VEC, int RB>
-int launch_rb(const T* vals, const T* X, O* Y, const DiagOffsets& offs, int ndiag, int br,
+template <typename V, typename X, typename O, int VEC, int RB>
+int launch_rb(const V* vals, const X* Xm, O* Y, const DiagOffsets& offs, int ndiag, int br,
               int bc, int64_t m, int64_t n, int64_t nbr, int n_tiles, int tile, int k,
               cudaStream_t s) {
   constexpr int kRows = kThreads / kWarp;
   const int64_t blocks = (nbr + kRows - 1) / kRows;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>((br + RB - 1) / RB));
-  bdia_spmm_kernel<T, O, VEC, RB><<<grid, kThreads, 0, s>>>(
-      vals, X, Y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, k);
+  bdia_spmm_kernel<V, X, O, VEC, RB><<<grid, kThreads, 0, s>>>(
+      vals, Xm, Y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, k);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename O, int VEC>
-int launch_vec(const T* vals, const T* X, O* Y, const DiagOffsets& offs, int ndiag, int br,
+template <typename V, typename X, typename O, int VEC>
+int launch_vec(const V* vals, const X* Xm, O* Y, const DiagOffsets& offs, int ndiag, int br,
                int bc, int64_t m, int64_t n, int64_t nbr, int n_tiles, int tile, int k,
                cudaStream_t s) {
-  if (br <= 1) return launch_rb<T, O, VEC, 1>(vals, X, Y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, k, s);
-  if (br <= 2) return launch_rb<T, O, VEC, 2>(vals, X, Y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, k, s);
-  if (br <= 4) return launch_rb<T, O, VEC, 4>(vals, X, Y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, k, s);
-  return launch_rb<T, O, VEC, 8>(vals, X, Y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, k, s);
+  if (br <= 1) return launch_rb<V, X, O, VEC, 1>(vals, Xm, Y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, k, s);
+  if (br <= 2) return launch_rb<V, X, O, VEC, 2>(vals, Xm, Y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, k, s);
+  if (br <= 4) return launch_rb<V, X, O, VEC, 4>(vals, Xm, Y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, k, s);
+  return launch_rb<V, X, O, VEC, 8>(vals, Xm, Y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, k, s);
 }
 
-template <typename T, typename O>
-int dispatch(const T* vals, const T* X, O* Y, const int* offsets, int ndiag, int br, int bc,
+template <typename V, typename X, typename O>
+int dispatch(const V* vals, const X* Xm, O* Y, const int* offsets, int ndiag, int br, int bc,
              int64_t m, int64_t n, int64_t nbr, int n_tiles, int tile, int k, int vec,
              void* stream) {
-  constexpr int kVec = 16 / sizeof(T);
+  // a lane's X chunk: 16 bytes, but 4 bf16 values (8 bytes), so that the 32
+  // lanes of a row's warp still cover k = 128
+  constexpr int kVec = sizeof(X) == 2 ? 4 : 16 / static_cast<int>(sizeof(X));
   if (ndiag < 1 || ndiag > kMaxDiags || br < 1 || bc < 1 || nbr < 1 || n_tiles < 1 ||
       tile < 1 || nbr > static_cast<int64_t>(n_tiles) * tile || k < 1 || (vec && k % kVec)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -165,8 +149,8 @@ int dispatch(const T* vals, const T* X, O* Y, const int* offsets, int ndiag, int
   DiagOffsets offs = {};
   for (int q = 0; q < ndiag; ++q) offs.d[q] = offsets[q];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) return launch_vec<T, O, kVec>(vals, X, Y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, k, s);
-  return launch_vec<T, O, 1>(vals, X, Y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, k, s);
+  if (vec) return launch_vec<V, X, O, kVec>(vals, Xm, Y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, k, s);
+  return launch_vec<V, X, O, 1>(vals, Xm, Y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, k, s);
 }
 
 }  // namespace
@@ -182,15 +166,15 @@ extern "C" {
 int cask_bdia_spmm_f32(const float* vals, const float* X, float* Y, const int* offsets,
                        int ndiag, int br, int bc, long long m, long long n, long long nbr,
                        int n_tiles, int tile, int k, int vec, void* stream) {
-  return dispatch<float, float>(vals, X, Y, offsets, ndiag, br, bc, m, n, nbr, n_tiles, tile,
-                                k, vec, stream);
+  return dispatch<float, float, float>(vals, X, Y, offsets, ndiag, br, bc, m, n, nbr, n_tiles,
+                                       tile, k, vec, stream);
 }
 
 int cask_bdia_spmm_f64(const double* vals, const double* X, double* Y, const int* offsets,
                        int ndiag, int br, int bc, long long m, long long n, long long nbr,
                        int n_tiles, int tile, int k, int vec, void* stream) {
-  return dispatch<double, double>(vals, X, Y, offsets, ndiag, br, bc, m, n, nbr, n_tiles,
-                                  tile, k, vec, stream);
+  return dispatch<double, double, double>(vals, X, Y, offsets, ndiag, br, bc, m, n, nbr,
+                                          n_tiles, tile, k, vec, stream);
 }
 
 // f32 values and X, f64 output and sums (accum_dtype=float64)
@@ -198,9 +182,26 @@ int cask_bdia_spmm_f32_f64(const float* vals, const float* X, double* Y, const i
                            int ndiag, int br, int bc, long long m, long long n,
                            long long nbr, int n_tiles, int tile, int k, int vec,
                            void* stream) {
-  return dispatch<float, double>(vals, X, Y, offsets, ndiag, br, bc, m, n, nbr, n_tiles,
-                                 tile, k, vec, stream);
+  return dispatch<float, float, double>(vals, X, Y, offsets, ndiag, br, bc, m, n, nbr, n_tiles,
+                                        tile, k, vec, stream);
 }
+
+// bf16 values and/or X (the other bf16 or f32): f32 sums; Y f32 or bf16.
+// The name gives the value, X and Y types.
+#define CASK_BDIA_SPMM(NAME, V, X, O)                                                      \
+  int NAME(const V* vals, const X* Xm, O* Y, const int* offsets, int ndiag, int br, int bc, \
+           long long m, long long n, long long nbr, int n_tiles, int tile, int k, int vec,  \
+           void* stream) {                                                                  \
+    return dispatch<V, X, O>(vals, Xm, Y, offsets, ndiag, br, bc, m, n, nbr, n_tiles, tile, \
+                             k, vec, stream);                                               \
+  }
+CASK_BDIA_SPMM(cask_bdia_spmm_bf16_bf16_f32, __nv_bfloat16, __nv_bfloat16, float)
+CASK_BDIA_SPMM(cask_bdia_spmm_bf16_bf16_bf16, __nv_bfloat16, __nv_bfloat16, __nv_bfloat16)
+CASK_BDIA_SPMM(cask_bdia_spmm_bf16_f32_f32, __nv_bfloat16, float, float)
+CASK_BDIA_SPMM(cask_bdia_spmm_bf16_f32_bf16, __nv_bfloat16, float, __nv_bfloat16)
+CASK_BDIA_SPMM(cask_bdia_spmm_f32_bf16_f32, float, __nv_bfloat16, float)
+CASK_BDIA_SPMM(cask_bdia_spmm_f32_bf16_bf16, float, __nv_bfloat16, __nv_bfloat16)
+#undef CASK_BDIA_SPMM
 
 const char* cask_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

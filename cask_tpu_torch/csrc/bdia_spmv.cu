@@ -34,9 +34,18 @@
 //   RB are unrolled, so the accumulators stay in registers.
 // - Sums are taken in the working type (float for f32, double for f64) in
 //   the plan's pair order, the order of the plain PyTorch twin.
+// - bf16 values (or a bf16 x) are the reference's bf16 value path: values
+//   and x are each bf16 or f32, at least one bf16, widened exactly to f32
+//   in registers (__bfloat162float) and summed in f32; y is f32.  A warp's
+//   value load is then 64 bytes, still whole 32-byte sectors.  Two block
+//   rows a thread (one __nv_bfloat162 load for both) measured slower on the
+//   FEM headline: 262,144 block rows then fill only half of the card's
+//   thread slots.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "value_types.cuh"
 
 namespace {
 
@@ -50,10 +59,12 @@ struct DiagOffsets {
 __device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
 
-template <typename T, int RB>
+// V: value type; X: x type; A: working and output type (float, or double
+// for f64)
+template <typename V, typename X, typename A, int RB>
 __global__ void __launch_bounds__(kThreads)
-bdia_spmv_kernel(const T* __restrict__ vals, const T* __restrict__ x,
-                 T* __restrict__ y, const DiagOffsets offs, int ndiag, int br,
+bdia_spmv_kernel(const V* __restrict__ vals, const X* __restrict__ x,
+                 A* __restrict__ y, const DiagOffsets offs, int ndiag, int br,
                  int bc, int64_t m, int64_t n, int64_t nbr, int n_tiles,
                  int tile) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -63,22 +74,22 @@ bdia_spmv_kernel(const T* __restrict__ vals, const T* __restrict__ x,
   const int npairs = ndiag * bc;
   // vals[r, t, j, s, l] lives at ((r·T + t)·npairs + j)·tile + (i − t·tile)
   const int64_t r_stride = static_cast<int64_t>(n_tiles) * npairs * tile;
-  const T* v = vals + (static_cast<int64_t>(r0) * n_tiles + t) * npairs * tile
+  const V* v = vals + (static_cast<int64_t>(r0) * n_tiles + t) * npairs * tile
                + (i - t * tile);
 
-  T acc[RB];
+  A acc[RB];
 #pragma unroll
-  for (int k = 0; k < RB; ++k) acc[k] = T(0);
+  for (int k = 0; k < RB; ++k) acc[k] = A(0);
 
   for (int dp = 0; dp < ndiag; ++dp) {
     const int64_t col0 = (i + offs.d[dp]) * bc;
     for (int c = 0; c < bc; ++c) {
       const int64_t col = col0 + c;
-      const T xv = (col >= 0 && col < n) ? __ldg(x + col) : T(0);
-      const T* vj = v + static_cast<int64_t>(dp * bc + c) * tile;
+      const A xv = (col >= 0 && col < n) ? A(cask::widen(__ldg(x + col))) : A(0);
+      const V* vj = v + static_cast<int64_t>(dp * bc + c) * tile;
 #pragma unroll
       for (int k = 0; k < RB; ++k) {
-        if (r0 + k < br) acc[k] = fma_t(__ldcs(vj + k * r_stride), xv, acc[k]);
+        if (r0 + k < br) acc[k] = fma_t(A(cask::widen(__ldcs(vj + k * r_stride))), xv, acc[k]);
       }
     }
   }
@@ -90,19 +101,19 @@ bdia_spmv_kernel(const T* __restrict__ vals, const T* __restrict__ x,
   }
 }
 
-template <typename T, int RB>
-int launch(const T* vals, const T* x, T* y, const DiagOffsets& offs, int ndiag,
+template <typename V, typename X, typename A, int RB>
+int launch(const V* vals, const X* x, A* y, const DiagOffsets& offs, int ndiag,
            int br, int bc, int64_t m, int64_t n, int64_t nbr, int n_tiles,
            int tile, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((nbr + kThreads - 1) / kThreads),
                   static_cast<unsigned>((br + RB - 1) / RB));
-  bdia_spmv_kernel<T, RB><<<grid, kThreads, 0, stream>>>(
+  bdia_spmv_kernel<V, X, A, RB><<<grid, kThreads, 0, stream>>>(
       vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const T* vals, const T* x, T* y, const int* offsets, int ndiag,
+template <typename V, typename X, typename A>
+int dispatch(const V* vals, const X* x, A* y, const int* offsets, int ndiag,
              int br, int bc, int64_t m, int64_t n, int64_t nbr, int n_tiles,
              int tile, void* stream) {
   if (ndiag < 1 || ndiag > kMaxDiags || br < 1 || bc < 1 || nbr < 1 ||
@@ -112,10 +123,10 @@ int dispatch(const T* vals, const T* x, T* y, const int* offsets, int ndiag,
   DiagOffsets offs = {};
   for (int k = 0; k < ndiag; ++k) offs.d[k] = offsets[k];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (br <= 1) return launch<T, 1>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
-  if (br <= 2) return launch<T, 2>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
-  if (br <= 4) return launch<T, 4>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
-  return launch<T, 8>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  if (br <= 1) return launch<V, X, A, 1>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  if (br <= 2) return launch<V, X, A, 2>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  if (br <= 4) return launch<V, X, A, 4>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  return launch<V, X, A, 8>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
 }
 
 }  // namespace
@@ -130,17 +141,30 @@ int cask_bdia_spmv_f32(const float* vals, const float* x, float* y,
                        const int* offsets, int ndiag, int br, int bc,
                        long long m, long long n, long long nbr, int n_tiles,
                        int tile, void* stream) {
-  return dispatch<float>(vals, x, y, offsets, ndiag, br, bc, m, n, nbr, n_tiles,
-                         tile, stream);
+  return dispatch<float, float, float>(vals, x, y, offsets, ndiag, br, bc, m, n, nbr, n_tiles,
+                                       tile, stream);
 }
 
 int cask_bdia_spmv_f64(const double* vals, const double* x, double* y,
                        const int* offsets, int ndiag, int br, int bc,
                        long long m, long long n, long long nbr, int n_tiles,
                        int tile, void* stream) {
-  return dispatch<double>(vals, x, y, offsets, ndiag, br, bc, m, n, nbr,
-                          n_tiles, tile, stream);
+  return dispatch<double, double, double>(vals, x, y, offsets, ndiag, br, bc, m, n, nbr,
+                                          n_tiles, tile, stream);
 }
+
+// bf16 values with a bf16 or f32 x, or f32 values with a bf16 x: f32 sums
+// and y.  The name gives the value and x types.
+#define CASK_BDIA_SPMV(NAME, V, X)                                                           \
+  int NAME(const V* vals, const X* x, float* y, const int* offsets, int ndiag, int br, int bc, \
+           long long m, long long n, long long nbr, int n_tiles, int tile, void* stream) {     \
+    return dispatch<V, X, float>(vals, x, y, offsets, ndiag, br, bc, m, n, nbr, n_tiles, tile, \
+                                 stream);                                                      \
+  }
+CASK_BDIA_SPMV(cask_bdia_spmv_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
+CASK_BDIA_SPMV(cask_bdia_spmv_bf16_f32, __nv_bfloat16, float)
+CASK_BDIA_SPMV(cask_bdia_spmv_f32_bf16, float, __nv_bfloat16)
+#undef CASK_BDIA_SPMV
 
 const char* cask_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

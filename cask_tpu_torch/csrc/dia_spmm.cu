@@ -38,9 +38,16 @@
 //   written, and m != n works.
 // - Sums are taken in the working type, in offsets order, the order of the
 //   plain PyTorch twin.
+// - bf16 (value_types.cuh), the reference's bf16 value path and its
+//   fully-bf16 chain (dia_kernels.py:1026-1033): values and X are each bf16
+//   or f32, at least one bf16, widened exactly in registers and summed in
+//   f32; Y is f32, or bf16 rounded once at the store.  A bf16 X row moves in
+//   16-byte vectors of 8 where k is a multiple of 8.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "value_types.cuh"
 
 namespace {
 
@@ -49,92 +56,69 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
 
-// VEC consecutive elements of a row: one 16-byte load/store when VEC > 1
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* p, T (&out)[VEC]) {
-  if constexpr (VEC == 1) {
-    out[0] = __ldg(p);
-  } else if constexpr (sizeof(T) == 4) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    out[0] = q.x; out[1] = q.y; out[2] = q.z; out[3] = q.w;
-  } else {
-    const double2 q = __ldg(reinterpret_cast<const double2*>(p));
-    out[0] = q.x; out[1] = q.y;
-  }
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void store_vec(T* p, const T (&v)[VEC]) {
-  if constexpr (VEC == 1) {
-    __stcs(p, v[0]);
-  } else if constexpr (sizeof(T) == 4) {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  } else {
-    __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
-  }
-}
-
-template <typename T, int VEC, int TPR>
+// V: value type; X: X type; O: output type, summed in its working type A
+template <typename V, typename X, typename O, int VEC, int TPR>
 __global__ void __launch_bounds__(kThreads)
-dia_spmm_kernel(const T* __restrict__ vals, const int* __restrict__ offsets,
-                int ndiag, const T* __restrict__ X, T* __restrict__ Y,
+dia_spmm_kernel(const V* __restrict__ vals, const int* __restrict__ offsets,
+                int ndiag, const X* __restrict__ Xm, O* __restrict__ Y,
                 int64_t m, int64_t n, int64_t m_pad, int k) {
+  using A = typename cask::Work<O>::type;
   constexpr int kRows = kThreads / TPR;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kRows + threadIdx.x / TPR;
   if (i >= m) return;
   const int lane = threadIdx.x % TPR;
   const int nvec = k / VEC;
-  const T* v = vals + i;
+  const V* v = vals + i;
   for (int c = lane; c < nvec; c += TPR) {
-    T acc[VEC];
+    A acc[VEC];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[e] = T(0);
+    for (int e = 0; e < VEC; ++e) acc[e] = A(0);
     for (int d = 0; d < ndiag; ++d) {
       const int64_t j = i + __ldg(offsets + d);
       if (j < 0 || j >= n) continue;
-      const T a = __ldg(v + static_cast<int64_t>(d) * m_pad);
-      T xv[VEC];
-      load_vec<T, VEC>(X + j * k + static_cast<int64_t>(c) * VEC, xv);
+      const A a = A(cask::widen(__ldg(v + static_cast<int64_t>(d) * m_pad)));
+      A xv[VEC];
+      cask::load_vec<X, VEC>(Xm + j * k + static_cast<int64_t>(c) * VEC, xv);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) acc[e] = fma_t(a, xv[e], acc[e]);
     }
-    store_vec<T, VEC>(Y + i * k + static_cast<int64_t>(c) * VEC, acc);
+    cask::store_vec<O, VEC>(Y + i * k + static_cast<int64_t>(c) * VEC, acc);
   }
 }
 
-template <typename T, int VEC, int TPR>
-int launch_tpr(const T* vals, const int* offsets, int ndiag, const T* X, T* Y,
+template <typename V, typename X, typename O, int VEC, int TPR>
+int launch_tpr(const V* vals, const int* offsets, int ndiag, const X* Xm, O* Y,
                int64_t m, int64_t n, int64_t m_pad, int k, cudaStream_t s) {
   constexpr int kRows = kThreads / TPR;
   const int64_t blocks = (m + kRows - 1) / kRows;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  dia_spmm_kernel<T, VEC, TPR><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      vals, offsets, ndiag, X, Y, m, n, m_pad, k);
+  dia_spmm_kernel<V, X, O, VEC, TPR><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      vals, offsets, ndiag, Xm, Y, m, n, m_pad, k);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int VEC>
-int launch_vec(const T* vals, const int* offsets, int ndiag, const T* X, T* Y,
+template <typename V, typename X, typename O, int VEC>
+int launch_vec(const V* vals, const int* offsets, int ndiag, const X* Xm, O* Y,
                int64_t m, int64_t n, int64_t m_pad, int k, cudaStream_t s) {
   const int nvec = k / VEC;
-  if (nvec <= 1) return launch_tpr<T, VEC, 1>(vals, offsets, ndiag, X, Y, m, n, m_pad, k, s);
-  if (nvec <= 2) return launch_tpr<T, VEC, 2>(vals, offsets, ndiag, X, Y, m, n, m_pad, k, s);
-  if (nvec <= 4) return launch_tpr<T, VEC, 4>(vals, offsets, ndiag, X, Y, m, n, m_pad, k, s);
-  if (nvec <= 8) return launch_tpr<T, VEC, 8>(vals, offsets, ndiag, X, Y, m, n, m_pad, k, s);
-  if (nvec <= 16) return launch_tpr<T, VEC, 16>(vals, offsets, ndiag, X, Y, m, n, m_pad, k, s);
-  return launch_tpr<T, VEC, 32>(vals, offsets, ndiag, X, Y, m, n, m_pad, k, s);
+  if (nvec <= 1) return launch_tpr<V, X, O, VEC, 1>(vals, offsets, ndiag, Xm, Y, m, n, m_pad, k, s);
+  if (nvec <= 2) return launch_tpr<V, X, O, VEC, 2>(vals, offsets, ndiag, Xm, Y, m, n, m_pad, k, s);
+  if (nvec <= 4) return launch_tpr<V, X, O, VEC, 4>(vals, offsets, ndiag, Xm, Y, m, n, m_pad, k, s);
+  if (nvec <= 8) return launch_tpr<V, X, O, VEC, 8>(vals, offsets, ndiag, Xm, Y, m, n, m_pad, k, s);
+  if (nvec <= 16) return launch_tpr<V, X, O, VEC, 16>(vals, offsets, ndiag, Xm, Y, m, n, m_pad, k, s);
+  return launch_tpr<V, X, O, VEC, 32>(vals, offsets, ndiag, Xm, Y, m, n, m_pad, k, s);
 }
 
-template <typename T>
-int launch(const T* vals, const int* offsets, int ndiag, const T* X, T* Y,
+template <typename V, typename X, typename O>
+int launch(const V* vals, const int* offsets, int ndiag, const X* Xm, O* Y,
            int64_t m, int64_t n, int64_t m_pad, int k, int vec, void* stream) {
-  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kVec = 16 / sizeof(X);
   if (ndiag < 1 || m < 1 || n < 1 || k < 1 || m_pad < m || (vec && k % kVec)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) return launch_vec<T, kVec>(vals, offsets, ndiag, X, Y, m, n, m_pad, k, s);
-  return launch_vec<T, 1>(vals, offsets, ndiag, X, Y, m, n, m_pad, k, s);
+  if (vec) return launch_vec<V, X, O, kVec>(vals, offsets, ndiag, Xm, Y, m, n, m_pad, k, s);
+  return launch_vec<V, X, O, 1>(vals, offsets, ndiag, Xm, Y, m, n, m_pad, k, s);
 }
 
 }  // namespace
@@ -149,14 +133,30 @@ extern "C" {
 int cask_dia_spmm_f32(const float* vals, const int* offsets, int ndiag,
                       const float* X, float* Y, long long m, long long n,
                       long long m_pad, int k, int vec, void* stream) {
-  return launch<float>(vals, offsets, ndiag, X, Y, m, n, m_pad, k, vec, stream);
+  return launch<float, float, float>(vals, offsets, ndiag, X, Y, m, n, m_pad, k, vec, stream);
 }
 
 int cask_dia_spmm_f64(const double* vals, const int* offsets, int ndiag,
                       const double* X, double* Y, long long m, long long n,
                       long long m_pad, int k, int vec, void* stream) {
-  return launch<double>(vals, offsets, ndiag, X, Y, m, n, m_pad, k, vec, stream);
+  return launch<double, double, double>(vals, offsets, ndiag, X, Y, m, n, m_pad, k, vec,
+                                        stream);
 }
+
+// bf16 values and/or X (the other bf16 or f32): f32 sums; Y f32 or bf16.
+// The name gives the value, X and Y types.
+#define CASK_DIA_SPMM(NAME, V, X, O)                                                      \
+  int NAME(const V* vals, const int* offsets, int ndiag, const X* Xm, O* Y, long long m, \
+           long long n, long long m_pad, int k, int vec, void* stream) {                 \
+    return launch<V, X, O>(vals, offsets, ndiag, Xm, Y, m, n, m_pad, k, vec, stream);    \
+  }
+CASK_DIA_SPMM(cask_dia_spmm_bf16_bf16_f32, __nv_bfloat16, __nv_bfloat16, float)
+CASK_DIA_SPMM(cask_dia_spmm_bf16_bf16_bf16, __nv_bfloat16, __nv_bfloat16, __nv_bfloat16)
+CASK_DIA_SPMM(cask_dia_spmm_bf16_f32_f32, __nv_bfloat16, float, float)
+CASK_DIA_SPMM(cask_dia_spmm_bf16_f32_bf16, __nv_bfloat16, float, __nv_bfloat16)
+CASK_DIA_SPMM(cask_dia_spmm_f32_bf16_f32, float, __nv_bfloat16, float)
+CASK_DIA_SPMM(cask_dia_spmm_f32_bf16_bf16, float, __nv_bfloat16, __nv_bfloat16)
+#undef CASK_DIA_SPMM
 
 const char* cask_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -34,9 +34,17 @@
 //   not the index.  Rows m <= i < m_pad are never written, and m != n works.
 // - Sums are taken in the working type (float for f32, double for f64), in
 //   offsets order, the order of the plain PyTorch twin.
+// - bf16 values (or a bf16 x), the reference's bf16 value path: values and
+//   x are each bf16 or f32, at least one bf16, widened exactly to f32 in
+//   registers and summed in f32; y is f32.  The value stream halves (a
+//   warp's load is 64 contiguous bytes, whole 32-byte sectors).  Two rows a
+//   thread (their values as one __nv_bfloat162) measured no faster on the
+//   4M-row stencil.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "value_types.cuh"
 
 namespace {
 
@@ -45,34 +53,35 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
 
-template <typename T>
+// V: value type; X: x type; A: working and output type
+template <typename V, typename X, typename A>
 __global__ void __launch_bounds__(kThreads)
-dia_spmv_kernel(const T* __restrict__ vals, const int* __restrict__ offsets,
-                int ndiag, const T* __restrict__ x, T* __restrict__ y,
+dia_spmv_kernel(const V* __restrict__ vals, const int* __restrict__ offsets,
+                int ndiag, const X* __restrict__ x, A* __restrict__ y,
                 int64_t m, int64_t n, int64_t m_pad) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= m) return;
-  const T* v = vals + i;
-  T acc = T(0);
+  const V* v = vals + i;
+  A acc = A(0);
 #pragma unroll 4
   for (int d = 0; d < ndiag; ++d) {
     const int64_t j = i + __ldg(offsets + d);
-    const T a = __ldcs(v + static_cast<int64_t>(d) * m_pad);
-    const T xv = (j >= 0 && j < n) ? __ldg(x + j) : T(0);
+    const A a = A(cask::widen(__ldcs(v + static_cast<int64_t>(d) * m_pad)));
+    const A xv = (j >= 0 && j < n) ? A(cask::widen(__ldg(x + j))) : A(0);
     acc = fma_t(a, xv, acc);
   }
   y[i] = acc;
 }
 
-template <typename T>
-int launch(const T* vals, const int* offsets, int ndiag, const T* x, T* y,
+template <typename V, typename X, typename A>
+int launch(const V* vals, const int* offsets, int ndiag, const X* x, A* y,
            int64_t m, int64_t n, int64_t m_pad, void* stream) {
   const int64_t blocks = (m + kThreads - 1) / kThreads;
   if (ndiag < 1 || m < 1 || n < 1 || m_pad < m || blocks > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  dia_spmv_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  dia_spmv_kernel<V, X, A><<<static_cast<unsigned>(blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       vals, offsets, ndiag, x, y, m, n, m_pad);
   return static_cast<int>(cudaGetLastError());
 }
@@ -88,14 +97,26 @@ extern "C" {
 int cask_dia_spmv_f32(const float* vals, const int* offsets, int ndiag,
                       const float* x, float* y, long long m, long long n,
                       long long m_pad, void* stream) {
-  return launch<float>(vals, offsets, ndiag, x, y, m, n, m_pad, stream);
+  return launch<float, float, float>(vals, offsets, ndiag, x, y, m, n, m_pad, stream);
 }
 
 int cask_dia_spmv_f64(const double* vals, const int* offsets, int ndiag,
                       const double* x, double* y, long long m, long long n,
                       long long m_pad, void* stream) {
-  return launch<double>(vals, offsets, ndiag, x, y, m, n, m_pad, stream);
+  return launch<double, double, double>(vals, offsets, ndiag, x, y, m, n, m_pad, stream);
 }
+
+// bf16 values with a bf16 or f32 x, or f32 values with a bf16 x: f32 sums
+// and y.  The name gives the value and x types.
+#define CASK_DIA_SPMV(NAME, V, X)                                                       \
+  int NAME(const V* vals, const int* offsets, int ndiag, const X* x, float* y, long long m, \
+           long long n, long long m_pad, void* stream) {                                 \
+    return launch<V, X, float>(vals, offsets, ndiag, x, y, m, n, m_pad, stream);          \
+  }
+CASK_DIA_SPMV(cask_dia_spmv_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
+CASK_DIA_SPMV(cask_dia_spmv_bf16_f32, __nv_bfloat16, float)
+CASK_DIA_SPMV(cask_dia_spmv_f32_bf16, float, __nv_bfloat16)
+#undef CASK_DIA_SPMV
 
 const char* cask_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

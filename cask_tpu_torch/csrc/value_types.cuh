@@ -1,0 +1,111 @@
+// The kernels' value types: f32, f64, and bf16, which is summed in f32.
+//
+// A bf16 value or operand widens exactly to f32 in registers
+// (__bfloat162float: a bf16 is the top half of the f32 of the same value);
+// sums run in the working type Work<O> of the output type O (float for f32
+// and bf16 outputs, double for f64); a bf16 output is rounded once, at the
+// store, to nearest even (__float2bfloat16_rn).  Vector loads and stores
+// move 16 bytes of the operand type at a time.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cask {
+
+template <typename T>
+struct Work {
+  using type = T;
+};
+template <>
+struct Work<__nv_bfloat16> {
+  using type = float;
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// two f32 values rounded to bf16 and packed, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// the two bf16 values of a packed word, widened
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+// VEC consecutive elements of a row into working-type registers: one vector
+// load (read-only path) of VEC elements, 16 bytes (8 for 4 bf16 values)
+template <typename X, int VEC, typename A>
+__device__ __forceinline__ void load_vec(const X* p, A (&out)[VEC]) {
+  if constexpr (VEC == 1) {
+    out[0] = A(widen(__ldg(p)));
+  } else if constexpr (sizeof(X) == 2) {
+    static_assert(VEC == 8 || VEC == 4, "bf16 vectors are 8 or 4 elements");
+    uint32_t w[VEC / 2];
+    if constexpr (VEC == 8) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+      w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
+    } else {
+      const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+      w[0] = q.x; w[1] = q.y;
+    }
+#pragma unroll
+    for (int e = 0; e < VEC / 2; ++e) {
+      const float2 f = unpack_bf16x2(w[e]);
+      out[2 * e] = A(f.x);
+      out[2 * e + 1] = A(f.y);
+    }
+  } else if constexpr (sizeof(X) == 4) {
+    static_assert(VEC == 4, "f32 vectors are 4 elements");
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    out[0] = A(q.x); out[1] = A(q.y); out[2] = A(q.z); out[3] = A(q.w);
+  } else {
+    static_assert(VEC == 2, "f64 vectors are 2 elements");
+    const double2 q = __ldg(reinterpret_cast<const double2*>(p));
+    out[0] = A(q.x); out[1] = A(q.y);
+  }
+}
+
+// VEC working-type values stored as the output type O with streaming
+// stores: vector stores of 16 bytes (8 for 4 bf16 values) where the row's
+// chunk is that wide and aligned (the caller's vec gate), scalar otherwise
+template <typename O, int VEC, typename A>
+__device__ __forceinline__ void store_vec(O* p, const A (&v)[VEC]) {
+  if constexpr (sizeof(O) == 2) {
+    if constexpr (VEC == 8) {
+      __stcs(reinterpret_cast<uint4*>(p),
+             make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                        pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7])));
+    } else if constexpr (VEC == 4) {
+      __stcs(reinterpret_cast<uint2*>(p),
+             make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3])));
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        __stcs(reinterpret_cast<unsigned short*>(p + e),
+               __bfloat16_as_ushort(__float2bfloat16_rn(v[e])));
+      }
+    }
+  } else if constexpr (sizeof(O) == 4 && VEC % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < VEC; e += 4) {
+      __stcs(reinterpret_cast<float4*>(p + e), make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]));
+    }
+  } else if constexpr (sizeof(O) == 8 && VEC % 2 == 0) {
+#pragma unroll
+    for (int e = 0; e < VEC; e += 2) {
+      __stcs(reinterpret_cast<double2*>(p + e), make_double2(v[e], v[e + 1]));
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) __stcs(p + e, O(v[e]));
+  }
+}
+
+}  // namespace cask

@@ -26,6 +26,22 @@ def _as1d(x, dtype=None):
     return np.ravel(a)
 
 
+def lex_order(*keys) -> np.ndarray:
+    """The order of ``np.lexsort(keys)`` (the last key primary) for
+    non-negative integer keys: one stable argsort of a combined int64 key,
+    about twice as fast, where the keys' ranges fit in 62 bits."""
+    spans = [int(k.max(initial=0)) + 1 for k in keys]
+    total = 1
+    for s in spans:
+        total *= s
+    if total >= 2 ** 62:
+        return np.lexsort(keys)
+    combined = np.zeros(keys[0].shape, dtype=np.int64)
+    for k, s in zip(reversed(keys), reversed(spans)):  # the primary key first
+        combined = combined * s + k
+    return np.argsort(combined, kind="stable")
+
+
 # ---------------------------------------------------------------------------
 # COO <-> CSR
 # ---------------------------------------------------------------------------
@@ -48,7 +64,7 @@ def coo_to_csr(a: COO, *, sum_duplicates: bool = True) -> CSR:
     data = host(a.data)
     row = host(a.row).astype(np.int64)
     col = host(a.col).astype(np.int64)
-    order = np.lexsort((col, row))
+    order = lex_order(col, row)
     row, col, data = row[order], col[order], data[order]
     if sum_duplicates and data.size:
         key = row * a.shape[1] + col
@@ -194,7 +210,7 @@ def transpose(a):
         indptr = host(a.indptr).astype(np.int64)
         brow = np.repeat(
             np.arange(len(indptr) - 1, dtype=np.int64), np.diff(indptr))
-        order = np.lexsort((brow, indices))
+        order = lex_order(brow, indices)
         new_indptr = np.zeros(a.n_block_cols + 1, dtype=np.int64)
         np.add.at(new_indptr, indices + 1, 1)
         br, bc = a.blocksize

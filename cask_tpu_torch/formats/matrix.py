@@ -28,28 +28,63 @@ import torch
 Array = Any  # np.ndarray | torch.Tensor
 
 
+def _is_bf16(dtype) -> bool:
+    """Whether a numpy or torch dtype is bfloat16.  numpy has no bfloat16
+    of its own: an array of one (from JAX) carries a dtype named so."""
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.bfloat16
+    return getattr(dtype, "name", dtype) == "bfloat16"
+
+
+def _widen_bf16(a: np.ndarray) -> np.ndarray:
+    """A numpy bfloat16 array as float32, exactly: a bfloat16 is the top
+    half of the float32 of the same value."""
+    return (np.ascontiguousarray(a).view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
 def host(x) -> np.ndarray:
-    """The array as host numpy (copies a device tensor to the host)."""
+    """The array as host numpy (copies a device tensor to the host).
+    bfloat16 values come as float32, which holds each exactly (numpy has
+    no bfloat16); :func:`value_dtype` keeps the type, so a planner casts
+    its packed values back without rounding anything."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+        x = x.detach()
+        return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+    a = np.asarray(x)
+    return _widen_bf16(a) if _is_bf16(a.dtype) else a
+
+
+def value_dtype(x) -> torch.dtype:
+    """The torch dtype of an array's values (numpy or tensor)."""
+    return x.dtype if isinstance(x, torch.Tensor) else torch_dtype(np.asarray(x).dtype)
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """A numpy or torch dtype as a torch dtype."""
+    """A numpy or torch dtype (or its name) as a torch dtype."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if _is_bf16(dtype):
+        return torch.bfloat16
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
 
 
-def to_device(x, device: Union[str, torch.device]) -> torch.Tensor:
-    """``x`` (numpy or tensor) as a tensor on ``device``."""
+def to_device(x, device: Union[str, torch.device], dtype=None) -> torch.Tensor:
+    """``x`` (numpy or tensor) as a tensor on ``device``, cast to ``dtype``
+    when given.  A numpy bfloat16 array crosses as its bits, so no
+    bfloat16 support in numpy is needed."""
     if isinstance(x, torch.Tensor):
-        return x.to(device)
-    a = np.ascontiguousarray(x)
-    if not a.flags.writeable:  # e.g. a view of a JAX array: the tensor may be written
-        a = a.copy()
-    return torch.as_tensor(a, device=device)
+        t = x.to(device)
+    else:
+        a = np.ascontiguousarray(x)
+        bf16 = _is_bf16(a.dtype)
+        if bf16:
+            a = a.view(np.int16)
+        if not a.flags.writeable:  # e.g. a view of a JAX array: the tensor may be written
+            a = a.copy()
+        t = torch.as_tensor(a, device=device)
+        if bf16:
+            t = t.view(torch.bfloat16)
+    return t if dtype is None else t.to(torch_dtype(dtype))
 
 
 def _astype(x, dtype):

@@ -24,8 +24,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from cask_tpu_torch.formats.matrix import BSR, COO, CSR, host, to_device, torch_dtype
-from cask_tpu_torch.ops.dia import DiaMatrix
+from cask_tpu_torch.formats.matrix import BSR, COO, CSR, host, to_device, torch_dtype, value_dtype
+from cask_tpu_torch.ops.dia import DiaMatrix, remainder_spmm
 from cask_tpu_torch.ops.kernels.bdia_kernels import (bdia_kernel_ok, bdia_spmv,
                                                      bdia_spmv_reference)
 from cask_tpu_torch.utils.platform import plan_device
@@ -130,31 +130,18 @@ class BdiaMatrix:
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
         """``A·x``: the kernel on a CUDA device (raises on what it does not
         take), the plain twin on the CPU; the remainder added after."""
-        y = bdia_spmv(self, x)
-        if self.rem_data.shape[0]:
-            y = y + self._remainder_spmv(x)
-        return y
+        return self._with_remainder(bdia_spmv(self, x), x)
 
     def _spmv_reference(self, x: torch.Tensor) -> torch.Tensor:
         """The same math in plain PyTorch on any device (the port of
         ``_spmv_xla``)."""
-        y = bdia_spmv_reference(self, x)
-        if self.rem_data.shape[0]:
-            y = y + self._remainder_spmv(x)
-        return y
+        return self._with_remainder(bdia_spmv_reference(self, x), x)
 
-    def _remainder_spmv(self, x: torch.Tensor) -> torch.Tensor:
-        prod = self.rem_data * x[self.rem_col.long()]
-        return prod.new_zeros(self.shape[0]).index_add_(0, self.rem_row.long(), prod)
-
-
-def remainder_spmm(rem_data, rem_row, rem_col, m: int, x: torch.Tensor,
-                   dtype: torch.dtype) -> torch.Tensor:
-    """The COO remainder's product with ``x`` (1-D or 2-D) in ``dtype``, the
-    reference's remainder add (``ops/spmm.py:217-221``)."""
-    xr = x[rem_col.long()].to(dtype)
-    prod = (rem_data.to(dtype)[:, None] * xr) if x.ndim == 2 else rem_data.to(dtype) * xr
-    return prod.new_zeros((m, *x.shape[1:])).index_add_(0, rem_row.long(), prod)
+    def _with_remainder(self, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        if not self.rem_data.shape[0]:
+            return y
+        return y + remainder_spmm(self.rem_data, self.rem_row, self.rem_col, self.shape[0], x,
+                                  y.dtype)
 
 
 class BdiaOperator:
@@ -200,6 +187,7 @@ def bdia_plan(a: Union[BSR, CSR], blocksize: Optional[Tuple[int, int]] = None,
     package packs; the plan's tensors go to ``device`` (default: where the
     matrix's tensors are, the CUDA device for host numpy arrays)."""
     device = plan_device(a.data, device)
+    vdt = value_dtype(a.data)  # bf16 values are planned as their exact f32
     if isinstance(a, CSR):
         if blocksize is None:
             raise ValueError("bdia_plan on CSR needs an explicit blocksize")
@@ -269,8 +257,8 @@ def bdia_plan(a: Union[BSR, CSR], blocksize: Optional[Tuple[int, int]] = None,
         rem_col = np.zeros((0,), np.int32)
 
     return BdiaMatrix(
-        vals=to_device(vals, device),
-        rem_data=to_device(rem_data, device),
+        vals=to_device(vals, device, vdt),
+        rem_data=to_device(rem_data, device, vdt),
         rem_row=to_device(rem_row.astype(np.int32), device),
         rem_col=to_device(rem_col.astype(np.int32), device),
         block_offsets=tuple(int(o) for o in kept),
@@ -325,4 +313,4 @@ def transpose_plan(a: BdiaMatrix, *, min_density: float = 0.10,
                 shape=(coo.shape[1], coo.shape[0]))
     br, bc = a.blocksize
     return bdia_plan(coo_to_csr(coo_t), (bc, br), min_density=min_density,
-                     max_block_diags=max_block_diags, device=a.device)
+                     max_block_diags=max_block_diags, device=a.device).astype(a.dtype)

@@ -181,10 +181,12 @@ def bdia_slab_plan(a: BdiaMatrix, g: int = 16, dtype=None) -> BdiaSlabs:
             slab[:, 0, :, :bc] = b[:, 0]
         if d == 1:  # the last block row's super-diagonal block → post-halo
             slab[:, g - 1, :, bc : 2 * bc] = b[:, g - 1]
-    h = torch.arange(g, device=slab.device)
-    for f, d in enumerate(far):  # a block diagonal inside its own segment
+    # a block diagonal inside its own segment, as the reference builds it:
+    # blocks × identity, so its fill holds the same signed zeros, bit for bit
+    eye = torch.eye(g, dtype=dt, device=slab.device)[None, :, None, :, None]
+    for f, d in enumerate(far):
         seg = slab[..., 2 * bc + gb_c * (1 + f) : 2 * bc + gb_c * (2 + f)].unflatten(-1, (g, bc))
-        seg[:, h, :, h, :] = blocks(d).transpose(0, 1)
+        seg.copy_(blocks(d)[:, :, :, None, :] * eye)
     return BdiaSlabs(slabs=slab.reshape(ntiles * g * br, width), rem_data=a.rem_data,
                      rem_row=a.rem_row, rem_col=a.rem_col, g=g, blocksize=(br, bc),
                      shape=a.shape, far_offsets=far, nb_pad=nb_pad)

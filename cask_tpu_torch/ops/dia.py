@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from cask_tpu_torch.formats.matrix import CSR, host, to_device, torch_dtype
+from cask_tpu_torch.formats.matrix import CSR, host, to_device, torch_dtype, value_dtype
 from cask_tpu_torch.ops.kernels.dia_kernels import (dia_kernel_ok, dia_spmm,
                                                     dia_spmm_reference, dia_spmv,
                                                     dia_spmv_reference)
@@ -38,6 +38,16 @@ _ROW_TILE = 64 * 128
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def remainder_spmm(rem_data, rem_row, rem_col, m: int, x: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The COO remainder's product with ``x`` (1-D or 2-D) in ``dtype`` (the
+    product's output type, so bf16 values and operands sum in f32), the
+    reference's remainder add (``ops/spmm.py:217-221``)."""
+    xr = x[rem_col.long()].to(dtype)
+    prod = (rem_data.to(dtype)[:, None] * xr) if x.ndim == 2 else rem_data.to(dtype) * xr
+    return prod.new_zeros((m, *x.shape[1:])).index_add_(0, rem_row.long(), prod)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -104,33 +114,26 @@ class DiaMatrix:
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
         """``A·x``: the kernel on a CUDA device (raises on what it does not
         take), the plain twin on the CPU; the remainder added after."""
-        y = dia_spmv(self, x)
-        return y + self._remainder_spmv(x) if self.rem_data.shape[0] else y
+        return self._with_remainder(dia_spmv(self, x), x)
 
     def spmm(self, x: torch.Tensor) -> torch.Tensor:
         """``A·X`` for a dense ``X (n, k)``, as :meth:`spmv`."""
-        y = dia_spmm(self, x)
-        return y + self._remainder_spmm(x) if self.rem_data.shape[0] else y
+        return self._with_remainder(dia_spmm(self, x), x)
 
     def _spmv_reference(self, x: torch.Tensor) -> torch.Tensor:
         """The same math in plain PyTorch on any device (the port of
         ``_spmv_xla``)."""
-        y = dia_spmv_reference(self, x)
-        return y + self._remainder_spmv(x) if self.rem_data.shape[0] else y
+        return self._with_remainder(dia_spmv_reference(self, x), x)
 
     def _spmm_reference(self, x: torch.Tensor) -> torch.Tensor:
         """The port of ``_spmm_xla``."""
-        y = dia_spmm_reference(self, x)
-        return y + self._remainder_spmm(x) if self.rem_data.shape[0] else y
+        return self._with_remainder(dia_spmm_reference(self, x), x)
 
-    def _remainder_spmv(self, x: torch.Tensor) -> torch.Tensor:
-        prod = self.rem_data * x[self.rem_col.long()]
-        return prod.new_zeros(self.shape[0]).index_add_(0, self.rem_row.long(), prod)
-
-    def _remainder_spmm(self, x: torch.Tensor) -> torch.Tensor:
-        prod = self.rem_data[:, None] * x[self.rem_col.long()]
-        return prod.new_zeros((self.shape[0], x.shape[1])).index_add_(
-            0, self.rem_row.long(), prod)
+    def _with_remainder(self, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        if not self.rem_data.shape[0]:
+            return y
+        return y + remainder_spmm(self.rem_data, self.rem_row, self.rem_col, self.shape[0], x,
+                                  y.dtype)
 
 
 class DiaOperator:
@@ -205,6 +208,7 @@ def dia_plan(a: CSR, *, min_density: float = 0.10, max_diags: int = 1024,
     packs; the plan's tensors go to ``device`` (default: where ``a``'s
     tensors are, the CUDA device for host numpy arrays)."""
     device = plan_device(a.data, device)
+    vdt = value_dtype(a.data)  # bf16 values are planned as their exact f32
     m, n = a.shape
     indices = host(a.indices).astype(np.int64)
     data = host(a.data)
@@ -229,11 +233,11 @@ def dia_plan(a: CSR, *, min_density: float = 0.10, max_diags: int = 1024,
 
     rem = ~in_dia
     return DiaMatrix(
-        vals=to_device(vals, device),
-        rem_data=to_device(data[rem], device),
+        vals=to_device(vals, device, vdt),
+        rem_data=to_device(data[rem], device, vdt),
         rem_row=to_device(rows[rem].astype(np.int32), device),
         rem_col=to_device(indices[rem].astype(np.int32), device),
-        vals_t=to_device(np.ascontiguousarray(vals.T), device) if with_vals_t else None,
+        vals_t=to_device(np.ascontiguousarray(vals.T), device, vdt) if with_vals_t else None,
         offsets=offsets,
         shape=(m, n),
     )
@@ -274,7 +278,7 @@ def transpose_plan(a: DiaMatrix) -> DiaMatrix:
         if r1 > r0:
             new_vals[d, r0:r1] = vals[d, r0 - off : r1 - off]
     return DiaMatrix(
-        vals=to_device(new_vals, a.device),
+        vals=to_device(new_vals, a.device, a.dtype),
         rem_data=a.rem_data,
         rem_row=a.rem_col,
         rem_col=a.rem_row,

@@ -34,7 +34,11 @@ if TYPE_CHECKING:
 
 _LANE = 128
 MAX_PAIRS = 80  # (d, c) slots a plan may hold for the kernel (kMaxDiags)
-_KERNEL_DTYPES = (torch.float32, torch.float64)
+_KERNEL_DTYPES = (torch.float32, torch.float64)  # values and operand of one type
+# the bf16 value path: values and operand each bf16 or f32, at least one bf16
+_BF16_PATH = (torch.bfloat16, torch.float32)
+VALUE_DTYPES = (*_KERNEL_DTYPES, torch.bfloat16)  # a plan's value types the kernels take
+_NAMES = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 
 
 def _out_dtype(vals_dtype: torch.dtype, x_dtype: torch.dtype) -> torch.dtype:
@@ -42,6 +46,54 @@ def _out_dtype(vals_dtype: torch.dtype, x_dtype: torch.dtype) -> torch.dtype:
     if torch.bfloat16 in (vals_dtype, x_dtype):
         acc = torch.promote_types(acc, torch.float32)
     return acc
+
+
+def kernel_types_ok(vals_dtype: torch.dtype, x_dtype: torch.dtype) -> bool:
+    """Do the kernels take these value and operand types?  One f32 or f64
+    type, or bf16 and f32 with at least one bf16 (summed in f32)."""
+    if vals_dtype in _KERNEL_DTYPES and x_dtype == vals_dtype:
+        return True
+    return (torch.bfloat16 in (vals_dtype, x_dtype) and vals_dtype in _BF16_PATH
+            and x_dtype in _BF16_PATH)
+
+
+def _type_error(vals_dtype, x_dtype, out=None) -> TypeError:
+    got = f"values {vals_dtype}, operand {x_dtype}" + ("" if out is None else f", out {out}")
+    return TypeError(f"the kernels take float32/float64 values and operand of one type (SpMM "
+                     f"out of that type or float64), or bfloat16 values or operand with the "
+                     f"other bfloat16 or float32 (out float32, SpMM also bfloat16); got {got}")
+
+
+def check_types(vals_dtype: torch.dtype, x_dtype: torch.dtype) -> None:
+    """Raise ``TypeError``, naming the combination, unless the SpMV kernels
+    take these value and operand types (:func:`kernel_types_ok`)."""
+    if not kernel_types_ok(vals_dtype, x_dtype):
+        raise _type_error(vals_dtype, x_dtype)
+
+
+def entry(prefix: str, vals_dtype: torch.dtype, x_dtype: torch.dtype, out=None) -> str:
+    """The C entry point of a type combination: ``<prefix>_f32`` /
+    ``_f64`` (and ``_f32_f64`` for f64 sums) for one f32/f64 type, else
+    ``<prefix>_<values>_<operand>`` with ``_<out>`` for SpMM."""
+    if vals_dtype == x_dtype and vals_dtype in _KERNEL_DTYPES:
+        tail = "" if out in (None, vals_dtype) else f"_{_NAMES[out]}"
+        return f"{prefix}_{_NAMES[vals_dtype]}{tail}"
+    tail = "" if out is None else f"_{_NAMES[out]}"
+    return f"{prefix}_{_NAMES[vals_dtype]}_{_NAMES[x_dtype]}{tail}"
+
+
+def entries(prefix: str, spmm: bool, f64_sums: bool = False):
+    """Every C entry point of a kernel source, as :func:`entry` names them
+    (``f64_sums``: it has the f32-in, f64-out SpMM entry)."""
+    names = {entry(prefix, t, t) for t in _KERNEL_DTYPES}
+    if f64_sums:
+        names.add(entry(prefix, torch.float32, torch.float32, torch.float64))
+    for v in _BF16_PATH:
+        for x in _BF16_PATH:
+            if torch.bfloat16 in (v, x):
+                outs = _BF16_PATH[::-1] if spmm else (None,)
+                names.update(entry(prefix, v, x, o) for o in outs)
+    return sorted(names)
 
 
 def bdia_spmv_reference(a: "BdiaMatrix", x: torch.Tensor) -> torch.Tensor:
@@ -70,7 +122,7 @@ def bdia_spmv_reference(a: "BdiaMatrix", x: torch.Tensor) -> torch.Tensor:
 
 def bdia_kernel_ok(a: "BdiaMatrix") -> bool:
     """Can the CUDA kernel take this plan (pair count and value type)?"""
-    return a.npairs <= MAX_PAIRS and a.vals.dtype in _KERNEL_DTYPES
+    return a.npairs <= MAX_PAIRS and a.vals.dtype in VALUE_DTYPES
 
 
 def result_dtype(vals_dtype: torch.dtype, x_dtype: torch.dtype, out=None) -> torch.dtype:
@@ -81,13 +133,15 @@ def result_dtype(vals_dtype: torch.dtype, x_dtype: torch.dtype, out=None) -> tor
 
 
 def check_out_dtype(vals_dtype: torch.dtype, x_dtype: torch.dtype, out: torch.dtype) -> None:
-    """Raise unless an SpMM kernel takes these types: f32 or f64 values and X
-    of one type, out of the same type or f64 (``accum_dtype=float64``)."""
-    if vals_dtype not in _KERNEL_DTYPES or x_dtype != vals_dtype \
-            or out not in (vals_dtype, torch.float64):
-        raise TypeError(f"kernel takes float32/float64 values and X of one type, out of "
-                        f"that type or float64; got values {vals_dtype}, X {x_dtype}, "
-                        f"out {out}")
+    """Raise ``TypeError``, naming the combination, unless an SpMM kernel
+    takes these types: f32 or f64 values and X of one type, out of the same
+    type or f64 (``accum_dtype=float64``); or bf16 values or X with the
+    other bf16 or f32, out f32 or bf16 (the fully-bf16 chain)."""
+    if not kernel_types_ok(vals_dtype, x_dtype):
+        raise _type_error(vals_dtype, x_dtype, out)
+    outs = _BF16_PATH if torch.bfloat16 in (vals_dtype, x_dtype) else (vals_dtype, torch.float64)
+    if out not in outs:
+        raise _type_error(vals_dtype, x_dtype, out)
 
 
 def raise_on(lib, err: int, name: str) -> None:
@@ -104,30 +158,33 @@ def vec_ok(k: int, *tensors: torch.Tensor) -> int:
                    for t in tensors))
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = build.load("bdia_spmv")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.cask_bdia_spmv_f32, lib.cask_bdia_spmv_f64):
-        fn.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_int), i, i, i, ll, ll, ll,
-                       i, i, p]
+def bind(name: str, prefix: str, argtypes, *, spmm: bool,
+         f64_sums: bool = False) -> ctypes.CDLL:
+    """Load ``csrc/<name>.cu``'s library and give each entry point of
+    :func:`entries` the argument types ``argtypes``."""
+    lib = build.load(name)
+    for fname in entries(prefix, spmm, f64_sums):
+        fn = getattr(lib, fname)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.cask_cuda_error_string.argtypes = [ctypes.c_int]
     lib.cask_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return bind("bdia_spmv", "cask_bdia_spmv",
+                [p, p, p, ctypes.POINTER(ctypes.c_int), i, i, i, ll, ll, ll, i, i, p], spmm=False)
 
 
 @functools.lru_cache(maxsize=None)
 def _mm_lib() -> ctypes.CDLL:
-    lib = build.load("bdia_spmm")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.cask_bdia_spmm_f32, lib.cask_bdia_spmm_f64, lib.cask_bdia_spmm_f32_f64):
-        fn.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_int), i, i, i, ll, ll, ll,
-                       i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    lib.cask_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.cask_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return bind("bdia_spmm", "cask_bdia_spmm",
+                [p, p, p, ctypes.POINTER(ctypes.c_int), i, i, i, ll, ll, ll, i, i, i, i, p],
+                spmm=True, f64_sums=True)
 
 
 def bdia_spmv(a: "BdiaMatrix", x: torch.Tensor) -> torch.Tensor:
@@ -143,9 +200,7 @@ def bdia_spmv(a: "BdiaMatrix", x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x on {x.device} but the plan on {a.vals.device}")
     if x.ndim != 1 or x.shape[0] != n:
         raise ValueError(f"x must have shape ({n},), got {tuple(x.shape)}")
-    if x.dtype not in _KERNEL_DTYPES or a.vals.dtype != x.dtype:
-        raise TypeError(f"kernel takes float32/float64 values and x of one type, "
-                        f"got vals {a.vals.dtype}, x {x.dtype}")
+    check_types(a.vals.dtype, x.dtype)
     if a.npairs > MAX_PAIRS:
         raise ValueError(f"plan has {a.npairs} (d, c) pairs; the kernel takes "
                          f"at most {MAX_PAIRS}")
@@ -154,17 +209,16 @@ def bdia_spmv(a: "BdiaMatrix", x: torch.Tensor) -> torch.Tensor:
                          f"(br, T, npairs, ts, 128) layout")
     if not (x.is_contiguous() and a.vals.is_contiguous()):
         raise ValueError("kernel needs contiguous x and vals")
-    y = torch.empty(m, dtype=x.dtype, device=x.device)
+    y = torch.empty(m, dtype=_out_dtype(a.vals.dtype, x.dtype), device=x.device)
     if m == 0:
         return y
     lib = _lib()
-    fn = lib.cask_bdia_spmv_f32 if x.dtype == torch.float32 else lib.cask_bdia_spmv_f64
+    fn = getattr(lib, entry("cask_bdia_spmv", a.vals.dtype, x.dtype))
     offs = (ctypes.c_int * len(a.block_offsets))(*a.block_offsets)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(a.vals.data_ptr(), x.data_ptr(), y.data_ptr(), offs,
-                 len(a.block_offsets), br, bc, m, n, a.nbr, a.n_tiles,
-                 a.ts * _LANE, stream)
+        err = fn(a.vals.data_ptr(), x.data_ptr(), y.data_ptr(), offs, len(a.block_offsets),
+                 br, bc, m, n, a.nbr, a.n_tiles, a.ts * _LANE, stream)
     raise_on(lib, err, "bdia_spmv")
     bdia_spmv.launches += 1
     return y
@@ -259,9 +313,7 @@ def bdia_spmm_ring(a: "BdiaMatrix", x: torch.Tensor, out_dtype=None) -> torch.Te
     y = torch.empty((m, k), dtype=out, device=x.device)
     vec = vec_ok(k, x, y)
     lib = _mm_lib()
-    fn = {(torch.float32, torch.float32): lib.cask_bdia_spmm_f32,
-          (torch.float64, torch.float64): lib.cask_bdia_spmm_f64,
-          (torch.float32, torch.float64): lib.cask_bdia_spmm_f32_f64}[(x.dtype, out)]
+    fn = getattr(lib, entry("cask_bdia_spmm", a.vals.dtype, x.dtype, out))
     offs = (ctypes.c_int * len(a.block_offsets))(*a.block_offsets)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

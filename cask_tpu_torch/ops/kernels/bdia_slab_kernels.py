@@ -21,8 +21,7 @@ from typing import TYPE_CHECKING
 
 import torch
 
-from cask_tpu_torch.ops.kernels import build
-from cask_tpu_torch.ops.kernels.bdia_kernels import (check_out_dtype, raise_on,
+from cask_tpu_torch.ops.kernels.bdia_kernels import (bind, check_out_dtype, entry, raise_on,
                                                      result_dtype)
 
 if TYPE_CHECKING:
@@ -68,15 +67,10 @@ def bdia_spmm_slab_reference(sl: "BdiaSlabs", x: torch.Tensor, *, padded: bool =
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = build.load("bdia_slab_spmm")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.cask_slab_spmm_f32, lib.cask_slab_spmm_f64, lib.cask_slab_spmm_f32_f64):
-        fn.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_int), i, i, i, i, i, ll, ll, ll, ll,
-                       i, p]
-        fn.restype = ctypes.c_int
-    lib.cask_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.cask_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return bind("bdia_slab_spmm", "cask_slab_spmm",
+                [p, p, p, ctypes.POINTER(ctypes.c_int), i, i, i, i, i, ll, ll, ll, ll, i, p],
+                spmm=True, f64_sums=True)
 
 
 def _launch(sl: "BdiaSlabs", x: torch.Tensor, y: torch.Tensor, tile0: int, y_rows: int,
@@ -95,9 +89,7 @@ def _launch(sl: "BdiaSlabs", x: torch.Tensor, y: torch.Tensor, tile0: int, y_row
         raise ValueError("kernel needs contiguous X and slabs")
     k = int(x.shape[1])
     lib = _lib()
-    fn = {(torch.float32, torch.float32): lib.cask_slab_spmm_f32,
-          (torch.float64, torch.float64): lib.cask_slab_spmm_f64,
-          (torch.float32, torch.float64): lib.cask_slab_spmm_f32_f64}[(x.dtype, y.dtype)]
+    fn = getattr(lib, entry("cask_slab_spmm", sl.dtype, x.dtype, y.dtype))
     far = (ctypes.c_int * max(len(sl.far_offsets), 1))(*sl.far_offsets)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -25,8 +25,9 @@ from typing import TYPE_CHECKING
 
 import torch
 
-from cask_tpu_torch.ops.kernels import build
-from cask_tpu_torch.ops.kernels.bdia_kernels import _KERNEL_DTYPES, _out_dtype, raise_on, vec_ok
+from cask_tpu_torch.ops.kernels.bdia_kernels import (VALUE_DTYPES, _out_dtype, bind,
+                                                     check_out_dtype, check_types, entry,
+                                                     raise_on, result_dtype, vec_ok)
 
 if TYPE_CHECKING:
     from cask_tpu_torch.ops.dia import DiaMatrix
@@ -44,46 +45,47 @@ def _padded(a: "DiaMatrix", x: torch.Tensor):
 
 
 def dia_spmv_reference(a: "DiaMatrix", x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch ``Σ_d vals[d] · x-shift``, in offsets order: the port of
+    """Plain PyTorch ``Σ_d vals[d] · x-shift``, in offsets order, values and
+    x widened to the output type first (f32 for bf16): the port of
     ``DiaMatrix._spmv_xla`` without its remainder.
 
     Works on any device; the CUDA kernel is held against it."""
     xp, lo = _padded(a, x)
     acc = _out_dtype(a.vals.dtype, x.dtype)
+    xp = xp.to(acc)
     y = torch.zeros(a.m_pad, dtype=acc, device=x.device)
     for d, off in enumerate(a.offsets):
-        y = y + a.vals[d] * xp[lo + off : lo + off + a.m_pad]
+        y = y + a.vals[d].to(acc) * xp[lo + off : lo + off + a.m_pad]
     return y[: a.shape[0]]
 
 
-def dia_spmm_reference(a: "DiaMatrix", x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch ``Σ_d vals[d][:, None] · X-shift``, in offsets order: the
-    port of ``DiaMatrix._spmm_xla`` without its remainder."""
+def dia_spmm_reference(a: "DiaMatrix", x: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch ``Σ_d vals[d][:, None] · X-shift``, in offsets order,
+    summed in ``promote(out, f32)`` and cast to ``out`` (``out_dtype``, else
+    the promotion of values and X, bf16 promoted to f32): the port of
+    ``DiaMatrix._spmm_xla`` without its remainder."""
     xp, lo = _padded(a, x)
-    acc = _out_dtype(a.vals.dtype, x.dtype)
+    out = result_dtype(a.vals.dtype, x.dtype, out_dtype)
+    acc = torch.promote_types(out, torch.float32)
+    xp = xp.to(acc)
     y = torch.zeros((a.m_pad, x.shape[1]), dtype=acc, device=x.device)
     for d, off in enumerate(a.offsets):
-        y = y + a.vals[d][:, None] * xp[lo + off : lo + off + a.m_pad]
-    return y[: a.shape[0]]
+        y = y + a.vals[d][:, None].to(acc) * xp[lo + off : lo + off + a.m_pad]
+    return y[: a.shape[0]].to(out)
 
 
 def dia_kernel_ok(a: "DiaMatrix") -> bool:
     """Can the CUDA kernels take this plan?  They take any diagonal count,
-    f32 and f64 values."""
-    return a.vals.dtype in _KERNEL_DTYPES
+    f32, f64 and bf16 values."""
+    return a.vals.dtype in VALUE_DTYPES
 
 
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
-    lib = build.load(name)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     extra = [i, i] if name == "dia_spmm" else []  # k, vec
-    for fn in (getattr(lib, f"cask_{name}_f32"), getattr(lib, f"cask_{name}_f64")):
-        fn.argtypes = [p, p, i, p, p, ll, ll, ll, *extra, p]
-        fn.restype = ctypes.c_int
-    lib.cask_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.cask_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return bind(name, f"cask_{name}", [p, p, i, p, p, ll, ll, ll, *extra, p],
+                spmm=name == "dia_spmm")
 
 
 def _check(a: "DiaMatrix", x: torch.Tensor, ndim: int) -> None:
@@ -94,9 +96,6 @@ def _check(a: "DiaMatrix", x: torch.Tensor, ndim: int) -> None:
     if x.ndim != ndim or x.shape[0] != n:
         raise ValueError(f"x must have {ndim} dimension(s) and {n} rows, "
                          f"got shape {tuple(x.shape)}")
-    if x.dtype not in _KERNEL_DTYPES or a.vals.dtype != x.dtype:
-        raise TypeError(f"kernel takes float32/float64 values and x of one type, "
-                        f"got vals {a.vals.dtype}, x {x.dtype}")
     if a.vals.shape != (a.ndiags, a.m_pad) or a.m_pad < m \
             or a.offsets_dev.shape != (a.ndiags,) or a.offsets_dev.dtype != torch.int32:
         raise ValueError(f"vals {tuple(a.vals.shape)} / offsets {tuple(a.offsets_dev.shape)} "
@@ -113,12 +112,14 @@ def dia_spmv(a: "DiaMatrix", x: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"x on {x.device} but the plan on {a.vals.device}")
         return dia_spmv_reference(a, x)
     _check(a, x, 1)
+    check_types(a.vals.dtype, x.dtype)
     m, n = a.shape
+    out = _out_dtype(a.vals.dtype, x.dtype)
     if m == 0 or n == 0:
-        return torch.zeros(m, dtype=x.dtype, device=x.device)
-    y = torch.empty(m, dtype=x.dtype, device=x.device)
+        return torch.zeros(m, dtype=out, device=x.device)
+    y = torch.empty(m, dtype=out, device=x.device)
     lib = _lib("dia_spmv")
-    fn = lib.cask_dia_spmv_f32 if x.dtype == torch.float32 else lib.cask_dia_spmv_f64
+    fn = getattr(lib, entry("cask_dia_spmv", a.vals.dtype, x.dtype))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(a.vals.data_ptr(), a.offsets_dev.data_ptr(), a.ndiags, x.data_ptr(),
@@ -128,23 +129,30 @@ def dia_spmv(a: "DiaMatrix", x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def dia_spmm(a: "DiaMatrix", x: torch.Tensor) -> torch.Tensor:
+def dia_spmm(a: "DiaMatrix", x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """Diagonals' part of ``A·X`` for a dense row-major ``X (n, k)``: the CUDA
-    kernel for a CUDA ``X``, the plain twin for a CPU ``X``.  Raises on what
-    the kernel does not take."""
+    kernel for a CUDA ``X``, the plain twin for a CPU ``X``.  ``out_dtype``
+    as the reference's ring (``dia_kernels.py:1026-1033``): by default the
+    promotion of values and X (bf16 promoted to f32); bf16 for the
+    fully-bf16 chain, summed in f32 and rounded once.  Raises on what the
+    kernel does not take."""
     if not x.is_cuda:
         if a.vals.is_cuda:
             raise ValueError(f"X on {x.device} but the plan on {a.vals.device}")
-        return dia_spmm_reference(a, x)
+        return dia_spmm_reference(a, x, out_dtype)
     _check(a, x, 2)
+    out = result_dtype(a.vals.dtype, x.dtype, out_dtype)
+    check_out_dtype(a.vals.dtype, x.dtype, out)
+    if out == torch.float64 and x.dtype != torch.float64:
+        raise TypeError("the DIA SpMM kernel has no float64 output for float32 values")
     m, n = a.shape
     k = int(x.shape[1])
     if m == 0 or n == 0 or k == 0:
-        return torch.zeros((m, k), dtype=x.dtype, device=x.device)
-    y = torch.empty((m, k), dtype=x.dtype, device=x.device)
+        return torch.zeros((m, k), dtype=out, device=x.device)
+    y = torch.empty((m, k), dtype=out, device=x.device)
     vec = vec_ok(k, x, y)  # 16-byte vector loads and stores
     lib = _lib("dia_spmm")
-    fn = lib.cask_dia_spmm_f32 if x.dtype == torch.float32 else lib.cask_dia_spmm_f64
+    fn = getattr(lib, entry("cask_dia_spmm", a.vals.dtype, x.dtype, out))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(a.vals.data_ptr(), a.offsets_dev.data_ptr(), a.ndiags, x.data_ptr(),

@@ -29,7 +29,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from cask_tpu_torch.formats.convert import coo_from_arrays, coo_to_csr
+from cask_tpu_torch.formats.convert import coo_from_arrays, coo_to_csr, lex_order
 from cask_tpu_torch.formats.matrix import CSR, host, to_device
 from cask_tpu_torch.ops.kernels.lell_kernels import lell_lane_sums, lell_lane_sums_reference
 from cask_tpu_torch.utils.platform import plan_device
@@ -111,7 +111,7 @@ def lell_plan(a: CSR, *, max_layers: int = 6, groups: int = 8, device=None) -> L
     srow = rows // groups
     inlane = (indices // B).astype(np.int32)
 
-    order = np.lexsort((inlane, lane, srow))
+    order = lex_order(inlane, lane, srow)
     s_s, l_s = srow[order], lane[order]
     key = s_s * _LANE + l_s
     new_grp = np.empty(key.shape, dtype=bool)
@@ -211,7 +211,7 @@ def _pack_chunked_arrays(m, rows, indices, data, chunk_layers: int, dtype):
     if rows.size == 0:
         return (np.zeros((1, 0, _LANE), dtype=dtype), np.zeros((1, 0, _LANE), np.int32),
                 np.zeros(0, np.int32))
-    order = np.lexsort((inlane, lane, rows))
+    order = lex_order(inlane, lane, rows)
     r_s, l_s = rows[order], lane[order]
     key = r_s * _LANE + l_s
     new_grp = np.empty(key.shape, dtype=bool)

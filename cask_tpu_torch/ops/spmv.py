@@ -42,7 +42,7 @@ from cask_tpu_torch.ops.bdia import transpose_plan as _bdia_transpose
 from cask_tpu_torch.ops.bdia_slab import BdiaSlabs, slab_auto_plan
 from cask_tpu_torch.ops.dia import DiaMatrix, dia_plan, estimate_dia_traffic, spmv_dia
 from cask_tpu_torch.ops.dia import transpose_plan as _dia_transpose
-from cask_tpu_torch.ops.kernels.bdia_kernels import bdia_kernel_ok
+from cask_tpu_torch.ops.kernels.bdia_kernels import bdia_kernel_ok, kernel_types_ok
 from cask_tpu_torch.ops.kernels.dia_kernels import dia_kernel_ok
 from cask_tpu_torch.ops.poh import PohMatrix, poh_transpose_plan
 from cask_tpu_torch.utils.platform import default_device, plan_device
@@ -198,8 +198,8 @@ class PlanCache:
 
     @staticmethod
     def _build(a, kind: str, device) -> Union[BdiaMatrix, DiaMatrix, BdiaSlabs, None]:
-        if kind == "scalar_dia":
-            return dia_plan(coo_to_csr(bdia_to_coo(a)), device=a.device)
+        if kind == "scalar_dia":  # planned from the exact f32 of bf16 values, then cast back
+            return dia_plan(coo_to_csr(bdia_to_coo(a)), device=a.device).astype(a.dtype)
         if kind == "slab":
             return slab_auto_plan(a)
         if kind == "bdia":
@@ -235,11 +235,13 @@ def cached_plan(a, x: torch.Tensor):
     on ``x``'s device for a matrix of host numpy arrays, on the matrix's own
     for one of tensors there.  None when ``x`` lies on the CPU (which asks
     for the CPU), when the matrix's tensors lie elsewhere, or when the plan
-    does not qualify or match ``x``'s type."""
+    does not qualify or its kernels do not take its values with ``x``'s type
+    (:func:`cask_tpu_torch.ops.kernels.bdia_kernels.kernel_types_ok`: one
+    f32 or f64 type, or bf16 values or ``x`` with the other bf16 or f32)."""
     if not x.is_cuda or (isinstance(a.data, torch.Tensor) and a.data.device != x.device):
         return None
     plan = default_plan_cache.get(a, device=x.device)
-    ok = plan is not None and plan.dtype == x.dtype and plan.device == x.device
+    ok = plan is not None and kernel_types_ok(plan.dtype, x.dtype) and plan.device == x.device
     return plan if ok else None
 
 

@@ -47,27 +47,28 @@ def _ident(r):
 
 def cg(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0, maxiter: int = 1000,
        M: Optional[Callable] = None) -> SolveResult:
-    """Conjugate gradients for SPD ``a`` (optionally preconditioned).  A
-    host (numpy) ``b`` is placed as in :func:`block_cg`."""
+    """Conjugate gradients for SPD (or Hermitian positive definite) ``a``,
+    optionally preconditioned.  A host (numpy) ``b`` is placed as in
+    :func:`block_cg`."""
     op, b = _operator_and_rhs(a, b, spmv)
     M = M or _ident
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
 
-    bnorm = torch.linalg.vector_norm(b)
-    target = torch.clamp(tol * bnorm, min=atol).to(b.dtype)
+    # the threshold is real (a norm), also for a complex system
+    target = torch.clamp(tol * torch.linalg.vector_norm(b), min=atol)
 
     r = b - op(x)
     z = M(r)
     p = z
-    rz = torch.dot(r, z)
+    rz = torch.vdot(r, z)  # conjugates r: the Hermitian inner product
     k = 0
     while k < maxiter and bool(torch.linalg.vector_norm(r) > target):
         ap = op(p)
-        alpha = rz / torch.dot(p, ap)
+        alpha = rz / torch.vdot(p, ap)
         x = x + alpha * p
         r = r - alpha * ap
         z = M(r)
-        rz_new = torch.dot(r, z)
+        rz_new = torch.vdot(r, z)
         beta = rz_new / rz
         p = z + beta * p
         rz = rz_new
@@ -87,7 +88,8 @@ def _solve_small(g: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 
 def block_cg(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0,
              maxiter: int = 1000, M: Optional[Callable] = None) -> SolveResult:
-    """Block CG (O'Leary 1980) for SPD ``a`` with ``s`` right-hand sides.
+    """Block CG (O'Leary 1980) for SPD (or Hermitian positive definite)
+    ``a`` with ``s`` right-hand sides.
 
     ``b`` is (n, s).  All columns share one Krylov iteration: one SpMM per
     step (on a BDIA plan at s > 64 the slab kernel, the reference's wide-k
@@ -111,7 +113,7 @@ def block_cg(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0,
                            "torch.backends.cuda.matmul.allow_tf32 is set")
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
 
-    target = torch.clamp(tol * torch.linalg.vector_norm(b, dim=0), min=atol).to(b.dtype)
+    target = torch.clamp(tol * torch.linalg.vector_norm(b, dim=0), min=atol)  # real
     r = b - op(x)
     z = M(r)
     p = z

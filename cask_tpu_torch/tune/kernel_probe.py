@@ -1,6 +1,6 @@
 """Take apart what sets the time of the POH SpMM and slab SpMM kernels.
 
-    python3 -m cask_tpu_torch.tune.kernel_probe
+    python3 -m cask_tpu_torch.tune.kernel_probe [--slab]
     env PYTHONPATH=<another checkout> python3 <this checkout>/cask_tpu_torch/tune/kernel_probe.py
 
 The second form times another checkout's kernels with this script (it uses
@@ -25,16 +25,20 @@ measurement, CUDA events, median of 10 samples of 3 calls:
   skips them.
 - Slab SpMM (``bdia_spmm_slab``) on ``fem_blocks(512, dof=4)`` at k = 128,
   f32 and f64, and the f32 kernel's variants (through its own wrapper):
-  without its tensor-core products, without its copies, with 4 stages, and
-  without the L2 evict-first hint on the slab stream.
+  without its tensor-core products, without its copies, with 4 stages,
+  without the L2 evict-first hint on the slab stream, and through the
+  generic copy loops that the bf16 instantiations use.
 - ``mma.sync`` m16n8k8 TF32 alone, every SM full of warps: the ceiling of
   the slab's products on this card.
+
+``--slab`` runs only the f32 slab and its variants.
 """
 
 from __future__ import annotations
 
 import ctypes
 import subprocess
+import sys
 
 PL_N = 1_000_000
 
@@ -73,14 +77,15 @@ def _ms(fn) -> float:
 
 
 # name -> text edits of csrc/bdia_slab_spmm.cu: the f32 kernel without its
-# tensor-core products (only the copies, barriers and stores stay), and
-# without its copies (products on whatever shared memory holds)
+# tensor-core products (only the copies, barriers and stores stay), without
+# its copies (products on whatever shared memory holds), and with the bf16
+# types' copy loops in place of its own
 SLAB_VARIANTS = {
     "as built": [],
-    "no products": [("          for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], alo[i], bhi[j]);",
-                     "          for (int j = 0; j < kJ; ++j) {}"),
-                    ("          for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], ahi[i], blo[j]);",
-                     "          for (int j = 0; j < kJ; ++j) {}"),
+    "no products": [("            for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], alo[i], bhi[j]);",
+                     "            for (int j = 0; j < kJ; ++j) {}"),
+                    ("            for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], ahi[i], blo[j]);",
+                     "            for (int j = 0; j < kJ; ++j) {}"),
                     ("          for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], ahi[i], bhi[j]);",
                      "          for (int j = 0; j < kJ; ++j) {}")],
     "4 stages": [("constexpr int kTcStages = 3;", "constexpr int kTcStages = 4;"),
@@ -94,6 +99,8 @@ SLAB_VARIANTS = {
                    '  if (0) asm volatile("cp.async.cg.shared.global ['),
                   ('  asm volatile("cp.async.ca.shared.global [',
                    '  if (0) asm volatile("cp.async.ca.shared.global [')],
+    "f32 through the generic copy loops": [(
+        "if constexpr (sizeof(S) == 4 && sizeof(X) == 4) {", "if constexpr (false) {")],
 }
 
 
@@ -225,12 +232,16 @@ def main() -> int:
     print(f"[probe] package {ct.__file__}; card {card}", flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    slab_only = "--slab" in sys.argv[1:]
 
-    variants = _poh_variants()
+    variants = {} if slab_only else _poh_variants()
     slab_variants = _build_variants("bdia_slab_spmm", SLAB_VARIANTS)
-    pl = power_law(PL_N, avg_degree=12, dtype=np.float32, seed=3)
-    ru = random_uniform(PL_N, density=pl.nnz / PL_N ** 2, dtype=np.float32, seed=3)
-    for name, a in (("power_law", pl), ("random_uniform", ru)):
+    if slab_only:
+        pl = ru = None
+    else:
+        pl = power_law(PL_N, avg_degree=12, dtype=np.float32, seed=3)
+        ru = random_uniform(PL_N, density=pl.nnz / PL_N ** 2, dtype=np.float32, seed=3)
+    for name, a in () if slab_only else (("power_law", pl), ("random_uniform", ru)):
         p = ct.poh_plan(a, device=dev)
         per = torch.diff(p.panel_ptr).cpu().numpy()
         pieces = getattr(p, "spmm_pieces", None)
@@ -260,7 +271,7 @@ def main() -> int:
                       f"{_ms(call) * 1e3:.1f} us", flush=True)
         del p, one, X
 
-    for dt in (torch.float32, torch.float64):
+    for dt in (torch.float32,) if slab_only else (torch.float32, torch.float64):
         a = fem_blocks(512, dof=4, dtype=np.float32 if dt == torch.float32 else np.float64,
                        seed=0, return_bsr=True)
         sl = slab_auto_plan(ct.bdia_plan(a, device=dev))
@@ -279,7 +290,8 @@ def main() -> int:
                 build.load = load
                 bsk._lib.cache_clear()
         del sl, X
-    print(f"[probe] mma.sync m16n8k8 TF32 alone: {_mma_peak():.1f} TFLOP/s", flush=True)
+    if not slab_only:
+        print(f"[probe] mma.sync m16n8k8 TF32 alone: {_mma_peak():.1f} TFLOP/s", flush=True)
     return 0
 
 

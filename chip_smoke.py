@@ -34,6 +34,13 @@ card.  Phases, one line each:
 7. small-lell — the LELL kernel against its twin and scipy: ``lell_plan``
    at groups ∈ {1, 4, 8, 16} and ``lell_plan_hyb`` on a uniform matrix, a
    power law, a rectangle and a plan wider than the reference's 4096·B cap.
+7b. small-bf16 — the bf16 value path (values and operand each bf16 or
+   f32, at least one bf16; SpMM out f32 or bf16): the BDIA SpMV, DIA SpMV
+   and SpMM, ring and slab kernels (both frames) against their twins on the
+   small plans of phases 3-5, spmv and spmm at k ∈ {1, 12, 32, 65, 128};
+   and each slab kernel's error against f64 within 4x of its plain FP32
+   twin's (3xTF32 for f32, two TF32 passes with a bf16 operand; on the
+   TF32-sensitive case 3xTF32's dropped lo·lo terms are added to that).
 8. spmv — ``spmv(bsr, x)`` through the public entry point on the
    1,048,576-row dof-4 FEM matrix (f32).
 9. cg — ``cg(BdiaOperator(...), b)`` on an SPD block system of that size.
@@ -56,16 +63,27 @@ card.  Phases, one line each:
    the hub tier.
 18. poh-cg — CG with Jacobi over the POH plan of the SPD ``A + Aᵀ`` with a
    shifted diagonal: one ``poh_spmv`` launch per operator application.
-19. timing — each kernel entry, its plain twin and the one PyTorch call
+19. bf16 — the paths of phases 8, 9, 11, 12 and 14 at full width with the
+   matrices' values in bf16 (f32 vectors): ``[spmv-bf16]`` spmv(bsr_bf16,
+   x), ``[cg-bf16]`` cg over a BdiaOperator of the bf16 plan,
+   ``[dia-spmv-bf16]`` and ``[dia-cg-bf16]`` on the stencils,
+   ``[spmm-bf16]`` spmm(bsr_bf16, X) at k = 32 (scalar DIA) and 128 (the
+   bf16 slab), the ring with f32 out and with ``accum_dtype=bf16`` (bf16
+   X), scalar DIA at k = 128 with f32 and bf16 out; each against its twin
+   and scipy f64 of the bf16-rounded matrix.
+20. timing — each kernel entry, its plain twin and the one PyTorch call
    that computes the same product (a cuSPARSE product through
-   ``torch.sparse_csr_tensor``), with CUDA events, beside the entry's bound.
+   ``torch.sparse_csr_tensor``; in bf16 for the bf16 entries, or the
+   refusal where torch does not take it on CUDA), with CUDA events, beside
+   the entry's bound.
 
 The host-side power law (generated once, shared by phases 15-18) and its
-plans add about a minute of host time.  Every main path (phases 8-18)
+plans add about half a minute of host time.  Every main path (phases 8-19)
 runs with all launch counts set to 0 just before it and read just after,
 and must launch its kernel; its result must match the twin and scipy
 (f64, host).  It needs one CUDA device and exits
-non-zero without one; any failed check raises.  The last two lines are
+non-zero without one; any failed check raises.  ``[done]`` gives the
+run's seconds by phase (host clock).  The last two lines are
 JSON: the kernels that ran (launches, errors and times measured in this
 run), then the device.
 """
@@ -93,6 +111,9 @@ SEED = 0
 F32_TOL = 1e-5  # normwise relative; f32 sums of a few dozen products, same order
 F64_TOL = 1e-12  # same products in the same order as the twin
 TF32_TOL = 2e-6  # the f32 slab's 3xTF32 products where one TF32 pass misses by > 1e-5
+BF16_TOL = 1e-5  # f32 out, kernel vs twin: the same bf16 products summed in f32
+BF16_SLAB_TOL = 2e-6  # f32 out, the bf16 slab's two TF32 passes vs its twin
+BF16_KS = (1, 12, 32, 65, 128)  # 12 and 65: bf16 rows off the 16-byte vectors
 F32_PEAK = 67e12  # FLOP/s, FP32 outside the tensor cores, H100 SXM (NVIDIA data sheet)
 KERNELS = ("bdia_spmv", "dia_spmv", "dia_spmm", "bdia_slab_spmm", "bdia_spmm", "bsr_spmm",
            "poh_spmv", "poh_spmm", "lell_spmv")
@@ -105,7 +126,17 @@ LELL_PY = "cask_tpu/ops/pallas/lell_kernels.py"
 
 
 # the instantiations this version redesigned (mangled names): no spills allowed
-REDESIGNED = r"(slab_spmm_tf32x3_kernel|poh_spmm_kernelI[fd]Li\d+E)"
+REDESIGNED = r"(slab_spmm_tc_kernelI\w+?EEvPK|poh_spmm_kernelI[fd]Li\d+E)"
+
+
+_LAPS = {}  # phase -> seconds, for the [done] line
+
+
+def _lap(phase: str, t0: float) -> float:
+    """Add the seconds since ``t0`` to ``phase``; return the clock now."""
+    now = time.perf_counter()
+    _LAPS[phase] = _LAPS.get(phase, 0.0) + now - t0
+    return now
 
 
 def _ptxas(log: str):
@@ -344,15 +375,16 @@ def _relerr_or_zero(y, ref) -> float:
     return _relerr(y, ref)
 
 
-def _sparse_csr(s, dev):
-    """The scipy CSR matrix as a torch sparse CSR tensor on ``dev``: the
-    library call's operand (cuSPARSE), timed beside the kernels only."""
+def _sparse_csr(s, dev, dtype):
+    """The scipy CSR matrix as a torch sparse CSR tensor on ``dev``, values
+    in ``dtype``: the library call's operand (cuSPARSE), timed beside the
+    kernels only."""
     import numpy as np
     import torch
 
     return torch.sparse_csr_tensor(torch.from_numpy(s.indptr.astype(np.int32)),
                                    torch.from_numpy(s.indices.astype(np.int32)),
-                                   torch.from_numpy(s.data), size=s.shape).to(dev)
+                                   torch.from_numpy(s.data).to(dtype), size=s.shape).to(dev)
 
 
 def _pack_bytes(vals, index_bytes: int) -> int:
@@ -361,6 +393,185 @@ def _pack_bytes(vals, index_bytes: int) -> int:
     import torch
 
     return vals.numel() * vals.element_size() + int(torch.count_nonzero(vals)) * index_bytes
+
+
+def _bf16_round(a):
+    """f32 numpy values as bf16 rounds them (to nearest even), as f64."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).double().numpy()
+
+
+def _bf16_matrix(s):
+    """The scipy matrix a bf16 plan of ``s`` holds, in f64."""
+    import numpy as np
+
+    out = s.astype(np.float64)
+    out.data = _bf16_round(s.data)
+    return out
+
+
+def _bf16_ulps(y, twin32) -> float:
+    """The largest distance of bf16 ``y`` from the twin's f32 sums, in bf16
+    ulps of each sum, beyond the f32 rounding by which two f32 sums of the
+    same products may differ (2^-20 of the largest |sum|): at most 1 when
+    ``y`` is each sum rounded once."""
+    import torch
+
+    y, ref = y.double().cpu(), twin32.double().cpu()
+    ulp = torch.pow(2.0, torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    excess = ((y - ref).abs() - 2.0 ** -20 * float(ref.abs().max())).clamp_min(0)
+    return float((excess / ulp).max())
+
+
+def _check_bf16_out(name: str, y, twin32) -> float:
+    ulps = _bf16_ulps(y, twin32)
+    if not ulps <= 1.0:
+        raise AssertionError(f"{name}: bf16 output {ulps:.2f} bf16 ulps from the twin's f32 sum")
+    return ulps
+
+
+def small_bf16(rng, dev) -> None:
+    """[small-bf16]: the BDIA SpMV, DIA SpMV and SpMM, ring and slab kernels
+    against their twins on the small plans of the f32 phases, for every
+    type combination of the bf16 path (values, operand: bf16/bf16,
+    bf16/f32, f32/bf16; SpMM out f32 or bf16), SpMV and SpMM at k in
+    BF16_KS, the slab in both frames; then the slabs' error class against
+    f64 (the plain FP32 twin's error times 4 at most)."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+    from cask_tpu_torch.formats.convert import csr_to_bsr, from_scipy
+    from cask_tpu_torch.formats.generate import fem_blocks
+    from cask_tpu_torch.ops.bdia_slab import slab_auto_plan
+    from cask_tpu_torch.ops.kernels.bdia_kernels import (bdia_spmm_ring,
+                                                         bdia_spmm_ring_reference, bdia_spmv,
+                                                         bdia_spmv_reference)
+    from cask_tpu_torch.ops.kernels.bdia_slab_kernels import (bdia_spmm_slab,
+                                                              bdia_spmm_slab_padded,
+                                                              bdia_spmm_slab_reference)
+    from cask_tpu_torch.ops.kernels.dia_kernels import (dia_spmm, dia_spmm_reference,
+                                                        dia_spmv, dia_spmv_reference)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    combos = ((bf, bf), (bf, f32), (f32, bf))  # values, operand: at least one bf16
+    worst = {}  # kernel -> (worst f32-out normwise error, worst bf16-out ulps)
+    n_checks = 0
+
+    def note(kernel, what, y, twin32, out, tol):
+        nonlocal n_checks
+        e, u = worst.get(kernel, (0.0, 0.0))
+        if out == bf:
+            u = max(u, _check_bf16_out(what, y, twin32))
+        else:
+            if y.dtype != f32:
+                raise AssertionError(f"{what}: output {y.dtype}, not float32")
+            err = _relerr(y, twin32)
+            _check(what, err, tol)
+            e = max(e, err)
+        worst[kernel] = (e, u)
+        n_checks += 1
+
+    def operand(shape, dt):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev).to(dt)
+
+    bdia_cases = [(f"fem{nx}_dof{dof}", fem_blocks(nx, dof=dof, dtype=np.float32,
+                                                     return_bsr=True))
+                  for nx in (16, 33) for dof in (2, 4, 8)]
+    bdia_cases += [("remainder", _remainder_matrix(np.float32)),
+                   ("rect4x2", csr_to_bsr(fem_blocks(6, dof=4, dtype=np.float32), (4, 2)))]
+    for name, bsr in bdia_cases:
+        plan32 = ct.bdia_plan(bsr, device=dev)
+        for vdt, xdt in combos:
+            plan = plan32.astype(vdt)
+            x = operand(bsr.shape[1], xdt)
+            note("bdia_spmv", f"{name} {vdt}/{xdt} bdia_spmv", bdia_spmv(plan, x),
+                 bdia_spmv_reference(plan, x), None, BF16_TOL)
+            if plan.npairs > 80:
+                continue
+            for k in BF16_KS:
+                X = operand((bsr.shape[1], k), xdt)
+                for out in (None, bf):
+                    note("bdia_spmm_ring", f"{name} {vdt}/{xdt} ring k={k} out {out}",
+                         bdia_spmm_ring(plan, X, out_dtype=out),
+                         bdia_spmm_ring_reference(plan, X), out, BF16_TOL)
+    for name, s64 in _dia_cases().items():
+        s = s64.astype(np.float32)
+        plan32 = ct.dia_plan(from_scipy(s), device=dev)
+        if name.endswith("transposed"):
+            plan32, s = ct.transposed(plan32), s.T.tocsr()
+        for vdt, xdt in combos:
+            plan = plan32.astype(vdt)
+            x = operand(s.shape[1], xdt)
+            note("dia_spmv", f"{name} {vdt}/{xdt} dia_spmv", dia_spmv(plan, x),
+                 dia_spmv_reference(plan, x), None, BF16_TOL)
+            for k in BF16_KS:
+                X = operand((s.shape[1], k), xdt)
+                for out in (None, bf):
+                    note("dia_spmm", f"{name} {vdt}/{xdt} dia_spmm k={k} out {out}",
+                         dia_spmm(plan, X, out_dtype=out), dia_spmm_reference(plan, X), out,
+                         BF16_TOL)
+    widths = set()
+    for name, b64 in _slab_cases().items():
+        plan32 = ct.bdia_plan(b64.astype(np.float32), device=dev)
+        for vdt, xdt in combos:
+            sl = slab_auto_plan(plan32.astype(vdt))
+            widths.add((sl.g, sl.width))
+            for k in BF16_KS:
+                X = operand((b64.shape[1], k), xdt)
+                frames = [(False, X)] + ([(True, sl.to_padded(X))]
+                                         if sl.blocksize[0] == sl.blocksize[1] else [])
+                for padded, xin in frames:
+                    entry = bdia_spmm_slab_padded if padded else bdia_spmm_slab
+                    for out in (None, bf):
+                        note("bdia_spmm_slab", f"{name} {vdt}/{xdt} slab{' padded' * padded} "
+                             f"k={k} out {out}", entry(sl, xin, out_dtype=out),
+                             bdia_spmm_slab_reference(sl, xin, padded=padded), out,
+                             BF16_SLAB_TOL)
+    torch.cuda.synchronize()
+    print(f"[small-bf16] {n_checks} products (type combinations values/operand "
+          f"{', '.join(f'{str(v)[6:]}/{str(x)[6:]}' for v, x in combos)}; out f32 and "
+          f"bf16 for SpMM; k in {'/'.join(map(str, BF16_KS))}; {len(bdia_cases)} BDIA, "
+          f"{len(_dia_cases())} DIA and {len(_slab_cases())} slab plans, slab (g, W) "
+          f"{sorted(widths)}, natural and padded frames): kernel vs twin worst "
+          + ", ".join(f"{k} {e:.2e} (f32 out) / {u:.2f} ulp (bf16 out)"
+                      for k, (e, u) in worst.items())
+          + f"; tol {BF16_TOL:.0e}, slab {BF16_SLAB_TOL:.0e}, bf16 out 1 ulp", flush=True)
+
+    # the slabs' error class (f32 slab 3xTF32; bf16 slabs or X two passes):
+    # each kernel within 4x of its plain FP32 twin's error against f64
+    base = fem_blocks(16, dof=4, dtype=np.float32, return_bsr=True)
+    low = dataclasses.replace(base, data=_low_bits(np.asarray(base.data)))
+    xs = rng.standard_normal((base.shape[1], K_WIDE)).astype(np.float32)
+    rows = []
+    for case, bsr, xh in (("headline-shaped", base, xs), ("TF32-sensitive", low, _low_bits(xs))):
+        plan32 = ct.bdia_plan(bsr, device=dev)
+        for vdt, xdt in ((f32, f32), (bf, f32), (f32, bf)):
+            sl = slab_auto_plan(plan32.astype(vdt))
+            x = torch.from_numpy(xh).to(dev).to(xdt)
+            s64 = dataclasses.replace(sl, slabs=sl.slabs.double())
+            exact = bdia_spmm_slab_reference(s64, x.double())
+            y = bdia_spmm_slab(sl, x)
+            torch.cuda.synchronize()
+            e_k, e_t = _relerr(y, exact), _relerr(bdia_spmm_slab_reference(sl, x), exact)
+            # 3xTF32 also drops lo·lo, at most 2^-22·|s||x| a product; on the
+            # TF32-sensitive case those terms all share the product's sign,
+            # and only there does the gate add them to 4x
+            mag = bdia_spmm_slab_reference(dataclasses.replace(s64, slabs=s64.slabs.abs()),
+                                           x.double().abs())
+            dropped = 2.0 ** -22 * float(mag.norm() / exact.norm()) if vdt == xdt else 0.0
+            gate = 4 * e_t + (dropped if case == "TF32-sensitive" else 0.0)
+            if not e_k <= gate:
+                raise AssertionError(f"{case} slab {vdt}/{xdt}: kernel error {e_k:.2e} above "
+                                     f"its gate {gate:.2e} (the FP32 twin's {e_t:.2e})")
+            rows.append(f"{case} {str(vdt)[6:]}/{str(xdt)[6:]} {e_k:.2e} vs twin {e_t:.2e} "
+                        f"({e_k / e_t:.2f}x: 4x {'held' if e_k <= 4 * e_t else 'missed'}; "
+                        f"dropped lo*lo {dropped:.2e}, gate {gate:.2e})")
+    print(f"[small-bf16] slab error class vs f64 (kernel vs plain FP32 twin, k {K_WIDE}; gate "
+          f"4x the twin's error, plus on the TF32-sensitive case 3xTF32's dropped lo*lo "
+          f"terms, 2^-22 |S||X| relative to |exact|): " + "; ".join(rows), flush=True)
 
 
 def main() -> int:
@@ -401,6 +612,7 @@ def main() -> int:
     from cask_tpu_torch.utils.platform import default_device, hbm_bandwidth
 
     t_start = time.perf_counter()
+    t_lap = t_start
     dev = default_device()
     kind = torch.cuda.get_device_name(0)
     card = _card()
@@ -410,6 +622,7 @@ def main() -> int:
           f"TF32 off (matmul and cudnn); name and power limit:", flush=True)
     print(card, flush=True)
 
+    t_lap = _lap("device", t_lap)
     # -- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
     libs = build.build_all(KERNELS)
@@ -423,11 +636,14 @@ def main() -> int:
         for kernel, r, spilled in entries:
             short = re.search(REDESIGNED, kernel)
             if short is None:
+                if spilled:
+                    print(f"[build]   {kernel}: {r} registers, {spilled} spill bytes", flush=True)
                 continue
             print(f"[build]   {short.group(0)}: {r} registers, {spilled} spill bytes", flush=True)
             if spilled:
                 raise AssertionError(f"{short.group(0)} spills {spilled} bytes")
 
+    t_lap = _lap("build", t_lap)
     # -- 3. BDIA kernel vs plain twin, small ---------------------------------
     rng = np.random.default_rng(SEED)
     cases = []
@@ -457,6 +673,7 @@ def main() -> int:
           f"{worst[np.float32]:.2e} f32 (tol {F32_TOL:.0e}), {worst[np.float64]:.2e} f64 "
           f"(tol {F64_TOL:.0e})", flush=True)
 
+    t_lap = _lap("small", t_lap)
     # -- 4. DIA kernels vs plain twins and scipy, small -----------------------
     worst = {np.float32: 0.0, np.float64: 0.0}
     n_checks = 0
@@ -485,6 +702,7 @@ def main() -> int:
           f"worst {worst[np.float32]:.2e} f32 (tol {F32_TOL:.0e}), {worst[np.float64]:.2e} "
           f"f64 (tol {F64_TOL:.0e}); vs scipy f64 within the same tolerances", flush=True)
 
+    t_lap = _lap("small-dia", t_lap)
     # -- 5. wide-k kernels vs plain twins and scipy, small -------------------
     worst = {np.float32: 0.0, np.float64: 0.0}
     n_checks, widths = 0, []
@@ -561,6 +779,7 @@ def main() -> int:
     del low, sl, sl64, x
 
 
+    t_lap = _lap("small-slab", t_lap)
     # -- 6. POH kernels vs plain twins and scipy, small ------------------------
     worst = {np.float32: 0.0, np.float64: 0.0}
     worst_sp = {np.float32: 0.0, np.float64: 0.0}
@@ -600,6 +819,7 @@ def main() -> int:
           f"{worst_sp[np.float32]:.2e} f32 (tol {F32_TOL:.0e}), {worst_sp[np.float64]:.2e} "
           f"f64 (tol {F64_TOL:.0e})", flush=True)
 
+    t_lap = _lap("small-poh", t_lap)
     # -- 7. LELL kernel vs plain twin and scipy, small -------------------------
     worst = {np.float32: 0.0, np.float64: 0.0}
     n_checks = 0
@@ -630,6 +850,11 @@ def main() -> int:
           f"{worst[np.float64]:.2e} f64; spmv vs scipy f64 within {F32_TOL:.0e} / "
           f"{F64_TOL:.0e}", flush=True)
 
+    t_lap = _lap("small-lell", t_lap)
+    # -- 7b. bf16 values: every kernel vs its twin, small ----------------------
+    small_bf16(rng, dev)
+
+    t_lap = _lap("small-bf16", t_lap)
     # -- 8. main path: spmv(bsr, x) at full size ------------------------------
     t0 = time.perf_counter()
     a_host = fem_blocks(NX, dof=DOF, dtype=np.float32, seed=SEED, return_bsr=True)
@@ -656,6 +881,7 @@ def main() -> int:
           f"(plan + launch) {t_first:.1f} s; launches {launches_spmv}; vs twin {err_twin:.2e} "
           f"(max abs {abs_spmv:.2e}), vs scipy f64 {err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
 
+    t_lap = _lap("spmv", t_lap)
     # -- 9. CG over BdiaOperator on the SPD block system ------------------------
     t0 = time.perf_counter()
     s_csr = _diag_shift(from_scipy((a_sp + a_sp.T).tocsr()), 1.1)
@@ -690,12 +916,14 @@ def main() -> int:
           f"iteration (host clock, one host sync per iteration); true relative residual "
           f"{true_rel:.2e} (f64 host, tol 1e-5); system build {t_sys:.1f} s; "
           f"launches {launches_cg}", flush=True)
+    cg32 = (res.iterations, t_warm / max(warm.iterations, 1) * 1e6)  # beside the bf16 run's
     y_op, y_op_twin = op(b), op.bdia._spmv_reference(b)  # counts were read above
     _check("1M operator kernel vs twin", _relerr(y_op, y_op_twin), F32_TOL)
     abs_op = float((y_op - y_op_twin).abs().max())
     sb_sp = to_scipy(s_csr)  # the operator's matrix, for the library call
     del res, warm
 
+    t_lap = _lap("cg", t_lap)
     # -- 10. main path: block_cg over the same system's BDIA plan, s = 128 -------
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -733,8 +961,9 @@ def main() -> int:
           f"= {launches_bcg / (res.iterations + 1):.2f} per operator application "
           f"({res.iterations} iterations + the first residual); worst true column residual "
           f"{col_rel.max():.2e} (f64 host, tol 1e-6)", flush=True)
-    del s_csr, s_bsr, s64, res, warm, B, B64, M
+    del s64, res, warm, B, B64, M  # s_csr and s_bsr return at [cg-bf16]
 
+    t_lap = _lap("block-cg", t_lap)
     # -- 11. main path: spmv(csr, x) on the 4M-row stencil ----------------------
     t0 = time.perf_counter()
     st_host = stencil_2d(GRID_SPMV, dtype=np.float32)
@@ -761,10 +990,12 @@ def main() -> int:
           f"{launches_dspmv}; vs twin {err_twin:.2e} (max abs {abs_dspmv:.2e}), vs scipy f64 "
           f"{err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
 
+    t_lap = _lap("dia-spmv", t_lap)
     # -- 12. main path: cg(solver_operator(S), b), S = I + stencil --------------
     t0 = time.perf_counter()
     s_sp = (sp.identity(st_sp.shape[0], dtype=np.float32, format="csr") + st_sp).tocsr()
-    dop = ct.solver_operator(from_scipy(s_sp))
+    s_port = from_scipy(s_sp)  # the bf16 run casts the same matrix
+    dop = ct.solver_operator(s_port)
     bs = torch.from_numpy(rng.standard_normal(s_sp.shape[0]).astype(np.float32)).to(dev)
     t_sys = time.perf_counter() - t0
     _reset()
@@ -791,11 +1022,13 @@ def main() -> int:
           f"{t_warm / max(warm.iterations, 1) * 1e6:.0f} us per iteration (host clock, one "
           f"host sync per iteration); true relative residual {true_rel:.2e} (f64 host, tol "
           f"1e-5); system build {t_sys:.1f} s; launches {launches_dcg}", flush=True)
+    dcg32 = (res.iterations, t_warm / max(warm.iterations, 1) * 1e6)  # beside the bf16 run's
     yd_op, yd_twin = dop(bs), dop.dia._spmv_reference(bs)
     _check("4M operator kernel vs twin", _relerr(yd_op, yd_twin), F32_TOL)
     abs_dop = float((yd_op - yd_twin).abs().max())
     del res, warm, x64, b64
 
+    t_lap = _lap("dia-cg", t_lap)
     # -- 13. main paths: spmm(csr, X) and spmm(bsr, X), k = 32 -----------------
     t0 = time.perf_counter()
     mm_host = stencil_2d(GRID_SPMM, dtype=np.float32)
@@ -835,12 +1068,14 @@ def main() -> int:
     err_sp = _relerr(Yb, torch.from_numpy(a_sp.astype(np.float64) @ Xb.cpu().double().numpy()))
     _check("1M spmm(bsr) kernel vs scipy f64", err_sp, F32_TOL)
     print(f"[spmm] bsr: {a.shape[0]} rows, k {K}, scalar-DIA plan {splan.ndiags} diagonals "
-          f"(offsets {splan.offsets}), remainder {splan.rem_data.shape[0]}; first call (BDIA "
+          f"(offsets {splan.offsets}), {splan.vals.numel() * 4 / 1e6:.1f} MB of values (the "
+          f"BDIA plan's {plan.vals.numel() * 4 / 1e6:.1f}), remainder {splan.rem_data.shape[0]}; first call (BDIA "
           f"plan cached, scalar-DIA plan + launch) {t_first:.1f} s; launches "
           f"{launches_mm_bsr}; vs twin {err_twin:.2e} (max abs {abs_mm_bsr:.2e}), vs scipy "
           f"f64 {err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
     del Y, Y_twin, Yb, Yb_twin
 
+    t_lap = _lap("spmm", t_lap)
     # -- 14. main paths at k = 128: slab, ring, BSR and scalar-DIA SpMM ---------
     Xw = torch.randn((a.shape[1], K_WIDE), generator=gen, device=dev, dtype=torch.float32)
     Yw_sp = torch.from_numpy(a_sp.astype(np.float64) @ Xw[:, :SCIPY_COLS].cpu().double().numpy())
@@ -917,6 +1152,7 @@ def main() -> int:
     del Yd
 
 
+    t_lap = _lap("spmm-wide", t_lap)
     # -- 15. main path: spmv(poh_plan(A), x) on the 1M-row power law -----------
     t0 = time.perf_counter()
     pl_host = power_law(PL_N, avg_degree=PL_DEGREE, dtype=np.float32, seed=PL_SEED)
@@ -949,6 +1185,7 @@ def main() -> int:
           f"(tol {F32_TOL:.0e})", flush=True)
     del yp, yp_twin
 
+    t_lap = _lap("poh-spmv", t_lap)
     # -- 16. main path: spmm(poh, X) at k = 32 ---------------------------------
     Xp = torch.randn((PL_N, K), generator=gen, device=dev, dtype=torch.float32)
     _reset()
@@ -973,6 +1210,7 @@ def main() -> int:
           f"{err_sp:.2e} on {SCIPY_COLS} columns (tol {F32_TOL:.0e})", flush=True)
     del Yp
 
+    t_lap = _lap("poh-spmm", t_lap)
     # -- 17. main path: lell_plan_hyb(A).spmv(x) -------------------------------
     t0 = time.perf_counter()
     hyb = ct.lell_plan_hyb(pl_host, device=dev)
@@ -999,6 +1237,7 @@ def main() -> int:
           f"{err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
     del yl, yl_twin
 
+    t_lap = _lap("lell", t_lap)
     # -- 18. main path: CG with Jacobi over the POH plan of an SPD system -------
     t0 = time.perf_counter()
     spd = _diag_shift(from_scipy((pl_sp + pl_sp.T).tocsr()), 1.1)
@@ -1038,7 +1277,201 @@ def main() -> int:
           f"{t_sys:.1f} s", flush=True)
     del res, warm, spd64, b64, spd, spd_plan, Mp, bp
 
-    # -- 19. timing: kernel vs plain twin vs library call, every entry ---------
+    t_lap = _lap("poh-cg", t_lap)
+    # -- 19. bf16 main paths at full width: the same matrices, bf16 values ----
+    bf = torch.bfloat16
+
+    # [spmv-bf16]: spmv(bsr_bf16, x) -> the cached bf16 BDIA plan -> B1
+    a_bf = a.astype(bf)  # its own matrix: its own (bf16) plan in the cache
+    a_sp_bf = _bf16_matrix(a_sp)
+    _reset()
+    t0 = time.perf_counter()
+    y = ct.spmv(a_bf, x)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches_spmv_bf = _launched("bdia_spmv", "spmv(bsr_bf16, x)")
+    plan_bf = default_plan_cache.get(a_bf)
+    if launches_spmv_bf != 1 or plan_bf.dtype != bf or y.dtype != torch.float32:
+        raise AssertionError(f"spmv(bsr_bf16, x): {launches_spmv_bf} launches, plan "
+                             f"{plan_bf.dtype}, y {y.dtype}")
+    y_twin = plan_bf._spmv_reference(x)
+    err_twin = _relerr(y, y_twin)
+    _check("1M bf16 spmv kernel vs twin", err_twin, BF16_TOL)
+    abs_spmv_bf = float((y - y_twin).abs().max())
+    x64 = x.cpu().double().numpy()
+    err_sp = _relerr(y, torch.from_numpy(a_sp_bf @ x64))
+    _check("1M bf16 spmv kernel vs scipy f64 of the bf16 matrix", err_sp, BF16_TOL)
+    err_f32 = _relerr(y, torch.from_numpy(a_sp.astype(np.float64) @ x64))
+    print(f"[spmv-bf16] spmv(bsr_bf16, x f32): plan {plan_bf.dtype} {tuple(plan_bf.vals.shape)}, "
+          f"{plan_bf.vals.numel() * 2 / 1e6:.1f} MB of values; first call (plan + launch) "
+          f"{t_first:.1f} s; launches bdia_spmv {launches_spmv_bf}; y {y.dtype}; vs twin "
+          f"{err_twin:.2e} (max abs {abs_spmv_bf:.2e}), vs scipy f64 of the bf16-rounded "
+          f"matrix {err_sp:.2e} (tol {BF16_TOL:.0e}); vs the f32 matrix {err_f32:.2e} (the "
+          f"values' bf16 rounding)", flush=True)
+    del y, y_twin
+
+    # [cg-bf16]: cg(BdiaOperator(bf16 plan), b f32) -> B2, f32 Krylov vectors
+    t0 = time.perf_counter()
+    op_bf = ct.BdiaOperator(ct.bdia_plan(s_bsr.to(dev).astype(bf), device=dev))
+    t_sys = time.perf_counter() - t0
+    _reset()
+    t0 = time.perf_counter()
+    res = ct.solvers.cg(op_bf, b, tol=1e-6, maxiter=200)
+    torch.cuda.synchronize()
+    t_cg = time.perf_counter() - t0
+    launches_cg_bf = _launched("bdia_spmv", "cg over a bf16 BdiaOperator")
+    if not res.converged or launches_cg_bf != res.iterations + 1:
+        raise AssertionError(f"bf16 cg: converged {res.converged} in {res.iterations} "
+                             f"iterations, {launches_cg_bf} launches")
+    s64_bf = _bf16_matrix(to_scipy(s_csr))
+    b64 = b.cpu().double().numpy()
+    true_rel = float(np.linalg.norm(b64 - s64_bf @ res.x.cpu().double().numpy())
+                     / np.linalg.norm(b64))
+    if not true_rel <= 1e-5:
+        raise AssertionError(f"bf16 cg true relative residual {true_rel:.3e} > 1e-5")
+    t0 = time.perf_counter()
+    warm = ct.solvers.cg(op_bf, b, tol=1e-6, maxiter=200)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    y_op, y_op_twin = op_bf(b), op_bf.bdia._spmv_reference(b)
+    err_op = _relerr(y_op, y_op_twin)
+    _check("1M bf16 operator kernel vs twin", err_op, BF16_TOL)
+    abs_op_bf = float((y_op - y_op_twin).abs().max())
+    print(f"[cg-bf16] BdiaOperator of the bf16 plan of the same system, mode {op_bf.mode}, x "
+          f"and b f32: converged in {res.iterations} iterations (f32: {cg32[0]}), warm "
+          f"{t_warm / max(warm.iterations, 1) * 1e6:.0f} us per iteration (f32: "
+          f"{cg32[1]:.0f}; host clock); true relative residual vs the bf16-rounded matrix "
+          f"{true_rel:.2e} (f64 host, tol 1e-5); launches {launches_cg_bf} = iterations + 1; "
+          f"operator kernel vs twin {err_op:.2e}; system build {t_sys:.1f} s", flush=True)
+    del res, warm, s64_bf, s_csr, s_bsr, y_op, y_op_twin
+
+    # [dia-spmv-bf16]: spmv(csr_bf16, x) -> the cached bf16 DIA plan -> B8
+    st_bf = st.astype(bf)
+    _reset()
+    t0 = time.perf_counter()
+    ys = ct.spmv(st_bf, xs)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches_dspmv_bf = _launched("dia_spmv", "spmv(csr_bf16, x)")
+    dplan_bf = default_plan_cache.get(st_bf)
+    if launches_dspmv_bf != 1 or dplan_bf.dtype != bf or ys.dtype != torch.float32:
+        raise AssertionError(f"spmv(csr_bf16, x): {launches_dspmv_bf} launches, plan "
+                             f"{dplan_bf.dtype}, y {ys.dtype}")
+    ys_twin = dplan_bf._spmv_reference(xs)
+    err_twin = _relerr(ys, ys_twin)
+    _check("4M bf16 dia spmv kernel vs twin", err_twin, BF16_TOL)
+    abs_dspmv_bf = float((ys - ys_twin).abs().max())
+    xs64 = xs.cpu().double().numpy()
+    err_sp = _relerr(ys, torch.from_numpy(_bf16_matrix(st_sp) @ xs64))
+    _check("4M bf16 dia spmv vs scipy f64 of the bf16 matrix", err_sp, BF16_TOL)
+    print(f"[dia-spmv-bf16] spmv(csr_bf16, x f32): plan {dplan_bf.dtype} "
+          f"{tuple(dplan_bf.vals.shape)}; first call (plan + launch) {t_first:.1f} s; launches "
+          f"dia_spmv {launches_dspmv_bf}; vs twin {err_twin:.2e} (max abs {abs_dspmv_bf:.2e}), "
+          f"vs scipy f64 of the bf16-rounded matrix {err_sp:.2e} (tol {BF16_TOL:.0e})",
+          flush=True)
+    del ys, ys_twin
+
+    # [dia-cg-bf16]: cg(solver_operator(csr_bf16), b) on I + stencil -> B9
+    t0 = time.perf_counter()
+    dop_bf = ct.solver_operator(s_port.to(dev).astype(bf))
+    t_sys = time.perf_counter() - t0
+    _reset()
+    res = ct.solvers.cg(dop_bf, dop_bf.to_padded(bs), tol=1e-6, maxiter=500)
+    torch.cuda.synchronize()
+    launches_dcg_bf = _launched("dia_spmv", "cg over a bf16 solver_operator")
+    if not res.converged or launches_dcg_bf != res.iterations + 1:
+        raise AssertionError(f"bf16 dia cg: converged {res.converged} in {res.iterations} "
+                             f"iterations, {launches_dcg_bf} launches")
+    b64 = bs.cpu().double().numpy()
+    true_rel = float(np.linalg.norm(b64 - _bf16_matrix(s_sp) @ dop_bf.from_padded(res.x).cpu()
+                                    .double().numpy()) / np.linalg.norm(b64))
+    if not true_rel <= 1e-5:
+        raise AssertionError(f"bf16 dia cg true relative residual {true_rel:.3e} > 1e-5")
+    t0 = time.perf_counter()
+    warm = ct.solvers.cg(dop_bf, dop_bf.to_padded(bs), tol=1e-6, maxiter=500)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    yd_op, yd_twin = dop_bf(bs), dop_bf.dia._spmv_reference(bs)
+    err_op = _relerr(yd_op, yd_twin)
+    _check("4M bf16 operator kernel vs twin", err_op, BF16_TOL)
+    abs_dop_bf = float((yd_op - yd_twin).abs().max())
+    print(f"[dia-cg-bf16] solver_operator of the bf16 CSR, mode {dop_bf.mode}: converged in "
+          f"{res.iterations} iterations (f32: {dcg32[0]}), warm "
+          f"{t_warm / max(warm.iterations, 1) * 1e6:.0f} us per iteration (f32: "
+          f"{dcg32[1]:.0f}; host clock); true relative residual vs the bf16-rounded matrix "
+          f"{true_rel:.2e} (tol 1e-5); launches {launches_dcg_bf} = iterations + 1; operator "
+          f"kernel vs twin {err_op:.2e}; system build {t_sys:.1f} s", flush=True)
+    del res, warm, b64, yd_op, yd_twin
+
+    # [spmm-bf16]: spmm(bsr_bf16, X) at k = 32 (scalar DIA, B14) and 128 (the
+    # bf16 slab, B6); the ring (B4) with f32 and bf16 out; scalar DIA at k =
+    # 128 (B13) with f32 and bf16 out.  bf16 outs take bf16 X: the chain.
+    Xw_bf = Xw.to(bf)
+    Yw_sp_bf = torch.from_numpy(a_sp_bf @ Xw[:, :SCIPY_COLS].cpu().double().numpy())
+    Yw_sp_chain = torch.from_numpy(a_sp_bf @ Xw_bf[:, :SCIPY_COLS].cpu().double().numpy())
+    mm_bf = {}
+
+    def bf16_path(label, kernel, call, twin, out=None, sp_ref=None, expect=1):
+        _reset()
+        y = call()
+        torch.cuda.synchronize()
+        n = _launched(kernel, label)
+        if n != expect:
+            raise AssertionError(f"{label} launched {kernel} {n} times, not {expect}")
+        others = {k: f.launches for k, f in _counters().items() if k != kernel and f.launches}
+        if others:
+            raise AssertionError(f"{label} also launched {others}")
+        t = twin()
+        if out == bf:
+            err = _check_bf16_out(f"1M {label} kernel vs twin", y, t)
+            what = f"{err:.2f} bf16 ulp of the twin's f32 sums (bound 1)"
+        else:
+            tol = BF16_SLAB_TOL if kernel == "bdia_spmm_slab" else BF16_TOL
+            err = _relerr(y, t)
+            _check(f"1M {label} kernel vs twin", err, tol)
+            what = f"{err:.2e} (tol {tol:.0e})"
+        err_sp = _relerr(y[:, :sp_ref.shape[1]], sp_ref)
+        _check(f"1M {label} vs scipy f64 of the bf16 matrix", err_sp,
+               2e-2 if out == bf else BF16_TOL)
+        mm_bf[label] = (n, float((y.float() - t.float()).abs().max()))
+        print(f"[spmm-bf16] {label}: y {y.dtype}; launches {kernel} {n}; vs twin {what}; vs "
+              f"scipy f64 of the bf16-rounded matrix {err_sp:.2e} on {sp_ref.shape[1]} "
+              f"columns", flush=True)
+        return y
+
+    Xb64 = torch.from_numpy(a_sp_bf @ Xb.cpu().double().numpy())
+    bf16_path(f"spmm(bsr_bf16, X f32), k={K}", "dia_spmm", lambda: ct.spmm(a_bf, Xb),
+              lambda: bdia_scalar_dia(plan_bf)._spmm_reference(Xb), sp_ref=Xb64)
+    splan_bf = bdia_scalar_dia(plan_bf)
+    del Xb64
+    bf16_path(f"spmm(bsr_bf16, X f32), k={K_WIDE}: the bf16 slab", "bdia_spmm_slab",
+              lambda: ct.spmm(a_bf, Xw),
+              lambda: bdia_spmm_slab_reference(default_plan_cache.get(plan_bf, "slab"), Xw),
+              sp_ref=Yw_sp_bf)
+    sl_bf = default_plan_cache.get(plan_bf, "slab")
+    print(f"[spmm-bf16] bf16 slab plan: g {sl_bf.g}, W {sl_bf.width}, "
+          f"{sl_bf.slabs.numel() * 2 / 1e6:.1f} MB (the f32 plan: g {sl.g}, "
+          f"{sl.slabs.numel() * 4 / 1e6:.1f} MB); the BDIA plan's values "
+          f"{plan_bf.vals.numel() * 2 / 1e6:.1f} MB, the scalar-DIA plan's "
+          f"{splan_bf.vals.numel() * 2 / 1e6:.1f} MB", flush=True)
+    bf16_path(f"spmm(plan_bf16, X f32, method='pallas_bdia'), k={K_WIDE}", "bdia_spmm_ring",
+              lambda: ct.spmm(plan_bf, Xw, method="pallas_bdia"),
+              lambda: bdia_spmm_ring_reference(plan_bf, Xw), sp_ref=Yw_sp_bf)
+    bf16_path(f"spmm(plan_bf16, X bf16, method='pallas_bdia', accum_dtype=bf16), k={K_WIDE}",
+              "bdia_spmm_ring",
+              lambda: ct.spmm(plan_bf, Xw_bf, method="pallas_bdia", accum_dtype=bf),
+              lambda: bdia_spmm_ring_reference(plan_bf, Xw_bf), out=bf,
+              sp_ref=Yw_sp_chain)
+    bf16_path(f"spmm(scalar-DIA plan_bf16, X f32), k={K_WIDE}", "dia_spmm",
+              lambda: ct.spmm(splan_bf, Xw), lambda: splan_bf._spmm_reference(Xw),
+              sp_ref=Yw_sp_bf)
+    bf16_path(f"dia_spmm(scalar-DIA plan_bf16, X bf16, out_dtype=bf16), k={K_WIDE}",
+              "dia_spmm", lambda: dia_spmm(splan_bf, Xw_bf, out_dtype=bf),
+              lambda: dia_spmm_reference(splan_bf, Xw_bf), out=bf,
+              sp_ref=Yw_sp_chain)
+
+    t_lap = _lap("bf16", t_lap)
+    # -- 20. timing: kernel vs plain twin vs library call, every entry ---------
     bw, bw_known = hbm_bandwidth()
     if not bw_known:
         bw = 3.35e12
@@ -1047,106 +1480,194 @@ def main() -> int:
     entries = []
     n, m = a.shape[1], a.shape[0]
     xy_w = (n + m) * K_WIDE * 4  # X read once and Y written once at k = 128
-    for (name, source, replaces, kernel, plain, lib_op, operand, nbytes, flops, launches,
-         max_abs) in (
-            ("bdia_spmv [spmv(bsr, x)]", "bdia_spmv", f"{BDIA_PY}:290 (B1; also :409, B3)",
+    # Bytes and operations are those of the function, A·x or A·X, on the
+    # matrix as the caller's format stores it (the BDIA plan of a BSR, the DIA
+    # plan of a banded CSR, a POH or LELL plan), each value read once.  The
+    # slab's shear and the scalar-DIA plan's zero-filled diagonals are packs
+    # a route derives from the BDIA plan, its own traffic (their sizes are on
+    # the [spmm], [spmm-wide] and [spmm-bf16] lines), so they count in no bound.
+    rows = [
+            ("bdia_spmv f32 [spmv(bsr, x)]", "bdia_spmv", f"{BDIA_PY}:290 (B1; also :409, B3)",
              lambda: bdia_spmv(plan, x), lambda: bdia_spmv_reference(plan, x), a_sp, x,
              (plan.vals.numel() + plan.shape[0] + plan.shape[1]) * 4, 2 * plan.vals.numel(),
              launches_spmv, abs_spmv),
-            ("bdia_spmv [BdiaOperator in cg]", "bdia_spmv", f"{BDIA_PY}:70 (B2)",
+            ("bdia_spmv f32 [BdiaOperator in cg]", "bdia_spmv", f"{BDIA_PY}:70 (B2)",
              lambda: bdia_spmv(op.bdia, b), lambda: bdia_spmv_reference(op.bdia, b),
              sb_sp, b,
              (op.bdia.vals.numel() + 2 * op.bdia.shape[0]) * 4, 2 * op.bdia.vals.numel(),
              launches_cg, abs_op),
-            ("dia_spmv [spmv(csr, x)]", "dia_spmv", f"{DIA_PY}:176 (B8)",
+            ("dia_spmv f32 [spmv(csr, x)]", "dia_spmv", f"{DIA_PY}:176 (B8)",
              lambda: dia_spmv(dplan, xs), lambda: dia_spmv_reference(dplan, xs), st_sp, xs,
              (dplan.vals.numel() + dplan.shape[0] + dplan.shape[1]) * 4,
              2 * dplan.vals.numel(), launches_dspmv, abs_dspmv),
-            ("dia_spmv [solver_operator in cg]", "dia_spmv",
+            ("dia_spmv f32 [solver_operator in cg]", "dia_spmv",
              f"{DIA_PY}:336 (B9), :511 (B10), :650 (B11)",
              lambda: dia_spmv(dop.dia, bs), lambda: dia_spmv_reference(dop.dia, bs), s_sp, bs,
              (dop.dia.vals.numel() + 2 * dop.dia.shape[0]) * 4, 2 * dop.dia.vals.numel(),
              launches_dcg, abs_dop),
-            (f"dia_spmm [spmm(csr, X), k={K}]", "dia_spmm",
+            (f"dia_spmm f32 [spmm(csr, X), k={K}]", "dia_spmm",
              f"{DIA_PY}:1148 (B14, k <= 64), :789 (B12)",
              lambda: dia_spmm(mplan, X), lambda: dia_spmm_reference(mplan, X), mm_sp, X,
              (mplan.vals.numel() + (mplan.shape[0] + mplan.shape[1]) * K) * 4,
              2 * mplan.vals.numel() * K, launches_mm_csr, abs_mm_csr),
-            (f"dia_spmm [spmm(bsr, X), k={K}]", "dia_spmm",
+            (f"dia_spmm f32 [spmm(bsr, X), k={K}]", "dia_spmm",
              f"{DIA_PY}:1148 (B14, k <= 64)",
              lambda: dia_spmm(splan, Xb), lambda: dia_spmm_reference(splan, Xb), a_sp, Xb,
-             (splan.vals.numel() + (splan.shape[0] + splan.shape[1]) * K) * 4,
-             2 * splan.vals.numel() * K, launches_mm_bsr, abs_mm_bsr),
-            (f"bdia_spmm_slab [spmm(bsr, X), k={K_WIDE}]", "bdia_slab_spmm",
+             (plan.vals.numel() + (m + n) * K) * 4, 2 * plan.vals.numel() * K,
+             launches_mm_bsr, abs_mm_bsr),
+            (f"bdia_spmm_slab f32 [spmm(bsr, X), k={K_WIDE}]", "bdia_slab_spmm",
              f"{SLAB_PY}:518 (B6; entries :505, :494), :290 (B5)",
              lambda: bdia_spmm_slab(sl, Xw), lambda: bdia_spmm_slab_reference(sl, Xw), a_sp, Xw,
-             # operations: those A @ X needs (the BDIA plan's stored values), not
-             # the zeros the sheared slab multiplies as well
-             sl.slabs.numel() * 4 + xy_w, 2 * plan.vals.numel() * K_WIDE, launches_slab,
+             plan.vals.numel() * 4 + xy_w, 2 * plan.vals.numel() * K_WIDE, launches_slab,
              abs_slab),
-            (f"bdia_spmm_ring [spmm(plan, X, method='pallas_bdia'), k={K_WIDE}]", "bdia_spmm",
+            (f"bdia_spmm_ring f32 [spmm(plan, X, method='pallas_bdia'), k={K_WIDE}]", "bdia_spmm",
              f"{BDIA_PY}:607 (B4)", lambda: bdia_spmm_ring(plan, Xw),
              lambda: bdia_spmm_ring_reference(plan, Xw), a_sp, Xw,
              plan.vals.numel() * 4 + xy_w, 2 * plan.vals.numel() * K_WIDE, launches_ring,
              abs_ring),
-            (f"bsr_spmm [spmm(bsr, X, method='pallas_bsr'), k={K_WIDE}]", "bsr_spmm",
+            (f"bsr_spmm f32 [spmm(bsr, X, method='pallas_bsr'), k={K_WIDE}]", "bsr_spmm",
              f"{BSR_PY}:91 (B7)", lambda: bsr_spmm(bplan, Xw),
              lambda: bsr_spmm_reference(bplan, Xw), a_sp, Xw,
              (bplan.vals.numel() + bplan.cols.numel()) * 4 + xy_w,
              2 * bplan.vals.numel() * K_WIDE, launches_bsr, abs_bsr),
-            (f"dia_spmm [spmm(scalar-DIA plan, X), k={K_WIDE}]", "dia_spmm",
+            (f"dia_spmm f32 [spmm(scalar-DIA plan, X), k={K_WIDE}]", "dia_spmm",
              f"{DIA_PY}:1023 (B13), :1314 (B15)", lambda: dia_spmm(splan, Xw),
              lambda: dia_spmm_reference(splan, Xw), a_sp, Xw,
-             splan.vals.numel() * 4 + xy_w, 2 * splan.vals.numel() * K_WIDE, launches_dia_w,
+             plan.vals.numel() * 4 + xy_w, 2 * plan.vals.numel() * K_WIDE, launches_dia_w,
              abs_dia_w),
             # the POH and LELL rows move their values once, every slot (a
             # value of 0 is what marks padding), and the int32 indices of the
             # live slots only (cloc + rloc for POH, idx for LELL), as padding
             # needs none; they count the function's operations, 2 per stored
             # entry and column
-            ("poh_spmv [spmv(poh, x)]", "poh_spmv", f"{POH_PY}:388 (B16)",
+            ("poh_spmv f32 [spmv(poh, x)]", "poh_spmv", f"{POH_PY}:388 (B16)",
              lambda: poh_spmv(pplan, xp), lambda: poh_spmv_reference(pplan, xp), pl_sp, xp,
              _pack_bytes(pplan.vals, 8) + pplan.ntiles * 4 + 2 * PL_N * 4, 2 * pl_sp.nnz,
              launches_poh, abs_poh),
-            (f"poh_spmm [spmm(poh, X), k={K}]", "poh_spmm", f"{POH_PY}:538 (B17)",
+            (f"poh_spmm f32 [spmm(poh, X), k={K}]", "poh_spmm", f"{POH_PY}:538 (B17)",
              lambda: poh_spmm(pplan, Xp), lambda: poh_spmm_reference(pplan, Xp), pl_sp, Xp,
              _pack_bytes(pplan.vals, 8) + pplan.ntiles * 4 + 2 * PL_N * K * 4,
              2 * pl_sp.nnz * K, launches_pohmm, abs_pohmm),
-            ("lell_spmv [HybLell.spmv: 2 launches + segment sum + remainder]", "lell_spmv",
+            ("lell_spmv f32 [HybLell.spmv: 2 launches + segment sum + remainder]", "lell_spmv",
              f"{LELL_PY}:377 (B18; also :365)", lambda: hyb.spmv(xp),
              lambda: hyb._spmv_reference(xp), pl_sp, xp,
              _pack_bytes(hyb.main.vals, 4) + hyb.main.rem_data.numel() * 12
              + _pack_bytes(hyb.hub.vals, 4) + hyb.hub.slot2row.numel() * 4 + 2 * PL_N * 4,
              2 * pl_sp.nnz,
-             launches_lell, abs_lell)):
-        S = _sparse_csr(lib_op, dev)
-        library = lambda S=S, v=operand: S @ v  # noqa: E731
-        _check(f"{name} library call vs kernel", _relerr(library(), kernel()), F32_TOL)
+             launches_lell, abs_lell)]
+    n_f32 = len(rows)
+    xy_bf = (n + m) * K_WIDE * 2  # bf16 X read once and bf16 Y written once
+    rows += [
+        ("bdia_spmv bf16 [spmv(bsr_bf16, x f32)]", "bdia_spmv",
+         f"{BDIA_PY}:290 (B1; also :409, B3)", lambda: bdia_spmv(plan_bf, x),
+         lambda: bdia_spmv_reference(plan_bf, x), a_sp, x,
+         plan_bf.vals.numel() * 2 + (m + n) * 4, 2 * plan_bf.vals.numel(), launches_spmv_bf,
+         abs_spmv_bf),
+        ("bdia_spmv bf16 [BdiaOperator(bf16 plan) in cg]", "bdia_spmv", f"{BDIA_PY}:70 (B2)",
+         lambda: bdia_spmv(op_bf.bdia, b), lambda: bdia_spmv_reference(op_bf.bdia, b), sb_sp, b,
+         op_bf.bdia.vals.numel() * 2 + 2 * op_bf.bdia.shape[0] * 4,
+         2 * op_bf.bdia.vals.numel(), launches_cg_bf, abs_op_bf),
+        ("dia_spmv bf16 [spmv(csr_bf16, x f32)]", "dia_spmv", f"{DIA_PY}:176 (B8)",
+         lambda: dia_spmv(dplan_bf, xs), lambda: dia_spmv_reference(dplan_bf, xs), st_sp, xs,
+         dplan_bf.vals.numel() * 2 + (dplan_bf.shape[0] + dplan_bf.shape[1]) * 4,
+         2 * dplan_bf.vals.numel(), launches_dspmv_bf, abs_dspmv_bf),
+        ("dia_spmv bf16 [solver_operator(csr_bf16) in cg]", "dia_spmv",
+         f"{DIA_PY}:336 (B9), :511 (B10), :650 (B11)", lambda: dia_spmv(dop_bf.dia, bs),
+         lambda: dia_spmv_reference(dop_bf.dia, bs), s_sp, bs,
+         dop_bf.dia.vals.numel() * 2 + 2 * dop_bf.dia.shape[0] * 4,
+         2 * dop_bf.dia.vals.numel(), launches_dcg_bf, abs_dop_bf),
+        (f"dia_spmm bf16 [spmm(bsr_bf16, X f32), k={K}]", "dia_spmm",
+         f"{DIA_PY}:1148 (B14, k <= 64)", lambda: dia_spmm(splan_bf, Xb),
+         lambda: dia_spmm_reference(splan_bf, Xb), a_sp, Xb,
+         plan_bf.vals.numel() * 2 + (m + n) * K * 4, 2 * plan_bf.vals.numel() * K,
+         *mm_bf[f"spmm(bsr_bf16, X f32), k={K}"]),
+        (f"bdia_spmm_slab bf16 [spmm(bsr_bf16, X f32), k={K_WIDE}: two TF32 passes]",
+         "bdia_slab_spmm", f"{SLAB_PY}:518 (B6; entries :505, :494), :290 (B5)",
+         lambda: bdia_spmm_slab(sl_bf, Xw), lambda: bdia_spmm_slab_reference(sl_bf, Xw), a_sp,
+         Xw, plan_bf.vals.numel() * 2 + xy_w, 2 * plan_bf.vals.numel() * K_WIDE,
+         *mm_bf[f"spmm(bsr_bf16, X f32), k={K_WIDE}: the bf16 slab"]),
+        (f"bdia_spmm_ring bf16 [spmm(plan_bf16, X f32, method='pallas_bdia'), k={K_WIDE}]",
+         "bdia_spmm", f"{BDIA_PY}:607 (B4)", lambda: bdia_spmm_ring(plan_bf, Xw),
+         lambda: bdia_spmm_ring_reference(plan_bf, Xw), a_sp, Xw,
+         plan_bf.vals.numel() * 2 + xy_w, 2 * plan_bf.vals.numel() * K_WIDE,
+         *mm_bf[f"spmm(plan_bf16, X f32, method='pallas_bdia'), k={K_WIDE}"]),
+        (f"bdia_spmm_ring bf16 [X and Y bf16: accum_dtype=bf16], k={K_WIDE}", "bdia_spmm",
+         f"{BDIA_PY}:607 (B4)", lambda: bdia_spmm_ring(plan_bf, Xw_bf, out_dtype=bf),
+         lambda: bdia_spmm_ring_reference(plan_bf, Xw_bf, out_dtype=bf), a_sp, Xw_bf,
+         plan_bf.vals.numel() * 2 + xy_bf, 2 * plan_bf.vals.numel() * K_WIDE,
+         *mm_bf[f"spmm(plan_bf16, X bf16, method='pallas_bdia', accum_dtype=bf16), "
+                f"k={K_WIDE}"]),
+        (f"dia_spmm bf16 [spmm(scalar-DIA plan_bf16, X f32), k={K_WIDE}]", "dia_spmm",
+         f"{DIA_PY}:1023 (B13), :1314 (B15)", lambda: dia_spmm(splan_bf, Xw),
+         lambda: dia_spmm_reference(splan_bf, Xw), a_sp, Xw,
+         plan_bf.vals.numel() * 2 + xy_w, 2 * plan_bf.vals.numel() * K_WIDE,
+         *mm_bf[f"spmm(scalar-DIA plan_bf16, X f32), k={K_WIDE}"]),
+        (f"dia_spmm bf16 [X and Y bf16: out_dtype=bf16], k={K_WIDE}", "dia_spmm",
+         f"{DIA_PY}:1023 (B13), :1314 (B15)", lambda: dia_spmm(splan_bf, Xw_bf, out_dtype=bf),
+         lambda: dia_spmm_reference(splan_bf, Xw_bf, out_dtype=bf), a_sp, Xw_bf,
+         plan_bf.vals.numel() * 2 + xy_bf, 2 * plan_bf.vals.numel() * K_WIDE,
+         *mm_bf[f"dia_spmm(scalar-DIA plan_bf16, X bf16, out_dtype=bf16), k={K_WIDE}"]),
+    ]
+    lib_mats = {}  # (id of the scipy matrix, dtype) -> its torch sparse CSR on the card
+
+    def lib_csr(s, dtype):
+        key = (id(s), dtype)
+        if key not in lib_mats:
+            lib_mats[key] = _sparse_csr(s, dev, dtype)
+        return lib_mats[key]
+
+    for i, (name, source, replaces, kernel, plain, lib_op, operand, nbytes, flops, launches,
+            max_abs) in enumerate(rows):
+        if i >= n_f32:  # bf16 values: the library in bf16, where torch takes it on CUDA
+            S = lib_csr(lib_op, torch.bfloat16)
+            v = operand.to(torch.bfloat16)
+            try:
+                y_lib = S @ v
+                torch.cuda.synchronize()
+            except (RuntimeError, NotImplementedError) as e:  # a refusal: no number
+                library, lib_what = None, (f"library (torch.sparse_csr_tensor bf16 @ bf16) "
+                                           f"refused: {str(e).splitlines()[0][:200]}")
+            else:
+                library = lambda S=S, v=v: S @ v  # noqa: E731
+                lib_what = f"library (torch.sparse_csr_tensor bf16 @ bf16 -> {y_lib.dtype})"
+                _check(f"{name} library call vs kernel", _relerr(y_lib, kernel()), 2e-2)
+                del y_lib
+        else:
+            S = lib_csr(lib_op, torch.float32)
+            library = lambda S=S, v=operand: S @ v  # noqa: E731
+            lib_what = "library (torch.sparse_csr_tensor @, cuSPARSE)"
+            _check(f"{name} library call vs kernel", _relerr(library(), kernel()), F32_TOL)
         # the k = 128 entries take milliseconds a call (their twins tens): fewer samples
-        nr, reps = (20, 10) if operand is not Xw and operand is not Xp else (10, 3)
-        runs = [time_cuda(f, warmup=3, runs=nr, reps=reps)
-                for f in (plain, kernel, library, library, kernel, plain)]
-        ms = float(np.median(runs[1].samples_ms + runs[4].samples_ms))
-        plain_ms = float(np.median(runs[0].samples_ms + runs[5].samples_ms))
-        library_ms = float(np.median(runs[2].samples_ms + runs[3].samples_ms))
-        del S
+        nr, reps = (10, 3) if operand.shape == Xw.shape or operand is Xp else (20, 10)
+        fns = (plain, kernel, library, library, kernel, plain) if library else \
+            (plain, kernel, kernel, plain)
+        # the plain twin, host-launch bound and only a reference, takes 3 samples a side
+        runs = [time_cuda(f, warmup=1, runs=3, reps=reps) if f is plain
+                else time_cuda(f, warmup=3, runs=nr, reps=reps) for f in fns]
+        ms = float(np.median(runs[1].samples_ms + runs[-2].samples_ms))
+        plain_ms = float(np.median(runs[0].samples_ms + runs[-1].samples_ms))
+        library_ms = float(np.median(runs[2].samples_ms + runs[3].samples_ms)) if library \
+            else None
         t_bytes, t_ops = nbytes / bw, flops / F32_PEAK
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         gbs = nbytes / (ms * 1e-3) / 1e9
+        lib_time = f"{library_ms * 1e3:.1f} us" if library else "no number"
         print(f"[timing] {name}: kernel {ms * 1e3:.1f} us, plain twin {plain_ms * 1e3:.1f} us, "
-              f"library (torch.sparse_csr_tensor @, cuSPARSE) {library_ms * 1e3:.1f} us; "
+              f"{lib_what} {lib_time}; "
               f"{nbytes / 1e6:.1f} MB moved -> {gbs:.0f} GB/s, HBM fraction "
               f"{gbs * 1e9 / bw:.3f} of {bw / 1e12:.2f} TB/s; bound {bound_ms * 1e3:.1f} us "
               f"({bound_by}: {flops / 1e9:.2f} GFLOP); card {card}; median of 2x{nr} samples "
-              f"of {reps} calls (CUDA events)", flush=True)
+              f"of {reps} calls, the twin 2x3 (CUDA events)", flush=True)
         entries.append({"name": name, "route": "cuda",
                         "source": f"cask_tpu_torch/csrc/{source}.cu", "replaces": replaces,
                         "launches": launches, "max_abs_err": max_abs, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": library_ms})
 
-    print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
+    _lap("timing", t_lap)
+    print(f"[done] {time.perf_counter() - t_start:.1f} s (host clock, by phase: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in _LAPS.items()) + ")", flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -146,3 +146,22 @@ def test_time_cuda_needs_a_card(monkeypatch):
         timing.time_cuda(lambda: None)
 
 
+
+
+@pytest.mark.parametrize("solver", ["cg", "block_cg"])
+def test_complex_hermitian_system_matches_the_reference(solver):
+    """A 40×40 Hermitian positive definite system as a callable: the
+    threshold stays real and the inner products conjugate (vdot, r^H z)."""
+    rng = np.random.default_rng(40)
+    n = 40
+    g = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    a = g @ g.conj().T + n * np.eye(n)
+    shape = (n,) if solver == "cg" else (n, 3)
+    b = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    aj, at = jax.numpy.asarray(a), torch.from_numpy(a)
+    ref = getattr(jkrylov, solver)(lambda v: aj @ v, jax.numpy.asarray(b), tol=1e-10)
+    res = getattr(ct.solvers, solver)(lambda v: at @ v, torch.from_numpy(b), tol=1e-10)
+    assert res.converged and bool(ref.converged)
+    assert abs(res.iterations - int(ref.iterations)) <= 1
+    exact = np.linalg.solve(a, b)
+    assert np.linalg.norm(res.x.numpy() - exact) / np.linalg.norm(exact) <= 1e-9

@@ -91,6 +91,15 @@ class TestConverters:
                      jconv.coo_to_csr(j, sum_duplicates=False))
         np.testing.assert_allclose(tconv.coo_to_csr(t).todense(), t.todense(), rtol=1e-14)
 
+    @pytest.mark.parametrize("n,spans", [(0, (5, 3)), (1, (5, 3)), (4000, (50, 7, 3)),
+                                         (4000, (2 ** 40, 2 ** 30))])
+    def test_lex_order_is_lexsorts(self, n, spans):
+        # one stable argsort of a combined key, or lexsort itself where the
+        # keys' ranges overflow it (the last case): the same order, ties kept
+        rng = np.random.default_rng(8)
+        keys = tuple(rng.integers(0, s, n) for s in spans)
+        _same(tconv.lex_order(*keys), np.lexsort(keys))
+
     def test_coo_bounds_checked(self):
         with pytest.raises(ValueError):
             tconv.coo_from_arrays([1.0], [5], [0], (5, 5))

@@ -112,9 +112,13 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
         bdia_spmv(p, torch.zeros(p.shape[1], dtype=torch.float64))
     with pytest.raises(ValueError):  # not contiguous
         bdia_spmv(p, torch.zeros(2 * p.shape[1], dtype=torch.float64, device=cuda)[::2])
-    with pytest.raises(TypeError):
-        bdia_spmv(p.astype(torch.bfloat16),
+    # bf16 values take the bf16 path (f32 sums and y); f16 has no kernel
+    y = bdia_spmv(p.astype(torch.bfloat16),
                   torch.zeros(p.shape[1], dtype=torch.bfloat16, device=cuda))
+    assert y.dtype == torch.float32 and torch.count_nonzero(y) == 0
+    with pytest.raises(TypeError, match="float16"):
+        bdia_spmv(p.astype(torch.float16),
+                  torch.zeros(p.shape[1], dtype=torch.float16, device=cuda))
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -290,8 +294,11 @@ def test_dia_kernels_raise_on_what_they_do_not_take(cuda):
         dia_spmm(p, torch.zeros((n, 4), dtype=torch.float64, device=cuda).T.contiguous().T)
     with pytest.raises(ValueError):  # 1-D x to the SpMM kernel
         dia_spmm(p, torch.zeros(n, dtype=torch.float64, device=cuda))
-    with pytest.raises(TypeError):
-        dia_spmv(p.astype(torch.bfloat16), torch.zeros(n, dtype=torch.bfloat16, device=cuda))
+    # bf16 values take the bf16 path (f32 sums and y); f16 has no kernel
+    y = dia_spmv(p.astype(torch.bfloat16), torch.zeros(n, dtype=torch.bfloat16, device=cuda))
+    assert y.dtype == torch.float32 and torch.count_nonzero(y) == 0
+    with pytest.raises(TypeError, match="float16"):
+        dia_spmv(p.astype(torch.float16), torch.zeros(n, dtype=torch.float16, device=cuda))
 
 
 def test_dia_transposed_tall_plan(cuda):
@@ -576,8 +583,11 @@ def test_wide_kernels_f64_output_and_refusals(cuda):
                      bdia_spmm_ring_reference(p, x, out_dtype=torch.float64))):
         assert y.dtype == torch.float64 and _relerr(y, twin) <= TOL[np.float64]
     assert _relerr(ct.spmm(sl, x, accum_dtype=np.float64), y_sp) <= TOL[np.float64]
-    with pytest.raises(TypeError):  # bf16 slabs (ROADMAP: bf16 values)
-        bdia_spmm_slab(bdia_slab_plan(p, 16, dtype=torch.bfloat16), x)
+    # bf16 slabs take the bf16 path (two TF32 passes, f32 out); f16 has no kernel
+    y = bdia_spmm_slab(bdia_slab_plan(p, 16, dtype=torch.bfloat16), x)
+    assert y.dtype == torch.float32 and y.shape == x.shape
+    with pytest.raises(TypeError, match="float16"):
+        bdia_spmm_slab(bdia_slab_plan(p, 16, dtype=torch.float16), x)
     with pytest.raises(TypeError):  # f32 plan, f64 X
         bdia_spmm_ring(p, x.double())
     with pytest.raises(TypeError):
@@ -889,3 +899,232 @@ def test_lell_kernel_raises_on_what_it_does_not_take(cuda):
         lell_lane_sums(p.vals, p.idx, x.cpu(), 8)
     with pytest.raises(ValueError):
         lell_lane_sums(p.vals.cpu(), p.idx.cpu(), x, 8)
+
+
+# -- bf16 values: the reference's bf16 value path --------------------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+# values and operand: each bf16 or f32, at least one bf16
+BF16_COMBOS = [(BF16, BF16), (BF16, F32), (F32, BF16)]
+BF16_TOL = 1e-5  # f32 out, vs the twin: the same bf16 products summed in f32
+BF16_SLAB_TOL = 2e-6  # f32 out, the slab's split TF32 products vs the twin
+
+
+def _bf16_close(y, twin32) -> bool:
+    """Every element of a bf16 output within one bf16 ulp of the twin's f32
+    sum, plus the f32 rounding by which the two sums may differ (2^-20 of
+    the largest |Y|): y is that sum rounded once, to nearest even."""
+    y, ref = y.double().cpu(), twin32.double().cpu()
+    exp = torch.floor(torch.log2(ref.abs().clamp_min(1e-30)))
+    ulp = torch.pow(2.0, exp - 7)
+    slack = 2.0 ** -20 * float(ref.abs().max())
+    return bool(((y - ref).abs() <= ulp + slack).all())
+
+
+def _check_bf16(y, twin, out, tol=BF16_TOL):
+    """f32 out: normwise within ``tol`` of the twin; bf16 out: see
+    :func:`_bf16_close` (``twin`` is the twin's f32 result)."""
+    if out == BF16:
+        assert y.dtype == BF16 and _bf16_close(y, twin)
+    else:
+        assert y.dtype == F32 and _relerr(y, twin) <= tol
+
+
+def _rounded(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's values as the bf16 path sees them, in f64 on the host."""
+    return t.cpu().double()
+
+
+@pytest.mark.parametrize("name", ["fem2", "fem4", "fem8", "fem3_br3", "fem16", "remainder",
+                                  "rect4x2", "ragged"])
+@pytest.mark.parametrize("vdt,xdt", BF16_COMBOS)
+def test_bf16_bdia_spmv_matches_twin(cuda, name, vdt, xdt):
+    bsr = CASES[name](np.float32)
+    p = ct.bdia_plan(bsr, device=cuda).astype(vdt)
+    x = torch.from_numpy(np.random.default_rng(50).standard_normal(p.shape[1])
+                         .astype(np.float32)).to(cuda).to(xdt)
+    before = bdia_spmv.launches
+    y = p.spmv(x)
+    torch.cuda.synchronize()
+    assert bdia_spmv.launches == before + 1
+    _check_bf16(y, p._spmv_reference(x), None)
+    s = to_scipy(bsr).astype(np.float32)
+    s.data = torch.from_numpy(s.data).to(vdt).double().numpy()  # the values the plan holds
+    assert _relerr(y, torch.from_numpy(s @ _rounded(x).numpy())) <= BF16_TOL
+
+
+@pytest.mark.parametrize("name", list(DIA_CASES))
+@pytest.mark.parametrize("vdt,xdt", BF16_COMBOS)
+def test_bf16_dia_spmv_matches_twin(cuda, name, vdt, xdt):
+    s, p = _dia(name, np.float32, cuda)
+    p = p.astype(vdt)
+    x = torch.from_numpy(np.random.default_rng(51).standard_normal(s.shape[1])
+                         .astype(np.float32)).to(cuda).to(xdt)
+    before = dia_spmv.launches
+    y = p.spmv(x)
+    torch.cuda.synchronize()
+    assert dia_spmv.launches == before + 1
+    _check_bf16(y, p._spmv_reference(x), None)
+
+
+@pytest.mark.parametrize("name", list(DIA_CASES))
+@pytest.mark.parametrize("vdt,xdt", BF16_COMBOS)
+@pytest.mark.parametrize("k", [1, 12, 65, 128])  # 12, 65: bf16 rows off the 16-byte vector
+@pytest.mark.parametrize("out", [None, BF16])
+def test_bf16_dia_spmm_matches_twin(cuda, name, vdt, xdt, k, out):
+    s, p = _dia(name, np.float32, cuda)
+    p = p.astype(vdt)
+    x = torch.from_numpy(np.random.default_rng(52).standard_normal((s.shape[1], k))
+                         .astype(np.float32)).to(cuda).to(xdt)
+    before = dia_spmm.launches
+    y = dia_spmm(p, x, out_dtype=out)
+    torch.cuda.synchronize()
+    assert dia_spmm.launches == before + 1 and y.shape == (s.shape[0], k)
+    _check_bf16(y, dia_spmm_reference(p, x), out)
+
+
+@pytest.mark.parametrize("name", ["fem4", "fem2", "fem3_ragged", "remainder", "rect_matrix",
+                                  "eight_far"])
+@pytest.mark.parametrize("vdt,xdt", BF16_COMBOS)
+@pytest.mark.parametrize("k", [1, 12, 65, 128])
+@pytest.mark.parametrize("out", [None, BF16])
+def test_bf16_ring_matches_twin(cuda, name, vdt, xdt, k, out):
+    bsr = WIDE_CASES[name](np.float32)
+    p = ct.bdia_plan(bsr, device=cuda).astype(vdt)
+    x = torch.from_numpy(np.random.default_rng(53).standard_normal((bsr.shape[1], k))
+                         .astype(np.float32)).to(cuda).to(xdt)
+    before = bdia_spmm_ring.launches
+    y = bdia_spmm_ring(p, x, out_dtype=out)
+    torch.cuda.synchronize()
+    assert bdia_spmm_ring.launches == before + 1 and y.shape == (bsr.shape[0], k)
+    _check_bf16(y, bdia_spmm_ring_reference(p, x), out)
+
+
+@pytest.mark.parametrize("name", ["fem4", "fem2", "remainder", "rect_matrix", "far18",
+                                  "eight_far"])
+@pytest.mark.parametrize("vdt,xdt", BF16_COMBOS)
+@pytest.mark.parametrize("k", [1, 12, 65, 128])
+@pytest.mark.parametrize("out", [None, BF16])
+def test_bf16_slab_matches_twin_in_both_frames(cuda, name, vdt, xdt, k, out):
+    bsr = WIDE_CASES[name](np.float32)
+    p = ct.bdia_plan(bsr, device=cuda)
+    sl = slab_auto_plan(p.astype(vdt))
+    x = torch.from_numpy(np.random.default_rng(54).standard_normal((bsr.shape[1], k))
+                         .astype(np.float32)).to(cuda).to(xdt)
+    before = bdia_spmm_slab.launches
+    y = bdia_spmm_slab(sl, x, out_dtype=out)
+    torch.cuda.synchronize()
+    assert bdia_spmm_slab.launches == before + 1 and y.shape == (bsr.shape[0], k)
+    _check_bf16(y, bdia_spmm_slab_reference(sl, x), out, BF16_SLAB_TOL)
+    if sl.blocksize[0] == sl.blocksize[1]:  # the padded chain layout
+        xp = sl.to_padded(x)
+        yp = bdia_spmm_slab_padded(sl, xp, out_dtype=out)
+        torch.cuda.synchronize()
+        _check_bf16(yp, bdia_spmm_slab_reference(sl, xp, padded=True), out, BF16_SLAB_TOL)
+
+
+def _slab_errors(sl, x):
+    """(kernel, plain FP32 twin) normwise errors against the exact f64
+    product of the slabs' and X's values, and ‖|S|·|X|‖ / ‖S·X‖."""
+    s64 = dataclasses.replace(sl, slabs=sl.slabs.double())
+    exact = bdia_spmm_slab_reference(s64, x.double())
+    y = bdia_spmm_slab(sl, x)
+    torch.cuda.synchronize()
+    twin = bdia_spmm_slab_reference(sl, x)  # f32 sums (TF32 off: full FP32 products)
+    mag = bdia_spmm_slab_reference(dataclasses.replace(s64, slabs=s64.slabs.abs()),
+                                   x.double().abs())
+    return _relerr(y, exact), _relerr(twin, exact), float(mag.norm() / exact.norm())
+
+
+@pytest.mark.parametrize("case", ["headline-shaped", "TF32-sensitive"])
+@pytest.mark.parametrize("vdt,xdt", [(F32, F32), (BF16, F32), (F32, BF16)])
+def test_slab_error_class_is_the_plain_fp32_twins(cuda, case, vdt, xdt):
+    # the split TF32 products (3 passes f32 x f32, 2 with one bf16 operand)
+    # stay within 4x of the plain FP32 twin's own error against f64, but for
+    # one case: 3xTF32 drops lo·lo, at most 2^-22·|s||x| a product, and on
+    # the TF32-sensitive case (every operand's 12 low mantissa bits set)
+    # those terms all share the product's sign.  There it misses 4x (4.47x
+    # on an H100 80GB HBM3 in chip_smoke.py), so that bound is added
+    assert not torch.backends.cuda.matmul.allow_tf32
+    bsr = fem_blocks(16, dof=4, dtype=np.float32, return_bsr=True)
+    rng = np.random.default_rng(55)
+    x = rng.standard_normal((bsr.shape[1], 128)).astype(np.float32)
+    if case == "TF32-sensitive":
+        bsr = dataclasses.replace(bsr, data=_low_bits(np.asarray(bsr.data)))
+        x = _low_bits(x)
+    sl = slab_auto_plan(ct.bdia_plan(bsr, device=cuda).astype(vdt))
+    err_kernel, err_twin, mag = _slab_errors(sl, torch.from_numpy(x).to(cuda).to(xdt))
+    dropped = 2.0 ** -22 * mag if (case, vdt, xdt) == ("TF32-sensitive", F32, F32) else 0.0
+    assert err_kernel <= 4 * err_twin + dropped, (err_kernel, err_twin, dropped)
+
+
+def test_bf16_auto_routes_launch_their_kernels(cuda):
+    # the routes of a bf16 BSR and a bf16 banded CSR, f32 operands: each
+    # launches its kernel with the bf16 plan, and no gather formulation
+    a = fem_blocks(16, dof=4, dtype=np.float32, return_bsr=True).to(cuda).astype(BF16)
+    rng = np.random.default_rng(56)
+    x = torch.from_numpy(rng.standard_normal(a.shape[1]).astype(np.float32)).to(cuda)
+    counts = {f: f.launches for f in (bdia_spmv, dia_spmv, dia_spmm, bdia_spmm_slab,
+                                      bdia_spmm_ring)}
+    y = ct.spmv(a, x)
+    p = spmv_mod.default_plan_cache.get(a)
+    assert p.dtype == BF16 and bdia_spmv.launches == counts[bdia_spmv] + 1
+    _check_bf16(y, p._spmv_reference(x), None)
+    for k, kernel in ((32, dia_spmm), (128, bdia_spmm_slab)):
+        X = torch.from_numpy(rng.standard_normal((a.shape[1], k)).astype(np.float32)).to(cuda)
+        before = kernel.launches
+        Y = ct.spmm(a, X)
+        assert Y.dtype == F32 and kernel.launches == before + 1
+        assert _relerr(Y, ct.spmm(p.to("cpu"), X.cpu())) <= BF16_SLAB_TOL * 5
+    X = torch.from_numpy(rng.standard_normal((a.shape[1], 128)).astype(np.float32)).to(cuda)
+    before = bdia_spmm_ring.launches
+    Yr = ct.spmm(p, X, method="pallas_bdia", accum_dtype=BF16)
+    assert Yr.dtype == BF16 and bdia_spmm_ring.launches == before + 1
+    assert _bf16_close(Yr, bdia_spmm_ring_reference(p, X))
+    c = stencil_2d(40, dtype=np.float32).to(cuda).astype(BF16)
+    xs = torch.from_numpy(rng.standard_normal(c.shape[1]).astype(np.float32)).to(cuda)
+    before = dia_spmv.launches
+    ys = ct.spmv(c, xs)
+    assert ys.dtype == F32 and dia_spmv.launches == before + 1
+    assert spmv_mod.default_plan_cache.get(c).dtype == BF16
+
+
+def test_cg_over_bf16_operators_on_card_matches_cpu(cuda):
+    s = to_scipy(fem_blocks(12, dof=4))
+    spd = csr_to_bsr(_diag_shift(from_scipy((s + s.T).tocsr()), 1.1), (4, 4))
+    st = to_scipy(stencil_2d(40))
+    st = from_scipy((st + 8.0 * sp.identity(st.shape[0])).tocsr().astype(np.float32))
+    for make, kernel, n in ((lambda dev: ct.BdiaOperator(ct.bdia_plan(spd, device=dev)
+                                                         .astype(BF16)), bdia_spmv, spd.shape[0]),
+                            (lambda dev: ct.solver_operator(st.to(dev).astype(BF16)), dia_spmv,
+                             st.shape[0])):
+        b = torch.from_numpy(np.random.default_rng(57).standard_normal(n).astype(np.float32))
+        before = kernel.launches
+        res = ct.solvers.cg(make(cuda), b.to(cuda), tol=1e-5, maxiter=300)
+        assert kernel.launches - before == res.iterations + 1
+        ref = ct.solvers.cg(make("cpu"), b, tol=1e-5, maxiter=300)
+        assert res.converged and res.x.dtype == F32
+        assert abs(res.iterations - ref.iterations) <= 1
+        assert _relerr(res.x, ref.x) <= 1e-4
+
+
+def test_bf16_kernels_raise_on_what_they_do_not_take(cuda):
+    bsr = WIDE_CASES["fem4"](np.float32)
+    p = ct.bdia_plan(bsr, device=cuda)
+    sl = slab_auto_plan(p.astype(BF16))
+    d = ct.dia_plan(from_scipy(DIA_CASES["banded"]().astype(np.float32)), device=cuda)
+    n = bsr.shape[1]
+    for v, xdt, out in ((torch.float16, torch.float16, None), (BF16, torch.float16, None),
+                        (BF16, torch.float64, None), (BF16, F32, torch.float64),
+                        (F32, F32, BF16)):
+        X = torch.zeros((n, 16), dtype=xdt, device=cuda)
+        with pytest.raises(TypeError):
+            bdia_spmm_ring(p.astype(v), X, out_dtype=out)
+        with pytest.raises(TypeError):
+            bdia_spmm_slab(dataclasses.replace(sl, slabs=sl.slabs.to(v)), X, out_dtype=out)
+        with pytest.raises(TypeError):
+            dia_spmm(d.astype(v), torch.zeros((d.shape[1], 16), dtype=xdt, device=cuda),
+                     out_dtype=out)
+        if out is None:
+            with pytest.raises(TypeError):
+                bdia_spmv(p.astype(v), X[:, 0].contiguous())
