@@ -30,13 +30,16 @@
 // byte bound (571 µs at 3.35 TB/s).
 //
 // What the design does about it (f32, the main path):
-// - The product runs on the tensor cores in 3xTF32: each operand splits
-//   into hi = tf32(a) (rounded) and lo = a - hi (cut to TF32), and
-//   D += lo·hi + hi·lo + hi·hi with mma.sync m16n8k8 (FP32 accumulation),
-//   about 2^-21 per product: f32-class, the card's counterpart of the
-//   reference's precision="highest" (ops/spmm.py:208).  Plain 1xTF32
-//   (2^-11) is never used.  3 × 53.7 GFLOP at 495 TFLOP/s of dense TF32 is
-//   about 325 µs, under the byte bound.  The split is integer and FP32
+// - The product runs on the tensor cores in 4xTF32: each operand splits
+//   into hi = tf32(a) and lo = tf32(a - hi) (both rounded), and
+//   D += lo·lo + lo·hi + hi·lo + hi·hi with mma.sync m16n8k8 (FP32
+//   accumulation), exact but for the splits' remainders (each within 2^-22
+//   of its operand): f32-class, the card's counterpart of the reference's
+//   precision="highest" (ops/spmm.py:208).
+//   Plain 1xTF32 (2^-11) is never used.  Without lo·lo, or with lo cut
+//   toward zero, the dropped terms can share one sign over a whole sum
+//   (see split_tf32).  4 × 53.7 GFLOP at 495 TFLOP/s of dense TF32 is
+//   about 434 µs, under the byte bound.  The split is integer and FP32
 //   arithmetic at the full instruction rate.
 // - Work items are (tile, 64 slab rows, 128 columns); a CTA of 8 warps,
 //   each a 32 × 32 block of D in registers, holds two per SM.  W is walked
@@ -171,34 +174,44 @@ __device__ __forceinline__ void copy_chunk(T* dst, const T* src, bool ok, uint64
 }
 
 // a ≈ hi + lo, each a TF32 value (10 explicit mantissa bits): hi is a
-// rounded to nearest (ties away from zero, as cvt.rna.tf32.f32), lo the
-// rest cut toward zero, so |a - hi - lo| <= 2^-21·|a|.  Integer and FP32
-// operations at the full instruction rate, where cvt runs on the slower
-// conversion pipe.
+// rounded to nearest (ties away from zero, as cvt.rna.tf32.f32).  lo, the
+// rest (exact in f32), is rounded the same way for f32 × f32 (kRound), so
+// |a - hi - lo| <= 2^-22·|a|; else it is cut toward zero, within 2^-21·|a|
+// (the two-pass kernels with one bf16 operand).  A cut lo leaves a
+// remainder of one sign, which on values with every low mantissa bit set
+// adds up over a sum: there the 4-pass kernel's error is 4.01x the plain
+// FP32 twin's with lo cut, 2.27x with lo rounded (kernel_probe.py --slab,
+// an H100 80GB HBM3 at 700 W).  Integer and FP32 operations at the full
+// instruction rate, where cvt runs on the slower conversion pipe.
+template <bool kRound>
 __device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(a - __uint_as_float(hi)) & 0xffffe000u;
+  lo = (__float_as_uint(a - __uint_as_float(hi)) + (kRound ? 0x1000u : 0u)) & 0xffffe000u;
 }
 
 // An operand's TF32 parts: an f32 splits into hi + lo; a bf16 (8 exponent
 // and 7 mantissa bits) is a TF32 value as it stands, its f32 bit pattern the
 // bf16 bits shifted up by 16, exactly (its lo part is zero and is skipped).
+template <bool kRound>
 __device__ __forceinline__ void tf32_parts(float a, uint32_t& hi, uint32_t& lo) {
-  split_tf32(a, hi, lo);
+  split_tf32<kRound>(a, hi, lo);
 }
+template <bool kRound>
 __device__ __forceinline__ void tf32_parts(__nv_bfloat16 a, uint32_t& hi, uint32_t&) {
   hi = static_cast<uint32_t>(__bfloat16_as_ushort(a)) << 16;
 }
 // an A fragment's four values: two neighbouring shared values in row g (at
 // p) and in row g + 8 (at p + 8 rows), in mma's register order
+template <bool kRound>
 __device__ __forceinline__ void tf32_frag(const float* p, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
   const float2 top = *reinterpret_cast<const float2*>(p);
   const float2 bot = *reinterpret_cast<const float2*>(p + 8 * kAStride);
-  split_tf32(top.x, hi[0], lo[0]);
-  split_tf32(bot.x, hi[1], lo[1]);
-  split_tf32(top.y, hi[2], lo[2]);
-  split_tf32(bot.y, hi[3], lo[3]);
+  split_tf32<kRound>(top.x, hi[0], lo[0]);
+  split_tf32<kRound>(bot.x, hi[1], lo[1]);
+  split_tf32<kRound>(top.y, hi[2], lo[2]);
+  split_tf32<kRound>(bot.y, hi[3], lo[3]);
 }
+template <bool kRound>
 __device__ __forceinline__ void tf32_frag(const __nv_bfloat16* p, uint32_t (&hi)[4],
                                           uint32_t (&)[4]) {
   const uint32_t top = *reinterpret_cast<const uint32_t*>(p);
@@ -262,7 +275,7 @@ struct Cursor {
 
 // S: slab type; X: X type (each f32 or bf16); O: output type (f32, or bf16
 // rounded at the store).  The products an exact-class f32 result needs:
-// lo·hi + hi·lo + hi·hi when both are f32 (3xTF32); hi·lo + hi·hi when one
+// lo·lo + lo·hi + hi·lo + hi·hi when both are f32 (4xTF32); hi·lo + hi·hi when one
 // is bf16 (its lo is zero); one hi·hi pass when both are bf16.
 //
 // Block b takes items b, b + gridDim.x, ... as one stream of W chunks, so
@@ -451,15 +464,22 @@ slab_spmm_tc_kernel(const S* __restrict__ Sm, const X* __restrict__ Xm, O* __res
         uint32_t ahi[2][4], alo[2][4], bhi[kJ][2], blo[kJ][2];
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          tf32_frag(a + (wr + i * 16 + g) * kAStride + kk + 2 * tq, ahi[i], alo[i]);
+          tf32_frag<kSplitA && kSplitB>(a + (wr + i * 16 + g) * kAStride + kk + 2 * tq, ahi[i],
+                                        alo[i]);
         }
 #pragma unroll
         for (int j = 0; j < kJ; ++j) {
           const X* p = b + (kk + 2 * tq) * kBS + wc + j * 8 + g;
-          tf32_parts(p[0], bhi[j][0], blo[j][0]);
-          tf32_parts(p[kBS], bhi[j][1], blo[j][1]);
+          tf32_parts<kSplitA && kSplitB>(p[0], bhi[j][0], blo[j][0]);
+          tf32_parts<kSplitA && kSplitB>(p[kBS], bhi[j][1], blo[j][1]);
         }
-        // the small cross terms first; each pass is 8 independent products
+        // the small terms first; each pass is 8 independent products
+        if constexpr (kSplitA && kSplitB) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], alo[i], blo[j]);
+        }
         if constexpr (kSplitA) {
 #pragma unroll
           for (int i = 0; i < 2; ++i)

@@ -47,11 +47,20 @@
 //   dropped.
 // Sums are in the working type, in an order that the atomics vary from run
 // to run.
+//
+// Half values or X (bf16 or f16, with the other the same half type or f32;
+// the reference's single-pass branch, poh_kernels.py:562): the kernel is
+// the same, templated on the value, X and working types.  Each value and
+// X element widens exactly to f32 as it loads, the queue, the partial sums
+// and Y are f32 (the reference's promote(values, X, f32)), and a group
+// gathers 2 bytes of each X row per lane: 64 bytes a slot at k = 32, half
+// the f32 kernel's gathered bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "poh_common.cuh"
+#include "value_types.cuh"
 
 namespace {
 
@@ -60,11 +69,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBatch = 128;             // slots a warp sifts at a time
 constexpr int kPerLane = kBatch / 32;
 
-template <typename T, int KC>
+template <typename V, typename X_t, typename T, int KC>
 __global__ void __launch_bounds__(kThreads, 1)
-poh_spmm_kernel(const T* __restrict__ vals, const int* __restrict__ cloc,
+poh_spmm_kernel(const V* __restrict__ vals, const int* __restrict__ cloc,
                 const int* __restrict__ rloc, const int* __restrict__ wlo,
-                const int* __restrict__ pieces, const T* __restrict__ X, T* __restrict__ Y,
+                const int* __restrict__ pieces, const X_t* __restrict__ X, T* __restrict__ Y,
                 int parts, int kchunks, int R, int RP, int C, int T_slots, int64_t m, int64_t n,
                 int k, int acc_bytes) {
   constexpr int G = 32 / KC;  // groups of KC lanes in a warp, one queue entry each
@@ -112,7 +121,7 @@ poh_spmm_kernel(const T* __restrict__ vals, const int* __restrict__ cloc,
     const int64_t s = base + static_cast<int64_t>(b) * kBatch + lane;
 #pragma unroll
     for (int i = 0; i < kPerLane; ++i) {
-      v[i] = __ldg(vals + s + 32 * i);
+      v[i] = T(cask::widen(__ldg(vals + s + 32 * i)));
       r[i] = __ldg(rloc + s + 32 * i);
       c[i] = __ldg(cloc + s + 32 * i);
     }
@@ -145,7 +154,9 @@ poh_spmm_kernel(const T* __restrict__ vals, const int* __restrict__ cloc,
 #pragma unroll
       for (int u = 0; u < U; ++u) {  // all U gathers in flight together
         const int e = e0 + u;
-        x[u] = e < cnt && col_ok ? __ldg(X + static_cast<int64_t>(qc[e]) * k + c0 + cl) : T(0);
+        x[u] = e < cnt && col_ok
+                   ? T(cask::widen(__ldg(X + static_cast<int64_t>(qc[e]) * k + c0 + cl)))
+                   : T(0);
       }
       // a run of one row is summed in registers and added once it ends; no
       // branch leaves the loop, so the entries' loads and products overlap
@@ -180,9 +191,9 @@ poh_spmm_kernel(const T* __restrict__ vals, const int* __restrict__ cloc,
   }
 }
 
-template <typename T, int KC>
-int launch_kc(const T* vals, const int* cloc, const int* rloc, const int* wlo, const int* pieces,
-              const T* X, T* Y, int n_pieces, int R, int C, int T_slots, long long m,
+template <typename V, typename X, typename T, int KC>
+int launch_kc(const V* vals, const int* cloc, const int* rloc, const int* wlo, const int* pieces,
+              const X* Xm, T* Y, int n_pieces, int R, int C, int T_slots, long long m,
               long long n, int k, cudaStream_t s) {
   // the partial sums take what the queues leave of a block's shared memory
   const long long queues = static_cast<long long>(kWarps) * kBatch * (sizeof(T) + 8);
@@ -196,36 +207,39 @@ int launch_kc(const T* vals, const int* cloc, const int* rloc, const int* wlo, c
   if (static_cast<long long>(n_pieces) * parts * kchunks > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t e = poh::allow_smem(poh_spmm_kernel<T, KC>, smem);
+  const cudaError_t e = poh::allow_smem(poh_spmm_kernel<V, X, T, KC>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  poh_spmm_kernel<T, KC><<<n_pieces * parts * kchunks, kThreads, smem, s>>>(
-      vals, cloc, rloc, wlo, pieces, X, Y, parts, kchunks, R, RP, C, T_slots, m, n, k,
+  poh_spmm_kernel<V, X, T, KC><<<n_pieces * parts * kchunks, kThreads, smem, s>>>(
+      vals, cloc, rloc, wlo, pieces, Xm, Y, parts, kchunks, R, RP, C, T_slots, m, n, k,
       acc_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const T* vals, const int* cloc, const int* rloc, const int* wlo, const int* pieces,
-             const T* X, T* Y, int n_pieces, int R, int C, int T_slots, long long m, long long n,
-             int k, void* stream) {
+template <typename V, typename X, typename T>
+int dispatch(const void* vals_p, const int* cloc, const int* rloc, const int* wlo,
+             const int* pieces, const void* X_p, void* Y_p, int n_pieces, int R, int C,
+             int T_slots, long long m, long long n, int k, void* stream) {
   if (n_pieces < 1 || R < 1 || C < 1 || T_slots < 1 || T_slots % kBatch || k < 1 ||
       n > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const V* vals = static_cast<const V*>(vals_p);
+  const X* Xm = static_cast<const X*>(X_p);
+  T* Y = static_cast<T*>(Y_p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the narrowest power-of-two chunk that holds k, up to 128 bytes of an X
-  // row (32 f32 or 16 f64 columns); wider k takes several chunks
+  // row and 32 columns (32 f32 or half, 16 f64); wider k takes several chunks
   int kc = 1;
-  while (kc < k && kc * static_cast<int>(sizeof(T)) < 128) kc *= 2;
-  if constexpr (sizeof(T) == 4) {
-    if (kc == 32) return launch_kc<T, 32>(vals, cloc, rloc, wlo, pieces, X, Y, n_pieces, R, C, T_slots, m, n, k, s);
+  while (kc < k && kc < 32 && kc * static_cast<int>(sizeof(X)) < 128) kc *= 2;
+  if constexpr (sizeof(X) <= 4) {
+    if (kc == 32) return launch_kc<V, X, T, 32>(vals, cloc, rloc, wlo, pieces, Xm, Y, n_pieces, R, C, T_slots, m, n, k, s);
   }
   switch (kc) {
-    case 16: return launch_kc<T, 16>(vals, cloc, rloc, wlo, pieces, X, Y, n_pieces, R, C, T_slots, m, n, k, s);
-    case 8: return launch_kc<T, 8>(vals, cloc, rloc, wlo, pieces, X, Y, n_pieces, R, C, T_slots, m, n, k, s);
-    case 4: return launch_kc<T, 4>(vals, cloc, rloc, wlo, pieces, X, Y, n_pieces, R, C, T_slots, m, n, k, s);
-    case 2: return launch_kc<T, 2>(vals, cloc, rloc, wlo, pieces, X, Y, n_pieces, R, C, T_slots, m, n, k, s);
-    default: return launch_kc<T, 1>(vals, cloc, rloc, wlo, pieces, X, Y, n_pieces, R, C, T_slots, m, n, k, s);
+    case 16: return launch_kc<V, X, T, 16>(vals, cloc, rloc, wlo, pieces, Xm, Y, n_pieces, R, C, T_slots, m, n, k, s);
+    case 8: return launch_kc<V, X, T, 8>(vals, cloc, rloc, wlo, pieces, Xm, Y, n_pieces, R, C, T_slots, m, n, k, s);
+    case 4: return launch_kc<V, X, T, 4>(vals, cloc, rloc, wlo, pieces, Xm, Y, n_pieces, R, C, T_slots, m, n, k, s);
+    case 2: return launch_kc<V, X, T, 2>(vals, cloc, rloc, wlo, pieces, Xm, Y, n_pieces, R, C, T_slots, m, n, k, s);
+    default: return launch_kc<V, X, T, 1>(vals, cloc, rloc, wlo, pieces, Xm, Y, n_pieces, R, C, T_slots, m, n, k, s);
   }
 }
 
@@ -234,26 +248,33 @@ int dispatch(const T* vals, const int* cloc, const int* rloc, const int* wlo, co
 // Plain C interface, bound with ctypes (cask_tpu_torch/ops/kernels/poh_kernels.py).
 // All pointers are device pointers: vals/cloc/rloc (ntiles·T_slots), wlo
 // (ntiles,) and pieces (n_pieces, 4) int32 rows (panel, first tile, end
-// tile, cut); X (n, k) and Y (m, k) row-major.  Every piece of a panel
+// tile, cut); X (n, k) and Y (m, k) row-major.  One entry per type
+// combination, cask_poh_spmm_<values>_<X> (cask_poh_spmm_f32 / _f64 for one
+// f32 or f64 type): Y is f64 for f64, else f32.  Every piece of a panel
 // covers the panel's rows; Y must be zeroed when some piece is cut, and
 // every element of Y is written otherwise.  T_slots is a multiple of 128.
 // The launch goes on `stream` and does not synchronise.  Returns the
 // cudaError_t of the launch (0 = cudaSuccess).
 extern "C" {
 
-int cask_poh_spmm_f32(const float* vals, const int* cloc, const int* rloc, const int* wlo,
-                      const int* pieces, const float* X, float* Y, int n_pieces, int R, int C,
-                      int T_slots, long long m, long long n, int k, void* stream) {
-  return dispatch<float>(vals, cloc, rloc, wlo, pieces, X, Y, n_pieces, R, C, T_slots, m, n, k,
-                         stream);
-}
+#define CASK_POH_SPMM(name, V, X, T)                                                          \
+  int name(const void* vals, const int* cloc, const int* rloc, const int* wlo,                \
+           const int* pieces, const void* X_, void* Y, int n_pieces, int R, int C,            \
+           int T_slots, long long m, long long n, int k, void* stream) {                      \
+    return dispatch<V, X, T>(vals, cloc, rloc, wlo, pieces, X_, Y, n_pieces, R, C, T_slots,   \
+                             m, n, k, stream);                                                \
+  }
 
-int cask_poh_spmm_f64(const double* vals, const int* cloc, const int* rloc, const int* wlo,
-                      const int* pieces, const double* X, double* Y, int n_pieces, int R, int C,
-                      int T_slots, long long m, long long n, int k, void* stream) {
-  return dispatch<double>(vals, cloc, rloc, wlo, pieces, X, Y, n_pieces, R, C, T_slots, m, n, k,
-                          stream);
-}
+CASK_POH_SPMM(cask_poh_spmm_f32, float, float, float)
+CASK_POH_SPMM(cask_poh_spmm_f64, double, double, double)
+CASK_POH_SPMM(cask_poh_spmm_bf16_bf16, __nv_bfloat16, __nv_bfloat16, float)
+CASK_POH_SPMM(cask_poh_spmm_bf16_f32, __nv_bfloat16, float, float)
+CASK_POH_SPMM(cask_poh_spmm_f32_bf16, float, __nv_bfloat16, float)
+CASK_POH_SPMM(cask_poh_spmm_f16_f16, __half, __half, float)
+CASK_POH_SPMM(cask_poh_spmm_f16_f32, __half, float, float)
+CASK_POH_SPMM(cask_poh_spmm_f32_f16, float, __half, float)
+
+#undef CASK_POH_SPMM
 
 const char* cask_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

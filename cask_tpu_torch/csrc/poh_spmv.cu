@@ -39,11 +39,18 @@
 //   cannot write outside the accumulator.
 // Sums are taken in the working type; the atomics make their order vary
 // from run to run (f32: within 1e-5 normwise of the plain twin).
+//
+// Half values or x (bf16 or f16, with the other the same half type or f32;
+// the reference's single-pass branch, poh_kernels.py:440): each widens
+// exactly to f32 as it loads, the products and sums are f32 and y is f32,
+// as the reference's promote(values, x, f32).  A half slot is 10 bytes in
+// place of 12.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "poh_common.cuh"
+#include "value_types.cuh"
 
 namespace {
 
@@ -52,15 +59,15 @@ using poh::reduce_peers;
 constexpr int kThreads = 512;
 constexpr int kUnroll = 4;  // slots in flight per thread
 
-template <typename T>
+template <typename V, typename X, typename A>
 __global__ void __launch_bounds__(kThreads)
-poh_spmv_kernel(const T* __restrict__ vals, const int* __restrict__ cloc,
+poh_spmv_kernel(const V* __restrict__ vals, const int* __restrict__ cloc,
                 const int* __restrict__ rloc, const int* __restrict__ wlo,
-                const int* __restrict__ panel_ptr, const T* __restrict__ x,
-                T* __restrict__ y, int splits, int R, int C, int T_slots, int64_t m,
+                const int* __restrict__ panel_ptr, const X* __restrict__ x,
+                A* __restrict__ y, int splits, int R, int C, int T_slots, int64_t m,
                 int64_t n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* acc = reinterpret_cast<T*>(smem_raw);
+  A* acc = reinterpret_cast<A*>(smem_raw);
   const int I = blockIdx.x / splits;
   const int piece = blockIdx.x % splits;
   const int t_lo = __ldg(panel_ptr + I);
@@ -69,40 +76,40 @@ poh_spmv_kernel(const T* __restrict__ vals, const int* __restrict__ cloc,
   const int tb = t_lo + static_cast<int>(static_cast<int64_t>(nt) * (piece + 1) / splits);
   if (ta == tb) return;  // nothing to add: y is zeroed by the wrapper
 
-  for (int r = threadIdx.x; r < R; r += kThreads) acc[r] = T(0);
+  for (int r = threadIdx.x; r < R; r += kThreads) acc[r] = A(0);
   __syncthreads();
 
   for (int t = ta; t < tb; ++t) {
     const int64_t base = static_cast<int64_t>(t) * T_slots;
     const int64_t col0 = static_cast<int64_t>(__ldg(wlo + t)) * C;
     for (int j0 = 0; j0 < T_slots; j0 += kThreads * kUnroll) {
-      T v[kUnroll];
+      A v[kUnroll];
       int c[kUnroll], r[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int j = j0 + u * kThreads + threadIdx.x;
-        v[u] = T(0);
+        v[u] = A(0);
         c[u] = 0;
         r[u] = 0;
         if (j < T_slots) {
-          v[u] = __ldcs(vals + base + j);
+          v[u] = A(cask::widen(__ldcs(vals + base + j)));
           c[u] = __ldcs(cloc + base + j);
           r[u] = __ldcs(rloc + base + j);
         }
       }
-      T xv[kUnroll];
+      A xv[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int64_t col = col0 + c[u];
-        xv[u] = (v[u] != T(0) && col >= 0 && col < n) ? __ldg(x + col) : T(0);
+        xv[u] = (v[u] != A(0) && col >= 0 && col < n) ? A(cask::widen(__ldg(x + col))) : A(0);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         // key: the row, or a key of its own for a padding or out-of-range slot
-        const bool live = v[u] != T(0) && r[u] >= 0 && r[u] < R;
+        const bool live = v[u] != A(0) && r[u] >= 0 && r[u] < R;
         const int key = live ? r[u] : -1 - static_cast<int>(threadIdx.x & 31);
         const unsigned peers = __match_any_sync(0xffffffffu, key);
-        T prod[1] = {v[u] * xv[u]};
+        A prod[1] = {v[u] * xv[u]};
         reduce_peers(peers, prod);
         if (live && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) {
           atomicAdd(acc + key, prod[0]);
@@ -114,24 +121,26 @@ poh_spmv_kernel(const T* __restrict__ vals, const int* __restrict__ cloc,
 
   const int64_t row0 = static_cast<int64_t>(I) * R;
   for (int r = threadIdx.x; r < R; r += kThreads) {
-    const T s = acc[r];
-    if (s != T(0) && row0 + r < m) atomicAdd(y + row0 + r, s);
+    const A s = acc[r];
+    if (s != A(0) && row0 + r < m) atomicAdd(y + row0 + r, s);
   }
 }
 
-template <typename T>
-int launch(const T* vals, const int* cloc, const int* rloc, const int* wlo,
-           const int* panel_ptr, const T* x, T* y, int n_panels, int splits, int R, int C,
+template <typename V, typename X, typename A>
+int launch(const void* vals, const int* cloc, const int* rloc, const int* wlo,
+           const int* panel_ptr, const void* x, void* y, int n_panels, int splits, int R, int C,
            int T_slots, long long m, long long n, void* stream) {
-  const long long smem = static_cast<long long>(R) * sizeof(T);
+  const long long smem = static_cast<long long>(R) * sizeof(A);
   if (n_panels < 1 || splits < 1 || R < 1 || C < 1 || T_slots < 1 ||
       static_cast<long long>(n_panels) * splits > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t e = poh::allow_smem(poh_spmv_kernel<T>, smem);
+  const cudaError_t e = poh::allow_smem(poh_spmv_kernel<V, X, A>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  poh_spmv_kernel<T><<<n_panels * splits, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      vals, cloc, rloc, wlo, panel_ptr, x, y, splits, R, C, T_slots, m, n);
+  poh_spmv_kernel<V, X, A>
+      <<<n_panels * splits, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const V*>(vals), cloc, rloc, wlo, panel_ptr, static_cast<const X*>(x),
+          static_cast<A*>(y), splits, R, C, T_slots, m, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -140,26 +149,31 @@ int launch(const T* vals, const int* cloc, const int* rloc, const int* wlo,
 // Plain C interface, bound with ctypes (cask_tpu_torch/ops/kernels/poh_kernels.py).
 // All pointers are device pointers: vals/cloc/rloc (ntiles·T_slots), wlo
 // (ntiles,) and panel_ptr (n_panels + 1,) int32; x (n,); y (m,), which must be
-// zeroed before the launch (the kernel adds into it).  The launch goes on
-// `stream` and does not synchronise.  Returns the cudaError_t of the launch
-// (0 = cudaSuccess).
+// zeroed before the launch (the kernel adds into it).  One entry per type
+// combination, cask_poh_spmv_<values>_<x> (cask_poh_spmv_f32 / _f64 for one
+// f32 or f64 type): y is f64 for f64, else f32 (the reference's
+// promote(values, x, f32)).  The launch goes on `stream` and does not
+// synchronise.  Returns the cudaError_t of the launch (0 = cudaSuccess).
 extern "C" {
 
-int cask_poh_spmv_f32(const float* vals, const int* cloc, const int* rloc, const int* wlo,
-                      const int* panel_ptr, const float* x, float* y, int n_panels,
-                      int splits, int R, int C, int T_slots, long long m, long long n,
-                      void* stream) {
-  return launch<float>(vals, cloc, rloc, wlo, panel_ptr, x, y, n_panels, splits, R, C,
-                       T_slots, m, n, stream);
-}
+#define CASK_POH_SPMV(name, V, X, A)                                                          \
+  int name(const void* vals, const int* cloc, const int* rloc, const int* wlo,                \
+           const int* panel_ptr, const void* x, void* y, int n_panels, int splits, int R,     \
+           int C, int T_slots, long long m, long long n, void* stream) {                      \
+    return launch<V, X, A>(vals, cloc, rloc, wlo, panel_ptr, x, y, n_panels, splits, R, C,    \
+                           T_slots, m, n, stream);                                            \
+  }
 
-int cask_poh_spmv_f64(const double* vals, const int* cloc, const int* rloc, const int* wlo,
-                      const int* panel_ptr, const double* x, double* y, int n_panels,
-                      int splits, int R, int C, int T_slots, long long m, long long n,
-                      void* stream) {
-  return launch<double>(vals, cloc, rloc, wlo, panel_ptr, x, y, n_panels, splits, R, C,
-                        T_slots, m, n, stream);
-}
+CASK_POH_SPMV(cask_poh_spmv_f32, float, float, float)
+CASK_POH_SPMV(cask_poh_spmv_f64, double, double, double)
+CASK_POH_SPMV(cask_poh_spmv_bf16_bf16, __nv_bfloat16, __nv_bfloat16, float)
+CASK_POH_SPMV(cask_poh_spmv_bf16_f32, __nv_bfloat16, float, float)
+CASK_POH_SPMV(cask_poh_spmv_f32_bf16, float, __nv_bfloat16, float)
+CASK_POH_SPMV(cask_poh_spmv_f16_f16, __half, __half, float)
+CASK_POH_SPMV(cask_poh_spmv_f16_f32, __half, float, float)
+CASK_POH_SPMV(cask_poh_spmv_f32_f16, float, __half, float)
+
+#undef CASK_POH_SPMV
 
 const char* cask_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

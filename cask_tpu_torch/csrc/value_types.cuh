@@ -1,17 +1,22 @@
-// The kernels' value types: f32, f64, and bf16, which is summed in f32.
+// The kernels' value types: f32, f64, and the half types bf16 and f16,
+// which are summed in f32.
 //
-// A bf16 value or operand widens exactly to f32 in registers
-// (__bfloat162float: a bf16 is the top half of the f32 of the same value);
-// sums run in the working type Work<O> of the output type O (float for f32
-// and bf16 outputs, double for f64); a bf16 output is rounded once, at the
-// store, to nearest even (__float2bfloat16_rn).  Vector loads and stores
-// move 16 bytes of the operand type at a time.
+// A half value or operand widens exactly to f32 in registers
+// (__bfloat162float: a bf16 is the top half of the f32 of the same value;
+// __half2float: every f16 is an f32); sums run in the working type Work<O>
+// of the output type O (float for f32, bf16 and f16 outputs, double for
+// f64); a half output is rounded once, at the store, to nearest even
+// (__float2bfloat16_rn, __float2half_rn).  Vector loads and stores move 16
+// bytes of the operand type at a time.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cask {
 
@@ -23,10 +28,28 @@ template <>
 struct Work<__nv_bfloat16> {
   using type = float;
 };
+template <>
+struct Work<__half> {
+  using type = float;
+};
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ double widen(double v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
+
+// a working-type sum as the output type O: rounded once, to nearest even,
+// for a half O
+template <typename O, typename A>
+__device__ __forceinline__ O narrow(A v) {
+  if constexpr (std::is_same_v<O, __nv_bfloat16>) {
+    return __float2bfloat16_rn(v);
+  } else if constexpr (std::is_same_v<O, __half>) {
+    return __float2half_rn(v);
+  } else {
+    return O(v);
+  }
+}
 
 // two f32 values rounded to bf16 and packed, lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -34,19 +57,35 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// the two bf16 values of a packed word, widened
-__device__ __forceinline__ float2 unpack_bf16x2(uint32_t w) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+// two f32 values rounded to the half type H and packed, lo in the low half
+template <typename H>
+__device__ __forceinline__ uint32_t pack_half2(float lo, float hi) {
+  if constexpr (std::is_same_v<H, __half>) {
+    const __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    return pack_bf16x2(lo, hi);
+  }
+}
+
+// the two values of the half type H in a packed word, widened
+template <typename H>
+__device__ __forceinline__ float2 unpack_half2(uint32_t w) {
+  if constexpr (std::is_same_v<H, __half>) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  } else {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  }
 }
 
 // VEC consecutive elements of a row into working-type registers: one vector
-// load (read-only path) of VEC elements, 16 bytes (8 for 4 bf16 values)
+// load (read-only path) of VEC elements, 16 bytes (8 for 4 half values)
 template <typename X, int VEC, typename A>
 __device__ __forceinline__ void load_vec(const X* p, A (&out)[VEC]) {
   if constexpr (VEC == 1) {
     out[0] = A(widen(__ldg(p)));
   } else if constexpr (sizeof(X) == 2) {
-    static_assert(VEC == 8 || VEC == 4, "bf16 vectors are 8 or 4 elements");
+    static_assert(VEC == 8 || VEC == 4, "half vectors are 8 or 4 elements");
     uint32_t w[VEC / 2];
     if constexpr (VEC == 8) {
       const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
@@ -57,7 +96,7 @@ __device__ __forceinline__ void load_vec(const X* p, A (&out)[VEC]) {
     }
 #pragma unroll
     for (int e = 0; e < VEC / 2; ++e) {
-      const float2 f = unpack_bf16x2(w[e]);
+      const float2 f = unpack_half2<X>(w[e]);
       out[2 * e] = A(f.x);
       out[2 * e + 1] = A(f.y);
     }
@@ -73,23 +112,24 @@ __device__ __forceinline__ void load_vec(const X* p, A (&out)[VEC]) {
 }
 
 // VEC working-type values stored as the output type O with streaming
-// stores: vector stores of 16 bytes (8 for 4 bf16 values) where the row's
+// stores: vector stores of 16 bytes (8 for 4 half values) where the row's
 // chunk is that wide and aligned (the caller's vec gate), scalar otherwise
 template <typename O, int VEC, typename A>
 __device__ __forceinline__ void store_vec(O* p, const A (&v)[VEC]) {
   if constexpr (sizeof(O) == 2) {
     if constexpr (VEC == 8) {
       __stcs(reinterpret_cast<uint4*>(p),
-             make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
-                        pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7])));
+             make_uint4(pack_half2<O>(v[0], v[1]), pack_half2<O>(v[2], v[3]),
+                        pack_half2<O>(v[4], v[5]), pack_half2<O>(v[6], v[7])));
     } else if constexpr (VEC == 4) {
       __stcs(reinterpret_cast<uint2*>(p),
-             make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3])));
+             make_uint2(pack_half2<O>(v[0], v[1]), pack_half2<O>(v[2], v[3])));
     } else {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
+        const O h = narrow<O>(v[e]);
         __stcs(reinterpret_cast<unsigned short*>(p + e),
-               __bfloat16_as_ushort(__float2bfloat16_rn(v[e])));
+               *reinterpret_cast<const unsigned short*>(&h));
       }
     }
   } else if constexpr (sizeof(O) == 4 && VEC % 4 == 0) {

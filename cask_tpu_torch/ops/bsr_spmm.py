@@ -19,7 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from cask_tpu_torch.formats.matrix import BSR, host, to_device
+from cask_tpu_torch.formats.matrix import BSR, host, to_device, value_dtype
 from cask_tpu_torch.ops.kernels.bsr_kernels import bsr_spmm
 from cask_tpu_torch.utils.platform import plan_device
 
@@ -47,6 +47,7 @@ class BsrSpmmKernel:
         tensors go to ``device`` (default: where ``a``'s tensors are, the
         CUDA device for host numpy arrays)."""
         device = plan_device(a.data, device)
+        vdt = value_dtype(a.data)  # bf16 values are planned as their exact f32
         br, bc = a.blocksize
         G = max(1, 8 // br)
         nbr = a.n_block_rows
@@ -62,7 +63,7 @@ class BsrSpmmKernel:
         vals[ib, :, slot, :] = data
         cols = np.zeros(T * G * K, dtype=np.int32)
         cols[ib * K + slot] = indices
-        return cls(vals=to_device(vals.reshape(T, G * br, K * bc), device),
+        return cls(vals=to_device(vals.reshape(T, G * br, K * bc), device, vdt),
                    cols=to_device(cols, device), shape=a.shape, blocksize=(br, bc),
                    G=G, K=K, k=int(k))
 

@@ -37,38 +37,53 @@ MAX_PAIRS = 80  # (d, c) slots a plan may hold for the kernel (kMaxDiags)
 _KERNEL_DTYPES = (torch.float32, torch.float64)  # values and operand of one type
 # the bf16 value path: values and operand each bf16 or f32, at least one bf16
 _BF16_PATH = (torch.bfloat16, torch.float32)
+# the half types a kernel takes on its half path (values and operand each H
+# or f32, at least one H): bf16 for the block and banded kernels (B1-B6,
+# B8-B15), bf16 and f16 for BSR SpMM, POH and LELL (B7, B16-B18)
+BF16 = (torch.bfloat16,)
+HALVES = (torch.bfloat16, torch.float16)
 VALUE_DTYPES = (*_KERNEL_DTYPES, torch.bfloat16)  # a plan's value types the kernels take
-_NAMES = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+_NAMES = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16",
+          torch.float16: "f16"}
 
 
 def _out_dtype(vals_dtype: torch.dtype, x_dtype: torch.dtype) -> torch.dtype:
+    """``promote(values, operand)``, with bf16 promoted to f32: the SpMV
+    output type of the block and banded kernels, and LELL's (the reference's
+    ``lell_kernels.py:_out_dtype``: f16 values and operand give f16)."""
     acc = torch.promote_types(vals_dtype, x_dtype)
     if torch.bfloat16 in (vals_dtype, x_dtype):
         acc = torch.promote_types(acc, torch.float32)
     return acc
 
 
-def kernel_types_ok(vals_dtype: torch.dtype, x_dtype: torch.dtype) -> bool:
+def kernel_types_ok(vals_dtype: torch.dtype, x_dtype: torch.dtype, halves=BF16) -> bool:
     """Do the kernels take these value and operand types?  One f32 or f64
-    type, or bf16 and f32 with at least one bf16 (summed in f32)."""
+    type, or one half type H of ``halves`` (bf16 for the block and banded
+    kernels) with H or f32, at least one H (summed in f32)."""
     if vals_dtype in _KERNEL_DTYPES and x_dtype == vals_dtype:
         return True
-    return (torch.bfloat16 in (vals_dtype, x_dtype) and vals_dtype in _BF16_PATH
-            and x_dtype in _BF16_PATH)
+    return any(h in (vals_dtype, x_dtype) and {vals_dtype, x_dtype} <= {h, torch.float32}
+               for h in halves)
 
 
-def _type_error(vals_dtype, x_dtype, out=None) -> TypeError:
+def _type_error(vals_dtype, x_dtype, out=None, halves=BF16) -> TypeError:
     got = f"values {vals_dtype}, operand {x_dtype}" + ("" if out is None else f", out {out}")
+    if halves != BF16:
+        names = " or ".join(str(h)[6:] for h in halves)
+        return TypeError(f"the kernel takes float32/float64 values and operand of one type, "
+                         f"or {names} values or operand with the other of the same half type "
+                         f"or float32; got {got}")
     return TypeError(f"the kernels take float32/float64 values and operand of one type (SpMM "
                      f"out of that type or float64), or bfloat16 values or operand with the "
                      f"other bfloat16 or float32 (out float32, SpMM also bfloat16); got {got}")
 
 
-def check_types(vals_dtype: torch.dtype, x_dtype: torch.dtype) -> None:
-    """Raise ``TypeError``, naming the combination, unless the SpMV kernels
-    take these value and operand types (:func:`kernel_types_ok`)."""
-    if not kernel_types_ok(vals_dtype, x_dtype):
-        raise _type_error(vals_dtype, x_dtype)
+def check_types(vals_dtype: torch.dtype, x_dtype: torch.dtype, halves=BF16) -> None:
+    """Raise ``TypeError``, naming the combination, unless the kernels take
+    these value and operand types (:func:`kernel_types_ok`)."""
+    if not kernel_types_ok(vals_dtype, x_dtype, halves):
+        raise _type_error(vals_dtype, x_dtype, halves=halves)
 
 
 def entry(prefix: str, vals_dtype: torch.dtype, x_dtype: torch.dtype, out=None) -> str:
@@ -82,17 +97,21 @@ def entry(prefix: str, vals_dtype: torch.dtype, x_dtype: torch.dtype, out=None) 
     return f"{prefix}_{_NAMES[vals_dtype]}_{_NAMES[x_dtype]}{tail}"
 
 
-def entries(prefix: str, spmm: bool, f64_sums: bool = False):
+def entries(prefix: str, spmm: bool, f64_sums: bool = False, halves=BF16):
     """Every C entry point of a kernel source, as :func:`entry` names them
-    (``f64_sums``: it has the f32-in, f64-out SpMM entry)."""
+    (``f64_sums``: it has the f32-in, f64-out SpMM entry; ``spmm``: its half
+    entries name their output, f32 or the half type; ``halves``: the half
+    types it takes)."""
     names = {entry(prefix, t, t) for t in _KERNEL_DTYPES}
     if f64_sums:
         names.add(entry(prefix, torch.float32, torch.float32, torch.float64))
-    for v in _BF16_PATH:
-        for x in _BF16_PATH:
-            if torch.bfloat16 in (v, x):
-                outs = _BF16_PATH[::-1] if spmm else (None,)
-                names.update(entry(prefix, v, x, o) for o in outs)
+    for h in halves:
+        path = (h, torch.float32)
+        for v in path:
+            for x in path:
+                if h in (v, x):
+                    outs = path[::-1] if spmm else (None,)
+                    names.update(entry(prefix, v, x, o) for o in outs)
     return sorted(names)
 
 
@@ -158,12 +177,12 @@ def vec_ok(k: int, *tensors: torch.Tensor) -> int:
                    for t in tensors))
 
 
-def bind(name: str, prefix: str, argtypes, *, spmm: bool,
-         f64_sums: bool = False) -> ctypes.CDLL:
+def bind(name: str, prefix: str, argtypes, *, spmm: bool, f64_sums: bool = False,
+         halves=BF16) -> ctypes.CDLL:
     """Load ``csrc/<name>.cu``'s library and give each entry point of
     :func:`entries` the argument types ``argtypes``."""
     lib = build.load(name)
-    for fname in entries(prefix, spmm, f64_sums):
+    for fname in entries(prefix, spmm, f64_sums, halves):
         fn = getattr(lib, fname)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

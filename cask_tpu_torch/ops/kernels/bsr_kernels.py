@@ -7,6 +7,11 @@ runs :func:`bsr_spmm_reference`, the same product in plain PyTorch.  It
 replaces ``cask_tpu/ops/pallas/bsr_kernels.py:BsrSpmmKernel`` (B7), whose
 double-buffered VMEM panel of DMA'd X block rows has no counterpart: the
 Hopper kernel gathers X rows by ``cols`` straight into registers.
+
+Types: f32 or f64 values and X of one type, or the half path (bf16 or f16
+values or X, with the other of the same half type or f32), which sums in
+f32; the output always has the values' type, as the reference's (a half Y
+even for an f32 X, each f32 sum rounded once).
 """
 
 from __future__ import annotations
@@ -17,8 +22,8 @@ from typing import TYPE_CHECKING
 
 import torch
 
-from cask_tpu_torch.ops.kernels import build
-from cask_tpu_torch.ops.kernels.bdia_kernels import _KERNEL_DTYPES, raise_on, vec_ok
+from cask_tpu_torch.ops.kernels.bdia_kernels import (HALVES, bind, check_types, entry, raise_on,
+                                                     vec_ok)
 
 if TYPE_CHECKING:
     from cask_tpu_torch.ops.bsr_spmm import BsrSpmmKernel
@@ -28,8 +33,9 @@ def bsr_spmm_reference(p: "BsrSpmmKernel", x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch ELL product: gather each block row's ``K`` X block rows
     by ``cols`` (rows ``n ≤ row < n_pad`` as zero), one batched
     ``(br, K·bc) @ (K·bc, k)`` product per block row, summed in
-    ``promote(vals, f32)``; the output has the values' type, as the
-    reference's.  Works on any device; the CUDA kernel is held against it."""
+    ``promote(vals, f32)`` with each side widened exactly; the output has
+    the values' type, as the reference's.  Works on any device; the CUDA
+    kernel is held against it."""
     m, n = p.shape
     br, bc = p.blocksize
     T = p.vals.shape[0]
@@ -46,14 +52,9 @@ def bsr_spmm_reference(p: "BsrSpmmKernel", x: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = build.load("bsr_spmm")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.cask_bsr_spmm_f32, lib.cask_bsr_spmm_f64):
-        fn.argtypes = [p, p, p, p, ll, i, i, i, i, ll, ll, ll, i, i, p]
-        fn.restype = ctypes.c_int
-    lib.cask_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.cask_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return bind("bsr_spmm", "cask_bsr_spmm", [p, p, p, p, ll, i, i, i, i, ll, ll, ll, i, i, p],
+                spmm=False, halves=HALVES)
 
 
 def bsr_spmm(p: "BsrSpmmKernel", x: torch.Tensor) -> torch.Tensor:
@@ -71,9 +72,7 @@ def bsr_spmm(p: "BsrSpmmKernel", x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"X on {x.device} but the plan on {p.vals.device}")
     if x.ndim != 2 or x.shape[0] != n:
         raise ValueError(f"X must have shape ({n}, k), got {tuple(x.shape)}")
-    if x.dtype not in _KERNEL_DTYPES or p.vals.dtype != x.dtype:
-        raise TypeError(f"kernel takes float32/float64 values and X of one type, "
-                        f"got vals {p.vals.dtype}, X {x.dtype}")
+    check_types(p.vals.dtype, x.dtype, HALVES)
     if p.vals.shape != (T, p.G * br, p.K * bc) or p.cols.shape != (T * p.G * p.K,) \
             or p.cols.dtype != torch.int32 or not 1 <= p.G <= 8:
         raise ValueError(f"vals {tuple(p.vals.shape)} / cols {tuple(p.cols.shape)} are not "
@@ -82,10 +81,10 @@ def bsr_spmm(p: "BsrSpmmKernel", x: torch.Tensor) -> torch.Tensor:
         raise ValueError("kernel needs contiguous X, vals and cols")
     k = int(x.shape[1])
     if m == 0 or n == 0 or k == 0:
-        return torch.zeros((m, k), dtype=x.dtype, device=x.device)
-    y = torch.empty((m, k), dtype=x.dtype, device=x.device)
+        return torch.zeros((m, k), dtype=p.vals.dtype, device=x.device)
+    y = torch.empty((m, k), dtype=p.vals.dtype, device=x.device)
     lib = _lib()
-    fn = lib.cask_bsr_spmm_f32 if x.dtype == torch.float32 else lib.cask_bsr_spmm_f64
+    fn = getattr(lib, entry("cask_bsr_spmm", p.vals.dtype, x.dtype))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(p.vals.data_ptr(), p.cols.data_ptr(), x.data_ptr(), y.data_ptr(), T, p.G,

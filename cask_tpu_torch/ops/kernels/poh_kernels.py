@@ -10,6 +10,11 @@ tensor it runs its plain PyTorch twin.  They replace
 gather and scatter: the Hopper kernels gather x and scatter into a
 shared-memory panel accumulator directly, in plain FP32/FP64.  The SpMM
 kernel works in the pieces of :func:`spmm_pieces`, built once with the plan.
+
+Types (:func:`out_dtype`): f32 or f64 values and operand of one type, or
+the half path (bf16 or f16 values or operand, with the other of the same
+half type or f32), which sums in f32 and returns f32, as the reference's
+``promote(values, x, f32)``.
 """
 
 from __future__ import annotations
@@ -21,8 +26,8 @@ from typing import TYPE_CHECKING, Optional
 import numpy as np
 import torch
 
-from cask_tpu_torch.ops.kernels import build
-from cask_tpu_torch.ops.kernels.bdia_kernels import _KERNEL_DTYPES, _out_dtype, raise_on
+from cask_tpu_torch.ops.kernels.bdia_kernels import (HALVES, _out_dtype, bind, check_types,
+                                                     entry, raise_on)
 
 if TYPE_CHECKING:
     from cask_tpu_torch.ops.poh import PohMatrix
@@ -71,14 +76,21 @@ def spmm_pieces(panel_ptr: torch.Tensor, cap: Optional[int] = None) -> torch.Ten
     return torch.from_numpy(pieces.astype(np.int32)).to(panel_ptr.device)
 
 
+def out_dtype(vals_dtype: torch.dtype, x_dtype: torch.dtype) -> torch.dtype:
+    """The POH kernels' output type: ``promote(values, x, f32)`` (the
+    reference's ``out_dt``, poh_kernels.py:408), f32 for every half
+    combination."""
+    return torch.promote_types(_out_dtype(vals_dtype, x_dtype), torch.float32)
+
+
 def poh_spmv_reference(p: "PohMatrix", x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch ``y[row] += val · x[col]`` over every slot: products in
-    ``promote(vals, x)`` (bf16 promoted to f32), the result in that type.
+    """Plain PyTorch ``y[row] += val · x[col]`` over every slot: each side
+    widened exactly, products in :func:`out_dtype`, the result in that type.
     The scatter sums in f64: ``index_add_`` on a CUDA tensor adds in no fixed
     order, and a power-law hub row gathers thousands of products, so an f32
     scatter would differ from run to run by more than the kernel's own
     rounding.  Works on any device; the CUDA kernel is held against it."""
-    acc = _out_dtype(p.vals.dtype, x.dtype)
+    acc = out_dtype(p.vals.dtype, x.dtype)
     rows, cols = _slot_coords(p)
     prod = p.vals.reshape(-1).to(acc) * _x_padded(p, x)[cols].to(acc)
     wide = torch.promote_types(acc, torch.float64)
@@ -89,7 +101,7 @@ def poh_spmv_reference(p: "PohMatrix", x: torch.Tensor) -> torch.Tensor:
 def poh_spmm_reference(p: "PohMatrix", x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch ``Y[row, :] += val · X[col, :]`` over every slot, as
     :func:`poh_spmv_reference`."""
-    acc = _out_dtype(p.vals.dtype, x.dtype)
+    acc = out_dtype(p.vals.dtype, x.dtype)
     rows, cols = _slot_coords(p)
     prod = p.vals.reshape(-1, 1).to(acc) * _x_padded(p, x)[cols].to(acc)
     wide = torch.promote_types(acc, torch.float64)
@@ -99,18 +111,12 @@ def poh_spmm_reference(p: "PohMatrix", x: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
-    lib = build.load(name)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "poh_spmv":  # ..., x, y, n_panels, splits, R, C, T, m, n, stream
         args = [p] * 7 + [i, i, i, i, i, ll, ll, p]
     else:  # ..., pieces, X, Y, n_pieces, R, C, T, m, n, k, stream
         args = [p] * 7 + [i, i, i, i, ll, ll, i, p]
-    for fn in (getattr(lib, f"cask_{name}_f32"), getattr(lib, f"cask_{name}_f64")):
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    lib.cask_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.cask_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return bind(name, f"cask_{name}", args, spmm=False, halves=HALVES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,9 +133,7 @@ def _check(p: "PohMatrix", x: torch.Tensor, ndim: int, what: str, whole_panel: b
     if x.ndim != ndim or x.shape[0] != n:
         raise ValueError(f"{what} must have shape ({n}{', k' if ndim == 2 else ''}), "
                          f"got {tuple(x.shape)}")
-    if x.dtype not in _KERNEL_DTYPES or p.vals.dtype != x.dtype:
-        raise TypeError(f"kernel takes float32/float64 values and {what} of one type, "
-                        f"got vals {p.vals.dtype}, {what} {x.dtype}")
+    check_types(p.vals.dtype, x.dtype, HALVES)
     slots = (p.ntiles, p.slot_rows, 128)
     if p.vals.shape != slots or p.cloc.shape != slots or p.rloc.shape != slots \
             or p.cloc.dtype != torch.int32 or p.rloc.dtype != torch.int32 \
@@ -138,9 +142,11 @@ def _check(p: "PohMatrix", x: torch.Tensor, ndim: int, what: str, whole_panel: b
                          "with int32 indices")
     if not all(t.is_contiguous() for t in (x, p.vals, p.cloc, p.rloc, p.wlo)):
         raise ValueError("kernel needs contiguous operands and slot arrays")
-    if whole_panel and p.row_panel * x.element_size() > _MAX_SMEM:
-        raise ValueError(f"row_panel {p.row_panel} needs {p.row_panel * x.element_size()} "
-                         f"bytes of shared memory; a block has at most {_MAX_SMEM}")
+    # the panel's partial sums are of the output type, whatever x's width
+    acc_bytes = p.row_panel * out_dtype(p.vals.dtype, x.dtype).itemsize
+    if whole_panel and acc_bytes > _MAX_SMEM:
+        raise ValueError(f"row_panel {p.row_panel} needs {acc_bytes} bytes of shared "
+                         f"memory; a block has at most {_MAX_SMEM}")
 
 
 def poh_spmv(p: "PohMatrix", x: torch.Tensor) -> torch.Tensor:
@@ -152,7 +158,7 @@ def poh_spmv(p: "PohMatrix", x: torch.Tensor) -> torch.Tensor:
         return poh_spmv_reference(p, x)
     _check(p, x, 1, "x", whole_panel=True)
     m, n = p.shape
-    y = torch.zeros(m, dtype=x.dtype, device=x.device)  # the kernel adds into it
+    y = torch.zeros(m, dtype=out_dtype(p.vals.dtype, x.dtype), device=x.device)  # added into
     if m == 0 or n == 0:
         return y
     # split each panel's tile run so the grid holds _CTAS_PER_SM CTAs per SM
@@ -160,7 +166,7 @@ def poh_spmv(p: "PohMatrix", x: torch.Tensor) -> torch.Tensor:
     want = -(-_CTAS_PER_SM * _sm_count(x.device.index or 0) // p.n_panels)
     splits = max(1, min(want, p.ntiles))
     lib = _lib("poh_spmv")
-    fn = lib.cask_poh_spmv_f32 if x.dtype == torch.float32 else lib.cask_poh_spmv_f64
+    fn = getattr(lib, entry("cask_poh_spmv", p.vals.dtype, x.dtype))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(p.vals.data_ptr(), p.cloc.data_ptr(), p.rloc.data_ptr(), p.wlo.data_ptr(),
@@ -182,14 +188,15 @@ def poh_spmm(p: "PohMatrix", x: torch.Tensor) -> torch.Tensor:
     _check(p, x, 2, "X", whole_panel=False)  # the kernel splits a panel's rows
     m, n = p.shape
     k = int(x.shape[1])
+    out = out_dtype(p.vals.dtype, x.dtype)
     if m == 0 or n == 0 or k == 0:
-        return torch.zeros((m, k), dtype=x.dtype, device=x.device)
+        return torch.zeros((m, k), dtype=out, device=x.device)
     pieces = p.spmm_pieces
     # a cut panel's pieces add into Y; otherwise every element is written
     cut = pieces.shape[0] > p.n_panels
-    y = (torch.zeros if cut else torch.empty)((m, k), dtype=x.dtype, device=x.device)
+    y = (torch.zeros if cut else torch.empty)((m, k), dtype=out, device=x.device)
     lib = _lib("poh_spmm")
-    fn = lib.cask_poh_spmm_f32 if x.dtype == torch.float32 else lib.cask_poh_spmm_f64
+    fn = getattr(lib, entry("cask_poh_spmm", p.vals.dtype, x.dtype))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(p.vals.data_ptr(), p.cloc.data_ptr(), p.rloc.data_ptr(), p.wlo.data_ptr(),

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from cask_tpu_torch.formats.convert import coo_from_arrays, coo_to_csr, lex_order
-from cask_tpu_torch.formats.matrix import CSR, host, to_device
+from cask_tpu_torch.formats.matrix import CSR, host, to_device, value_dtype
 from cask_tpu_torch.ops.kernels.lell_kernels import lell_lane_sums, lell_lane_sums_reference
 from cask_tpu_torch.utils.platform import plan_device
 
@@ -88,8 +88,11 @@ class LellMatrix:
             # stop there, so y is padded (the reference returns it short)
             y = torch.cat([y, y.new_zeros(m - y.shape[0])])
         if self.rem_data.shape[0]:
-            prod = (self.rem_data * x[self.rem_col.long()]).to(y.dtype)
-            y = y.index_add(0, self.rem_row.long(), prod)
+            # products and their sum in the output's sum type (f32 for a half
+            # output), rounded once: the reference rounds each half product
+            acc = torch.promote_types(y.dtype, torch.float32)
+            prod = self.rem_data.to(acc) * x[self.rem_col.long()].to(acc)
+            y = y.to(acc).index_add(0, self.rem_row.long(), prod).to(y.dtype)
         return y
 
 
@@ -100,6 +103,7 @@ def lell_plan(a: CSR, *, max_layers: int = 6, groups: int = 8, device=None) -> L
     if _LANE % groups:
         raise ValueError("groups must divide 128")
     device = plan_device(a.data, device)
+    vdt = value_dtype(a.data)  # bf16 values are planned as their exact f32
     B = _LANE // groups
     m, n = a.shape
     indptr = host(a.indptr).astype(np.int64)
@@ -132,8 +136,8 @@ def lell_plan(a: CSR, *, max_layers: int = 6, groups: int = 8, device=None) -> L
 
     spill = ~keep
     return LellMatrix(
-        vals=to_device(vals, device), idx=to_device(idx, device),
-        rem_data=to_device(data[order][spill], device),
+        vals=to_device(vals, device, vdt), idx=to_device(idx, device),
+        rem_data=to_device(data[order][spill], device, vdt),
         rem_row=to_device(rows[order][spill].astype(np.int32), device),
         rem_col=to_device(indices[order][spill].astype(np.int32), device),
         shape=(m, n), groups=groups,
@@ -168,7 +172,9 @@ class ChunkedLell:
     def _partial(self, x, lane_sums):
         m = self.shape[0]
         sums = lane_sums(self.vals, self.idx, x, 1).reshape(-1)  # (S_pad,)
-        return sums.new_zeros(m + 1).index_add_(0, self.slot2row.long(), sums)[:m]
+        acc = torch.promote_types(sums.dtype, torch.float32)  # a half output sums in f32
+        return (sums.new_zeros(m + 1, dtype=acc).index_add_(0, self.slot2row.long(),
+                                                            sums.to(acc))[:m].to(sums.dtype))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -247,6 +253,7 @@ def lell_plan_hyb(a: CSR, *, groups: int = 8, max_layers: int = 6, chunk_layers:
     load in the grouped pack exceeds the layer budget.  The tensors go to
     ``device`` (default as :func:`lell_plan`)."""
     device = plan_device(a.data, device)
+    vdt = value_dtype(a.data)  # bf16 values are planned as their exact f32
     m, n = a.shape
     lens = np.diff(host(a.indptr).astype(np.int64))
     B = _LANE // groups
@@ -262,8 +269,9 @@ def lell_plan_hyb(a: CSR, *, groups: int = 8, max_layers: int = 6, chunk_layers:
         sum_duplicates=False,
     )
     main = lell_plan(main_csr, max_layers=max_layers, groups=groups, device=device)
+    main = dataclasses.replace(main, vals=main.vals.to(vdt), rem_data=main.rem_data.to(vdt))
     vals, idx, slot2row = _pack_chunked_arrays(m, all_rows[sel_hub], indices[sel_hub],
                                                data[sel_hub], chunk_layers, dtype=data.dtype)
-    hub = ChunkedLell(vals=to_device(vals, device), idx=to_device(idx, device),
+    hub = ChunkedLell(vals=to_device(vals, device, vdt), idx=to_device(idx, device),
                       slot2row=to_device(slot2row, device), shape=(m, n))
     return HybLell(main=main, hub=hub)

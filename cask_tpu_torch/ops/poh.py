@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from cask_tpu_torch.formats.convert import coo_to_csr
-from cask_tpu_torch.formats.matrix import COO, CSR, host, to_device
+from cask_tpu_torch.formats.matrix import COO, CSR, host, to_device, torch_dtype, value_dtype
 from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmm, poh_spmv, spmm_pieces
 from cask_tpu_torch.utils.platform import plan_device
 
@@ -115,6 +115,10 @@ class PohMatrix:
         true_nnz = int(torch.count_nonzero(self.vals))
         return true_nnz / max(self.vals.numel(), 1)
 
+    def astype(self, dtype) -> "PohMatrix":
+        """The plan with its values cast to ``dtype`` (the slot layout stays)."""
+        return dataclasses.replace(self, vals=self.vals.to(torch_dtype(dtype)))
+
     def to(self, device) -> "PohMatrix":
         return PohMatrix(vals=self.vals.to(device), cloc=self.cloc.to(device),
                          rloc=self.rloc.to(device), wlo=self.wlo.to(device),
@@ -150,6 +154,7 @@ def poh_plan(a: CSR, *, row_panel: int = 4096, col_window="auto",
     reference's floor (a TPU block-shape rule kept so plans coincide).
     """
     device = plan_device(a.data, device)
+    vdt = value_dtype(a.data)  # bf16 values are planned as their exact f32
     m, n = a.shape
     if tile_slots % _LANE:
         raise ValueError("tile_slots must be a multiple of 128")
@@ -216,7 +221,7 @@ def poh_plan(a: CSR, *, row_panel: int = 4096, col_window="auto",
     last[:-1] = (panel[1:] != panel[:-1]).astype(np.int32)
 
     return PohMatrix(
-        vals=to_device(vals, device), cloc=to_device(cloc, device),
+        vals=to_device(vals, device, vdt), cloc=to_device(cloc, device),
         rloc=to_device(rloc, device), wlo=to_device(wlo, device),
         whi=to_device(np.minimum(wlo + 1, nseg - 1).astype(np.int32), device),
         panel=to_device(panel, device), first=to_device(first, device),
@@ -238,11 +243,11 @@ def poh_to_coo(p: PohMatrix) -> COO:
 
 
 def poh_transpose_plan(p: PohMatrix, **plan_kw) -> PohMatrix:
-    """Pack for ``Aᵀ`` on the plan's device: a host-side one-time repack
-    (the slot layout has no cheap in-place transpose).  Build once and
-    reuse."""
+    """Pack for ``Aᵀ`` on the plan's device, in the plan's value type: a
+    host-side one-time repack (the slot layout has no cheap in-place
+    transpose).  Build once and reuse."""
     coo = poh_to_coo(p)
     coo_t = COO(data=coo.data, row=coo.col, col=coo.row, shape=(p.shape[1], p.shape[0]))
     plan_kw.setdefault("tile_slots", p.slot_rows * _LANE)
     plan_kw.setdefault("device", p.device)
-    return poh_plan(coo_to_csr(coo_t), **plan_kw)
+    return poh_plan(coo_to_csr(coo_t), **plan_kw).astype(p.dtype)

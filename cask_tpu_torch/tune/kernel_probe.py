@@ -1,6 +1,6 @@
 """Take apart what sets the time of the POH SpMM and slab SpMM kernels.
 
-    python3 -m cask_tpu_torch.tune.kernel_probe [--slab]
+    python3 -m cask_tpu_torch.tune.kernel_probe [--slab | --types]
     env PYTHONPATH=<another checkout> python3 <this checkout>/cask_tpu_torch/tune/kernel_probe.py
 
 The second form times another checkout's kernels with this script (it uses
@@ -24,14 +24,28 @@ measurement, CUDA events, median of 10 samples of 3 calls:
   removes is what it costs.  A checkout whose source the edits do not fit
   skips them.
 - Slab SpMM (``bdia_spmm_slab``) on ``fem_blocks(512, dof=4)`` at k = 128,
-  f32 and f64, and the f32 kernel's variants (through its own wrapper):
+  f32 and f64, beside the cuSPARSE product (``torch.sparse_csr_tensor`` @ X,
+  f32, TF32 off), and the f32 kernel's variants (through its own wrapper):
   without its tensor-core products, without its copies, with 4 stages,
-  without the L2 evict-first hint on the slab stream, and through the
-  generic copy loops that the bf16 instantiations use.
+  without the L2 evict-first hint on the slab stream, through the generic
+  copy loops that the bf16 instantiations use, as 3xTF32 (without the
+  lo·lo pass), with the lo parts cut toward zero in place of rounded, and
+  both (the kernel of PRs 5-6).
+  Each variant that computes the product also gives its normwise error
+  against f64 on ``fem_blocks(16, dof=4)`` at k = 128, plain and with the
+  12 mantissa bits below TF32's set in every value and X element (the
+  TF32-sensitive case), beside the plain FP32 twin's error there.
 - ``mma.sync`` m16n8k8 TF32 alone, every SM full of warps: the ceiling of
   the slab's products on this card.
 
 ``--slab`` runs only the f32 slab and its variants.
+
+``--types`` times B7 and B16-B18 at their headline sizes in every value
+type the checkout's kernels take, f32 and f64 first (POH SpMV, POH SpMM at
+k = 32 and ``HybLell.spmv`` on the power law above; BSR SpMM on
+``fem_blocks(512, dof=4)`` at k = 128), so that two versions' f32 and f64
+times can be compared in one run; a combination a version refuses prints
+its refusal.
 """
 
 from __future__ import annotations
@@ -41,6 +55,7 @@ import subprocess
 import sys
 
 PL_N = 1_000_000
+FEM_NX = 512  # fem_blocks(FEM_NX, dof=4): 1,048,576 rows
 
 # text edits of csrc/poh_spmm.cu (old, new), combined into the variants below
 _NO_ATOMICS = ("atomicAdd(acc + key * KC + cl, sum)", "acc[key * KC + cl] += sum")
@@ -78,11 +93,20 @@ def _ms(fn) -> float:
 
 # name -> text edits of csrc/bdia_slab_spmm.cu: the f32 kernel without its
 # tensor-core products (only the copies, barriers and stores stay), without
-# its copies (products on whatever shared memory holds), and with the bf16
-# types' copy loops in place of its own
+# its copies (products on whatever shared memory holds), with the bf16
+# types' copy loops in place of its own, and without the 4xTF32 kernel's
+# lo·lo pass, its rounded lo parts, or both (the kernel of PRs 5-6)
+_LOLO = ("            for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], alo[i], blo[j]);",
+         "            for (int j = 0; j < kJ; ++j) {}")
 SLAB_VARIANTS = {
     "as built": [],
-    "no products": [("            for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], alo[i], bhi[j]);",
+    "3xTF32 (no lo*lo pass)": [_LOLO],
+    "lo cut toward zero (as PRs 5-6)": [(
+        "(kRound ? 0x1000u : 0u)", "0u")],
+    "3xTF32, lo cut (PRs 5-6)": [_LOLO, (
+        "(kRound ? 0x1000u : 0u)", "0u")],
+    "no products": [_LOLO,
+                    ("            for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], alo[i], bhi[j]);",
                      "            for (int j = 0; j < kJ; ++j) {}"),
                     ("            for (int j = 0; j < kJ; ++j) mma_tf32(acc[i][j], ahi[i], blo[j]);",
                      "            for (int j = 0; j < kJ; ++j) {}"),
@@ -202,6 +226,72 @@ extern "C" int run(float* out, int blocks, int iters, void* stream) {
 """
 
 
+def _sparse_csr(a, dev):
+    """The BSR matrix as an f32 torch sparse CSR tensor on ``dev``."""
+    import numpy as np
+    import torch
+
+    from cask_tpu_torch.formats.convert import to_scipy
+
+    s = to_scipy(a).tocsr()
+    return torch.sparse_csr_tensor(torch.from_numpy(s.indptr.astype(np.int32)),
+                                   torch.from_numpy(s.indices.astype(np.int32)),
+                                   torch.from_numpy(s.data.astype(np.float32)),
+                                   size=s.shape).to(dev)
+
+
+def _error_cases(dev):
+    """(name, slab plan, X) of the slab's error-class check: fem_blocks(16,
+    dof=4) f32 at k = 128, plain and TF32-sensitive (the 12 mantissa bits
+    below TF32's set in every value and X element)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+    from cask_tpu_torch.formats.generate import fem_blocks
+    from cask_tpu_torch.ops.bdia_slab import slab_auto_plan
+
+    def low(v):
+        bits = v.view(np.int32).copy()
+        bits[v != 0] |= 0x0FFF
+        return bits.view(np.float32)
+
+    base = fem_blocks(16, dof=4, dtype=np.float32, return_bsr=True)
+    x = np.random.default_rng(55).standard_normal((base.shape[1], 128)).astype(np.float32)
+    out = []
+    for name, bsr, xh in (("headline-shaped", base, x),
+                          ("TF32-sensitive", dataclasses.replace(
+                              base, data=low(np.asarray(base.data))), low(x))):
+        out.append((name, slab_auto_plan(ct.bdia_plan(bsr, device=dev)),
+                    torch.from_numpy(xh).to(dev)))
+    return out
+
+
+def _slab_error(name, sl, x) -> str:
+    """The slab kernel's and its plain FP32 twin's normwise errors against
+    f64 on one case, and their ratio."""
+    import dataclasses
+
+    import torch
+
+    from cask_tpu_torch.ops.kernels.bdia_slab_kernels import (bdia_spmm_slab,
+                                                              bdia_spmm_slab_reference)
+
+    exact = bdia_spmm_slab_reference(dataclasses.replace(sl, slabs=sl.slabs.double()),
+                                     x.double())
+    y = bdia_spmm_slab(sl, x)
+    torch.cuda.synchronize()
+    twin = bdia_spmm_slab_reference(sl, x)
+
+    def err(v):
+        return float((v.double() - exact).norm() / exact.norm())
+
+    e_k, e_t = err(y), err(twin)
+    return f"{name} {e_k:.3e} (twin {e_t:.3e}, {e_k / e_t:.2f}x)"
+
+
 def _one_panel(p, i: int):
     """Panel ``i``'s tiles as a plan of their own (R rows)."""
     ptr = p.panel_ptr.cpu()
@@ -210,6 +300,49 @@ def _one_panel(p, i: int):
                                              "last")}
     return type(p)(panel=p.panel[ta:tb] * 0, shape=(p.row_panel, p.shape[1]),
                    row_panel=p.row_panel, col_window=p.col_window, **cut)
+
+
+def _types(dev) -> None:
+    """``--types``: B7 and B16-B18 by value and operand type."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+    from cask_tpu_torch.formats.generate import fem_blocks, power_law
+    from cask_tpu_torch.ops.bsr_spmm import BsrSpmmKernel
+    from cask_tpu_torch.ops.kernels.bsr_kernels import bsr_spmm
+    from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmm, poh_spmv
+
+    f32, f64, bf, f16 = torch.float32, torch.float64, torch.bfloat16, torch.float16
+    combos = [(f32, f32), (f64, f64), (bf, bf), (bf, f32), (f16, f16), (f16, f32)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    pl = power_law(PL_N, avg_degree=12, dtype=np.float64, seed=3)
+    fem = fem_blocks(FEM_NX, dof=4, dtype=np.float64, seed=0, return_bsr=True)
+    x = torch.randn(PL_N, generator=gen, device=dev, dtype=f64)
+    X = torch.randn((PL_N, 32), generator=gen, device=dev, dtype=f64)
+    Xw = torch.randn((fem.shape[1], 128), generator=gen, device=dev, dtype=f64)
+    plans = {}
+    for vdt, xdt in combos:
+        if vdt not in plans:  # each value type planned from its own matrix, as a user would
+            a = pl.astype(np.float32 if vdt != f64 else np.float64).to(dev).astype(vdt)
+            b = fem.astype(np.float32 if vdt != f64 else np.float64).to(dev).astype(vdt)
+            plans[vdt] = (ct.poh_plan(a), ct.lell_plan_hyb(a), BsrSpmmKernel.plan(b, 128))
+            del a, b
+        p, h, q = plans[vdt]
+        xv, Xv, Xwv = x.to(xdt), X.to(xdt), Xw.to(xdt)
+        tag = f"values {str(vdt)[6:]}, operand {str(xdt)[6:]}"
+        for name, fn in (("poh_spmv", lambda: poh_spmv(p, xv)),
+                         ("poh_spmm k=32", lambda: poh_spmm(p, Xv)),
+                         ("HybLell.spmv", lambda: h.spmv(xv)),
+                         ("bsr_spmm k=128", lambda: bsr_spmm(q, Xwv))):
+            try:
+                fn()
+            except (TypeError, RuntimeError) as e:
+                print(f"[probe] types {name} {tag}: refused ({str(e).splitlines()[0][:100]})",
+                      flush=True)
+                continue
+            print(f"[probe] types {name} {tag}: {_ms(fn) * 1e3:.1f} us", flush=True)
 
 
 def main() -> int:
@@ -232,6 +365,9 @@ def main() -> int:
     print(f"[probe] package {ct.__file__}; card {card}", flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    if "--types" in sys.argv[1:]:
+        _types(dev)
+        return 0
     slab_only = "--slab" in sys.argv[1:]
 
     variants = {} if slab_only else _poh_variants()
@@ -271,6 +407,7 @@ def main() -> int:
                       f"{_ms(call) * 1e3:.1f} us", flush=True)
         del p, one, X
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     for dt in (torch.float32,) if slab_only else (torch.float32, torch.float64):
         a = fem_blocks(512, dof=4, dtype=np.float32 if dt == torch.float32 else np.float64,
                        seed=0, return_bsr=True)
@@ -278,14 +415,22 @@ def main() -> int:
         X = torch.randn((a.shape[1], 128), generator=gen, device=dev, dtype=dt)
         print(f"[probe] bdia_spmm_slab {str(dt)[6:]} k=128 (g {sl.g}, W {sl.width}): "
               f"{_ms(lambda: bdia_spmm_slab(sl, X)) * 1e3:.1f} us", flush=True)
-        if dt == torch.float32:  # the wrapper pointed at each variant's library in turn
-            load = build.load
+        if dt == torch.float32:
+            S = _sparse_csr(a, dev)
+            print(f"[probe] cuSPARSE (torch.sparse_csr_tensor @ X) float32 k=128: "
+                  f"{_ms(lambda: S @ X) * 1e3:.1f} us", flush=True)
+            del S
+            cases = _error_cases(dev)
+            load = build.load  # the wrapper pointed at each variant's library in turn
             try:
                 for vname, so in slab_variants.items():
                     build.load = lambda name, so=so: ctypes.CDLL(str(so))
                     bsk._lib.cache_clear()
+                    errs = "" if vname in ("no products", "no copies") else \
+                        "; error vs f64 " + ", ".join(_slab_error(c, sl_c, x_c)
+                                                      for c, sl_c, x_c in cases)
                     print(f"[probe] bdia_spmm_slab float32 k=128, variant '{vname}': "
-                          f"{_ms(lambda: bdia_spmm_slab(sl, X)) * 1e3:.1f} us", flush=True)
+                          f"{_ms(lambda: bdia_spmm_slab(sl, X)) * 1e3:.1f} us{errs}", flush=True)
             finally:
                 build.load = load
                 bsk._lib.cache_clear()

@@ -11,7 +11,7 @@ that has no JAX, without the suite's conftest (which configures JAX):
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
 Tolerances: f64 ≤ 1e-12 normwise (the same products in the same pair or
-diagonal order as the twin), f32 ≤ 1e-5; the f32 slab kernel's 3xTF32
+diagonal order as the twin), f32 ≤ 1e-5; the f32 slab kernel's 4xTF32
 products ≤ 2e-6 on a case where one TF32 pass is off by more than 1e-5.
 """
 
@@ -41,6 +41,7 @@ from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmm, dia_spmm_reference,
 from cask_tpu_torch.ops.kernels.lell_kernels import lell_lane_sums, lell_lane_sums_reference
 from cask_tpu_torch.ops.kernels.poh_kernels import (poh_spmm, poh_spmm_reference, poh_spmv,
                                                     poh_spmv_reference)
+from cask_tpu_torch.ops.poh import poh_to_coo
 from cask_tpu_torch.ops.spmv import PlanCache
 from cask_tpu_torch.tune import timing
 
@@ -478,7 +479,7 @@ def _low_bits(a: np.ndarray) -> np.ndarray:
 
 @pytest.mark.parametrize("padded", [False, True])
 def test_slab_kernel_is_f32_class_where_tf32_is_not(cuda, padded):
-    # 3xTF32 keeps the low mantissa bits that one TF32 pass drops
+    # 4xTF32 keeps the low mantissa bits that one TF32 pass drops
     bsr = fem_blocks(16, dof=4, dtype=np.float32, return_bsr=True)
     bsr = dataclasses.replace(bsr, data=_low_bits(np.asarray(bsr.data)))
     sl = slab_auto_plan(ct.bdia_plan(bsr, device=cuda))
@@ -819,11 +820,12 @@ def test_poh_kernels_raise_on_what_they_do_not_take(cuda):
     x = torch.ones(a.shape[1], device=cuda)
     with pytest.raises(TypeError):
         poh_spmv(p, x.double())
-    bf = dataclasses.replace(p, vals=p.vals.to(torch.bfloat16))
-    with pytest.raises(TypeError):
-        poh_spmv(bf, x.to(torch.bfloat16))
-    with pytest.raises(TypeError):
-        poh_spmm(bf, x.to(torch.bfloat16)[:, None])
+    # half values take the half path (tests below); mixed half types do not
+    bf = p.astype(torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        poh_spmv(bf, x.to(torch.float16))
+    with pytest.raises(TypeError, match="float16"):
+        poh_spmm(p.astype(torch.float16), x.double()[:, None])
     with pytest.raises(ValueError):
         poh_spmv(p, x.cpu())  # plan on the card, x on the CPU
     with pytest.raises(ValueError):
@@ -891,8 +893,8 @@ def test_lell_kernel_raises_on_what_it_does_not_take(cuda):
     a = LELL_CASES["uniform"]().astype(np.float32)
     p = ct.lell_plan(a, device=cuda)
     x = torch.ones(a.shape[1], device=cuda)
-    with pytest.raises(TypeError):
-        lell_lane_sums(p.vals.to(torch.bfloat16), p.idx, x.to(torch.bfloat16), 8)
+    with pytest.raises(TypeError, match="bfloat16"):
+        lell_lane_sums(p.vals.to(torch.bfloat16), p.idx, x.to(torch.float16), 8)
     with pytest.raises(TypeError):
         lell_lane_sums(p.vals, p.idx, x.double(), 8)
     with pytest.raises(ValueError):
@@ -910,22 +912,24 @@ BF16_TOL = 1e-5  # f32 out, vs the twin: the same bf16 products summed in f32
 BF16_SLAB_TOL = 2e-6  # f32 out, the slab's split TF32 products vs the twin
 
 
-def _bf16_close(y, twin32) -> bool:
-    """Every element of a bf16 output within one bf16 ulp of the twin's f32
-    sum, plus the f32 rounding by which the two sums may differ (2^-20 of
-    the largest |Y|): y is that sum rounded once, to nearest even."""
+def _half_close(y, twin32) -> bool:
+    """Every element of a bf16 or f16 output within one ulp of its type of
+    the twin's f32 sum, plus the f32 rounding by which the two sums may
+    differ (2^-20 of the largest |Y|): y is that sum rounded once, to
+    nearest even."""
+    mant, emin = (7, -126) if y.dtype == BF16 else (10, -14)
     y, ref = y.double().cpu(), twin32.double().cpu()
-    exp = torch.floor(torch.log2(ref.abs().clamp_min(1e-30)))
-    ulp = torch.pow(2.0, exp - 7)
+    exp = torch.floor(torch.log2(ref.abs().clamp_min(1e-30))).clamp_min(emin)
+    ulp = torch.pow(2.0, exp - mant)
     slack = 2.0 ** -20 * float(ref.abs().max())
     return bool(((y - ref).abs() <= ulp + slack).all())
 
 
 def _check_bf16(y, twin, out, tol=BF16_TOL):
     """f32 out: normwise within ``tol`` of the twin; bf16 out: see
-    :func:`_bf16_close` (``twin`` is the twin's f32 result)."""
+    :func:`_half_close` (``twin`` is the twin's f32 result)."""
     if out == BF16:
-        assert y.dtype == BF16 and _bf16_close(y, twin)
+        assert y.dtype == BF16 and _half_close(y, twin)
     else:
         assert y.dtype == F32 and _relerr(y, twin) <= tol
 
@@ -1025,26 +1029,22 @@ def test_bf16_slab_matches_twin_in_both_frames(cuda, name, vdt, xdt, k, out):
 
 def _slab_errors(sl, x):
     """(kernel, plain FP32 twin) normwise errors against the exact f64
-    product of the slabs' and X's values, and ‖|S|·|X|‖ / ‖S·X‖."""
+    product of the slabs' and X's values."""
     s64 = dataclasses.replace(sl, slabs=sl.slabs.double())
     exact = bdia_spmm_slab_reference(s64, x.double())
     y = bdia_spmm_slab(sl, x)
     torch.cuda.synchronize()
     twin = bdia_spmm_slab_reference(sl, x)  # f32 sums (TF32 off: full FP32 products)
-    mag = bdia_spmm_slab_reference(dataclasses.replace(s64, slabs=s64.slabs.abs()),
-                                   x.double().abs())
-    return _relerr(y, exact), _relerr(twin, exact), float(mag.norm() / exact.norm())
+    return _relerr(y, exact), _relerr(twin, exact)
 
 
 @pytest.mark.parametrize("case", ["headline-shaped", "TF32-sensitive"])
 @pytest.mark.parametrize("vdt,xdt", [(F32, F32), (BF16, F32), (F32, BF16)])
 def test_slab_error_class_is_the_plain_fp32_twins(cuda, case, vdt, xdt):
-    # the split TF32 products (3 passes f32 x f32, 2 with one bf16 operand)
-    # stay within 4x of the plain FP32 twin's own error against f64, but for
-    # one case: 3xTF32 drops lo·lo, at most 2^-22·|s||x| a product, and on
-    # the TF32-sensitive case (every operand's 12 low mantissa bits set)
-    # those terms all share the product's sign.  There it misses 4x (4.47x
-    # on an H100 80GB HBM3 in chip_smoke.py), so that bound is added
+    # the split TF32 products (4 passes f32 x f32, 2 with one bf16 operand)
+    # stay within 4x of the plain FP32 twin's own error against f64, also on
+    # the TF32-sensitive case (every operand's 12 low mantissa bits set),
+    # where 3xTF32's dropped lo·lo terms all shared the product's sign
     assert not torch.backends.cuda.matmul.allow_tf32
     bsr = fem_blocks(16, dof=4, dtype=np.float32, return_bsr=True)
     rng = np.random.default_rng(55)
@@ -1053,9 +1053,8 @@ def test_slab_error_class_is_the_plain_fp32_twins(cuda, case, vdt, xdt):
         bsr = dataclasses.replace(bsr, data=_low_bits(np.asarray(bsr.data)))
         x = _low_bits(x)
     sl = slab_auto_plan(ct.bdia_plan(bsr, device=cuda).astype(vdt))
-    err_kernel, err_twin, mag = _slab_errors(sl, torch.from_numpy(x).to(cuda).to(xdt))
-    dropped = 2.0 ** -22 * mag if (case, vdt, xdt) == ("TF32-sensitive", F32, F32) else 0.0
-    assert err_kernel <= 4 * err_twin + dropped, (err_kernel, err_twin, dropped)
+    err_kernel, err_twin = _slab_errors(sl, torch.from_numpy(x).to(cuda).to(xdt))
+    assert err_kernel <= 4 * err_twin, (err_kernel, err_twin)
 
 
 def test_bf16_auto_routes_launch_their_kernels(cuda):
@@ -1080,7 +1079,7 @@ def test_bf16_auto_routes_launch_their_kernels(cuda):
     before = bdia_spmm_ring.launches
     Yr = ct.spmm(p, X, method="pallas_bdia", accum_dtype=BF16)
     assert Yr.dtype == BF16 and bdia_spmm_ring.launches == before + 1
-    assert _bf16_close(Yr, bdia_spmm_ring_reference(p, X))
+    assert _half_close(Yr, bdia_spmm_ring_reference(p, X))
     c = stencil_2d(40, dtype=np.float32).to(cuda).astype(BF16)
     xs = torch.from_numpy(rng.standard_normal(c.shape[1]).astype(np.float32)).to(cuda)
     before = dia_spmv.launches
@@ -1128,3 +1127,167 @@ def test_bf16_kernels_raise_on_what_they_do_not_take(cuda):
         if out is None:
             with pytest.raises(TypeError):
                 bdia_spmv(p.astype(v), X[:, 0].contiguous())
+
+
+# -- half values of BSR SpMM, POH and LELL (B7, B16-B18): bf16 and f16 -----------
+
+F16 = torch.float16
+# values and operand: each H or f32, at least one H, for H in bf16 and f16
+HALF_COMBOS = [(h, h) for h in (BF16, F16)] + [(h, F32) for h in (BF16, F16)] \
+    + [(F32, h) for h in (BF16, F16)]
+HALF_TOL = 1e-5  # f32 out, vs the twin: the same half products summed in f32
+HALF_POH_CASES = ["power_law", "wide", "dense_column", "empty_rows_cols", "all_zero", "50x70",
+                  "tile_slots_8192", "row_panel_8192", "hub_row"]
+
+
+def _half_plan_and_operand(p, vdt, xdt, shape, seed, cuda):
+    """The plan with its values in ``vdt`` (rounded once from f32) and an
+    operand in ``xdt``, from a numpy seed."""
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(shape)
+                         .astype(np.float32)).to(cuda).to(xdt)
+    return p.astype(vdt), x
+
+
+def _scipy_of(p) -> sp.csr_matrix:
+    """The f64 scipy matrix a POH plan holds (its values as stored)."""
+    coo = poh_to_coo(p)
+    return sp.csr_matrix((np.asarray(coo.data, np.float64), (coo.row, coo.col)), shape=p.shape)
+
+
+@pytest.mark.parametrize("name", HALF_POH_CASES)
+@pytest.mark.parametrize("vdt,xdt", HALF_COMBOS)
+def test_half_poh_kernels_match_twin(cuda, name, vdt, xdt):
+    a, p32 = _poh(name, np.float32, cuda)
+    p, x = _half_plan_and_operand(p32, vdt, xdt, a.shape[1], 60, cuda)
+    s64 = _scipy_of(p)
+    before = (poh_spmv.launches, poh_spmm.launches)
+    y = poh_spmv(p, x)
+    assert y.dtype == F32
+    _close(y, poh_spmv_reference(p, x), s64 @ x.cpu().double().numpy(), np.float32)
+    pt = ct.transposed(p)
+    assert pt.dtype == vdt
+    xt = _half_plan_and_operand(p32, vdt, xdt, a.shape[0], 61, cuda)[1]
+    _close(ct.spmv(pt, xt), poh_spmv_reference(pt, xt), s64.T @ xt.cpu().double().numpy(),
+           np.float32)
+    for k in (1, 32, 33, 150):
+        X = _half_plan_and_operand(p32, vdt, xdt, (a.shape[1], k), 62 + k, cuda)[1]
+        Y = poh_spmm(p, X)
+        assert Y.dtype == F32
+        _close(Y, poh_spmm_reference(p, X), s64 @ X.cpu().double().numpy(), np.float32)
+    torch.cuda.synchronize()
+    assert (poh_spmv.launches - before[0], poh_spmm.launches - before[1]) == (2, 4)
+
+
+@pytest.mark.parametrize("name", list(LELL_CASES))
+@pytest.mark.parametrize("groups", [1, 8, 16])
+@pytest.mark.parametrize("vdt,xdt", HALF_COMBOS)
+def test_half_lell_kernel_matches_twin(cuda, name, groups, vdt, xdt):
+    a = LELL_CASES[name]().astype(np.float32)
+    p = ct.lell_plan(a, groups=groups, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(63).standard_normal(a.shape[1])
+                         .astype(np.float32)).to(cuda).to(xdt)
+    vals = p.vals.to(vdt)
+    before = lell_lane_sums.launches
+    y = lell_lane_sums(vals, p.idx, x, groups)
+    torch.cuda.synchronize()
+    assert lell_lane_sums.launches == before + 1
+    twin32 = lell_lane_sums_reference(vals.float(), p.idx, x.float(), groups)  # the same sums
+    if (vdt, xdt) == (F16, F16):  # the reference's f16 output, rounded once
+        assert y.dtype == F16 and _half_close(y, twin32)
+    else:
+        assert y.dtype == F32 and _relerr(y, twin32) <= HALF_TOL
+    assert lell_lane_sums_reference(vals, p.idx, x, groups).dtype == y.dtype
+
+
+@pytest.mark.parametrize("name", list(LELL_CASES))
+@pytest.mark.parametrize("vdt,xdt", HALF_COMBOS)
+def test_half_lell_hyb_launches_both_tiers(cuda, name, vdt, xdt):
+    a = LELL_CASES[name]().astype(np.float32)
+    h32 = ct.lell_plan_hyb(a, device=cuda)
+    h = ct.lell_plan_hyb(a.to(cuda).astype(vdt))  # planned from the half matrix on the card
+    assert h.main.vals.dtype == vdt and h.hub.vals.dtype == vdt
+    x = torch.from_numpy(np.random.default_rng(64).standard_normal(a.shape[1])
+                         .astype(np.float32)).to(cuda).to(xdt)
+    before = lell_lane_sums.launches
+    y = h.spmv(x)
+    torch.cuda.synchronize()
+    assert lell_lane_sums.launches - before == (2 if h.hub.vals.shape[1] else 1)
+    assert h.main.vals.shape == h32.main.vals.shape
+    ref = _rounded_scipy(to_scipy(a), vdt) @ x.cpu().double().numpy()
+    tol = 1e-3 if y.dtype == F16 else HALF_TOL  # f16 y: lane sums and remainder, each rounded
+    assert _relerr(y, torch.from_numpy(ref)) <= tol
+
+
+def _rounded_scipy(s, vdt) -> sp.csr_matrix:
+    """``s`` with its values rounded to ``vdt`` (as f64)."""
+    out = s.astype(np.float64)
+    out.data = torch.from_numpy(np.asarray(s.data, np.float32)).to(vdt).double().numpy()
+    return out
+
+
+@pytest.mark.parametrize("name", ["fem4", "fem2", "fem3_br3", "fem16", "rect4x2", "ragged"])
+@pytest.mark.parametrize("vdt,xdt", HALF_COMBOS)
+@pytest.mark.parametrize("k", [1, 12, 65, 128])  # 12, 65: half rows off the 16-byte vectors
+def test_half_bsr_kernel_matches_twin(cuda, name, vdt, xdt, k):
+    bsr = CASES[name](np.float32)
+    p32 = BsrSpmmKernel.plan(bsr, k, device=cuda)
+    p = dataclasses.replace(p32, vals=p32.vals.to(vdt))
+    x = torch.from_numpy(np.random.default_rng(65).standard_normal((bsr.shape[1], k))
+                         .astype(np.float32)).to(cuda).to(xdt)
+    before = bsr_spmm.launches
+    y = bsr_spmm(p, x)
+    torch.cuda.synchronize()
+    assert bsr_spmm.launches == before + 1 and y.dtype == vdt  # the values' type
+    twin32 = bsr_spmm_reference(dataclasses.replace(p, vals=p.vals.float()), x.float())
+    if vdt in (BF16, F16):
+        assert _half_close(y, twin32)
+    else:
+        assert _relerr(y, twin32) <= HALF_TOL
+    assert bsr_spmm_reference(p, x).dtype == vdt
+
+
+def test_half_entry_points_launch_their_kernels(cuda):
+    # spmv/spmm of a bf16 and an f16 POH plan, spmm(bsr_h, X, method="pallas_bsr")
+    # and HybLell.spmv: each launches its kernel with the half plan
+    a = power_law(3000, avg_degree=8, seed=66, dtype=np.float32).to(cuda)
+    b = fem_blocks(8, dof=4, dtype=np.float32, return_bsr=True).to(cuda)
+    rng = np.random.default_rng(67)
+    for h in (BF16, F16):
+        ah, bh = a.astype(h), b.astype(h)
+        p = ct.poh_plan(ah)
+        assert p.dtype == h and p.device.type == "cuda"
+        for xdt in (h, F32):
+            x = torch.from_numpy(rng.standard_normal(a.shape[1]).astype(np.float32)).to(cuda)
+            x = x.to(xdt)
+            counts = (poh_spmv.launches, poh_spmm.launches, bsr_spmm.launches,
+                      lell_lane_sums.launches)
+            assert ct.spmv(p, x).dtype == F32
+            assert ct.spmm(p, torch.stack([x, x], 1)).dtype == F32
+            Xb = torch.ones((b.shape[1], 16), dtype=xdt, device=cuda)
+            Yb = ct.spmm(bh, Xb, method="pallas_bsr")
+            hyb = ct.lell_plan_hyb(ah)
+            yl = hyb.spmv(x)
+            torch.cuda.synchronize()
+            assert Yb.dtype == h and yl.dtype == (F16 if (h, xdt) == (F16, F16) else F32)
+            assert (poh_spmv.launches - counts[0], poh_spmm.launches - counts[1],
+                    bsr_spmm.launches - counts[2]) == (1, 1, 1)
+            assert lell_lane_sums.launches - counts[3] == (2 if hyb.hub.vals.shape[1] else 1)
+
+
+def test_cg_over_a_bf16_poh_plan_on_card_matches_cpu(cuda):
+    s = to_scipy(power_law(2000, avg_degree=8, seed=13))
+    s2 = (s + s.T).tocsr()
+    d = 1.1 * np.asarray(abs(s2).sum(axis=1)).ravel()
+    spd = from_scipy((s2 + sp.diags(np.where(d > 0, d, 1.1))).tocsr().astype(np.float32))
+    b = torch.from_numpy(np.random.default_rng(68).standard_normal(spd.shape[0])
+                         .astype(np.float32))
+    before = poh_spmv.launches
+    pc = ct.poh_plan(spd.to(cuda).astype(BF16))
+    res = ct.solvers.cg(pc, b.to(cuda), tol=1e-6, maxiter=300,
+                        M=ct.solvers.jacobi(spd, device=cuda))
+    assert poh_spmv.launches - before == res.iterations + 1
+    ref = ct.solvers.cg(pc.to("cpu"), b, tol=1e-6, maxiter=300,
+                        M=ct.solvers.jacobi(spd, device="cpu"))
+    assert res.converged and ref.converged and abs(res.iterations - ref.iterations) <= 2
+    sb = _rounded_scipy(to_scipy(spd), BF16)
+    assert _relerr(torch.from_numpy(sb @ res.x.cpu().double().numpy()), b) <= 2e-6
