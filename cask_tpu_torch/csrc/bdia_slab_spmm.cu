@@ -72,6 +72,13 @@
 // else one element at a time by the thread itself; no copy reads past a
 // row and the packed slabs stay unpadded.  Y is f32, or bf16 rounded once
 // at the store (the reference's fully-bf16 chain).
+// f16 slabs or X (the reference's f16 slab option) take the same passes as
+// bf16: an f16 value is a TF32 value as it stands too (5 exponent bits
+// within TF32's 8, 10 mantissa bits, and its subnormals, down to 2^-24, are
+// normal TF32 values), so f16 with f16 is one exact pass and f16 with f32
+// two.  The fragment loads widen an f16 with __half2float (exact) and take
+// the f32 bits; f16 sits in shared memory with bf16's layout, and Y is f32
+// or f16 rounded once at the store.
 // f64, and f32 in with f64 sums (accum_dtype=float64), keep the plain FMA
 // kernel below: a register-blocked product, 16 window rows per shared chunk.
 // The far offsets ride in a by-value parameter (at most kMaxFar).
@@ -120,7 +127,7 @@ __device__ __forceinline__ int64_t window_row(int w, int64_t row0, int bc, int g
   return row0 + static_cast<int64_t>(far.d[f]) * bc + (w - f * gb_c);
 }
 
-// ---- f32 and bf16: split TF32 products on the tensor cores --------------
+// ---- f32, bf16 and f16: split TF32 products on the tensor cores ---------
 
 constexpr int kTcBM = 64;        // slab rows per CTA
 constexpr int kTcBN = 128;       // columns per CTA
@@ -191,7 +198,9 @@ __device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) 
 
 // An operand's TF32 parts: an f32 splits into hi + lo; a bf16 (8 exponent
 // and 7 mantissa bits) is a TF32 value as it stands, its f32 bit pattern the
-// bf16 bits shifted up by 16, exactly (its lo part is zero and is skipped).
+// bf16 bits shifted up by 16, exactly (its lo part is zero and is skipped);
+// so is an f16, its f32 bit pattern that of __half2float (exact: the shift
+// does not hold for f16's 5-bit exponent).
 template <bool kRound>
 __device__ __forceinline__ void tf32_parts(float a, uint32_t& hi, uint32_t& lo) {
   split_tf32<kRound>(a, hi, lo);
@@ -199,6 +208,10 @@ __device__ __forceinline__ void tf32_parts(float a, uint32_t& hi, uint32_t& lo) 
 template <bool kRound>
 __device__ __forceinline__ void tf32_parts(__nv_bfloat16 a, uint32_t& hi, uint32_t&) {
   hi = static_cast<uint32_t>(__bfloat16_as_ushort(a)) << 16;
+}
+template <bool kRound>
+__device__ __forceinline__ void tf32_parts(__half a, uint32_t& hi, uint32_t&) {
+  hi = __float_as_uint(__half2float(a));
 }
 // an A fragment's four values: two neighbouring shared values in row g (at
 // p) and in row g + 8 (at p + 8 rows), in mma's register order
@@ -221,6 +234,15 @@ __device__ __forceinline__ void tf32_frag(const __nv_bfloat16* p, uint32_t (&hi)
   hi[2] = top & 0xffff0000u;
   hi[3] = bot & 0xffff0000u;
 }
+template <bool kRound>
+__device__ __forceinline__ void tf32_frag(const __half* p, uint32_t (&hi)[4], uint32_t (&)[4]) {
+  const float2 top = __half22float2(*reinterpret_cast<const __half2*>(p));
+  const float2 bot = __half22float2(*reinterpret_cast<const __half2*>(p + 8 * kAStride));
+  hi[0] = __float_as_uint(top.x);
+  hi[1] = __float_as_uint(bot.x);
+  hi[2] = __float_as_uint(top.y);
+  hi[3] = __float_as_uint(bot.y);
+}
 
 // not volatile: the compiler interleaves the independent products of a step
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -231,8 +253,9 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// two neighbouring sums of a Y row: one 8-byte (f32) or 4-byte (bf16,
-// rounded to nearest even) store where `vec`, else one or two scalar ones
+// two neighbouring sums of a Y row: one 8-byte (f32) or 4-byte (bf16 or
+// f16, rounded to nearest even) store where `vec`, else one or two scalar
+// ones
 __device__ __forceinline__ void store_pair(float* y, int col, int k, bool vec, float v0,
                                            float v1) {
   if (vec && col + 1 < k) {
@@ -242,13 +265,13 @@ __device__ __forceinline__ void store_pair(float* y, int col, int k, bool vec, f
     if (col + 1 < k) y[col + 1] = v1;
   }
 }
-__device__ __forceinline__ void store_pair(__nv_bfloat16* y, int col, int k, bool vec, float v0,
-                                           float v1) {
+template <typename H>
+__device__ __forceinline__ void store_pair(H* y, int col, int k, bool vec, float v0, float v1) {
   if (vec && col + 1 < k) {
-    *reinterpret_cast<uint32_t*>(y + col) = cask::pack_bf16x2(v0, v1);
+    *reinterpret_cast<uint32_t*>(y + col) = cask::pack_half2<H>(v0, v1);
   } else {
-    if (col < k) y[col] = __float2bfloat16_rn(v0);
-    if (col + 1 < k) y[col + 1] = __float2bfloat16_rn(v1);
+    if (col < k) y[col] = cask::narrow<H>(v0);
+    if (col + 1 < k) y[col + 1] = cask::narrow<H>(v1);
   }
 }
 
@@ -273,10 +296,11 @@ struct Cursor {
   }
 };
 
-// S: slab type; X: X type (each f32 or bf16); O: output type (f32, or bf16
-// rounded at the store).  The products an exact-class f32 result needs:
-// lo·lo + lo·hi + hi·lo + hi·hi when both are f32 (4xTF32); hi·lo + hi·hi when one
-// is bf16 (its lo is zero); one hi·hi pass when both are bf16.
+// S: slab type; X: X type (each f32 or one half type, bf16 or f16); O:
+// output type (f32, or the half type rounded at the store).  The products an
+// exact-class f32 result needs: lo·lo + lo·hi + hi·lo + hi·hi when both are
+// f32 (4xTF32); hi·lo + hi·hi when one is a half (its lo is zero); one hi·hi
+// pass when both are.
 //
 // Block b takes items b, b + gridDim.x, ... as one stream of W chunks, so
 // the ring runs on across item boundaries and the next item's first chunks
@@ -318,7 +342,7 @@ slab_spmm_tc_kernel(const S* __restrict__ Sm, const X* __restrict__ Xm, O* __res
   }
   __syncthreads();
 
-  // bf16 slabs or X: the slab chunk, 64 rows × 32 window columns in runs of E
+  // half slabs or X: the slab chunk, 64 rows × 32 window columns in runs of E
   auto load_slab = [&](auto elems, S* a, const S* St, const Cursor& cu, int w0) {
     constexpr int E = decltype(elems)::value;
     constexpr int kRuns = kTcBK / E;  // runs a row
@@ -721,8 +745,9 @@ int cask_slab_spmm_f32_f64(const float* S, const float* X, double* Y,
                                x_rows, tile0, y_rows, k, stream);
 }
 
-// bf16 slabs and/or X (the other bf16 or f32) on the tensor cores, f32
-// sums; Y f32 or bf16.  The name gives the slab, X and Y types.
+// Half slabs and/or X (the other of the same half type or f32) on the
+// tensor cores, f32 sums; Y f32 or that half type.  The name gives the slab,
+// X and Y types.
 #define CASK_SLAB_SPMM(NAME, S_T, X_T, O_T)                                                  \
   int NAME(const S_T* S, const X_T* X, O_T* Y, const int* far_offsets, int nfar, int bc,     \
            int gb_r, int gb_c, int W, long long ntiles, long long x_rows, long long tile0,   \
@@ -736,6 +761,12 @@ CASK_SLAB_SPMM(cask_slab_spmm_bf16_f32_f32, __nv_bfloat16, float, float)
 CASK_SLAB_SPMM(cask_slab_spmm_bf16_f32_bf16, __nv_bfloat16, float, __nv_bfloat16)
 CASK_SLAB_SPMM(cask_slab_spmm_f32_bf16_f32, float, __nv_bfloat16, float)
 CASK_SLAB_SPMM(cask_slab_spmm_f32_bf16_bf16, float, __nv_bfloat16, __nv_bfloat16)
+CASK_SLAB_SPMM(cask_slab_spmm_f16_f16_f32, __half, __half, float)
+CASK_SLAB_SPMM(cask_slab_spmm_f16_f16_f16, __half, __half, __half)
+CASK_SLAB_SPMM(cask_slab_spmm_f16_f32_f32, __half, float, float)
+CASK_SLAB_SPMM(cask_slab_spmm_f16_f32_f16, __half, float, __half)
+CASK_SLAB_SPMM(cask_slab_spmm_f32_f16_f32, float, __half, float)
+CASK_SLAB_SPMM(cask_slab_spmm_f32_f16_f16, float, __half, __half)
 #undef CASK_SLAB_SPMM
 
 const char* cask_cuda_error_string(int err) {

@@ -34,12 +34,13 @@
 //   or beyond m are not written, so rectangular plans work either way.
 // - Sums are taken in the output type's working type, in the plan's pair
 //   order, the order of the plain PyTorch twin.
-// - bf16 (value_types.cuh), the reference's bf16 value path and its
-//   fully-bf16 chain (bdia_kernels.py:607-611): values and X are each bf16
-//   or f32, at least one bf16, widened exactly in registers and summed in
-//   f32; Y is f32, or bf16 rounded once at the store.  A bf16 X row moves in
-//   8-byte vectors of 4 (16-byte ones of 8 would leave half of a row's
-//   warp idle at k = 128).
+// - bf16 and f16 (value_types.cuh), the reference's half value paths and
+//   their fully-half chains (bdia_kernels.py:607-611): values and X are
+//   each H or f32 for one half type H, at least one H, widened exactly in
+//   registers and summed in f32; Y is f32 or H (by default f16 for f16
+//   values and X, else f32), H rounded once at the store.  A half X row
+//   moves in 8-byte vectors of 4 (16-byte ones of 8 would leave half of a
+//   row's warp idle at k = 128).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -139,7 +140,7 @@ template <typename V, typename X, typename O>
 int dispatch(const V* vals, const X* Xm, O* Y, const int* offsets, int ndiag, int br, int bc,
              int64_t m, int64_t n, int64_t nbr, int n_tiles, int tile, int k, int vec,
              void* stream) {
-  // a lane's X chunk: 16 bytes, but 4 bf16 values (8 bytes), so that the 32
+  // a lane's X chunk: 16 bytes, but 4 half values (8 bytes), so that the 32
   // lanes of a row's warp still cover k = 128
   constexpr int kVec = sizeof(X) == 2 ? 4 : 16 / static_cast<int>(sizeof(X));
   if (ndiag < 1 || ndiag > kMaxDiags || br < 1 || bc < 1 || nbr < 1 || n_tiles < 1 ||
@@ -186,8 +187,8 @@ int cask_bdia_spmm_f32_f64(const float* vals, const float* X, double* Y, const i
                                         tile, k, vec, stream);
 }
 
-// bf16 values and/or X (the other bf16 or f32): f32 sums; Y f32 or bf16.
-// The name gives the value, X and Y types.
+// Half values and/or X (the other of the same half type or f32): f32 sums;
+// Y f32 or that half type.  The name gives the value, X and Y types.
 #define CASK_BDIA_SPMM(NAME, V, X, O)                                                      \
   int NAME(const V* vals, const X* Xm, O* Y, const int* offsets, int ndiag, int br, int bc, \
            long long m, long long n, long long nbr, int n_tiles, int tile, int k, int vec,  \
@@ -201,6 +202,12 @@ CASK_BDIA_SPMM(cask_bdia_spmm_bf16_f32_f32, __nv_bfloat16, float, float)
 CASK_BDIA_SPMM(cask_bdia_spmm_bf16_f32_bf16, __nv_bfloat16, float, __nv_bfloat16)
 CASK_BDIA_SPMM(cask_bdia_spmm_f32_bf16_f32, float, __nv_bfloat16, float)
 CASK_BDIA_SPMM(cask_bdia_spmm_f32_bf16_bf16, float, __nv_bfloat16, __nv_bfloat16)
+CASK_BDIA_SPMM(cask_bdia_spmm_f16_f16_f32, __half, __half, float)
+CASK_BDIA_SPMM(cask_bdia_spmm_f16_f16_f16, __half, __half, __half)
+CASK_BDIA_SPMM(cask_bdia_spmm_f16_f32_f32, __half, float, float)
+CASK_BDIA_SPMM(cask_bdia_spmm_f16_f32_f16, __half, float, __half)
+CASK_BDIA_SPMM(cask_bdia_spmm_f32_f16_f32, float, __half, float)
+CASK_BDIA_SPMM(cask_bdia_spmm_f32_f16_f16, float, __half, __half)
 #undef CASK_BDIA_SPMM
 
 const char* cask_cuda_error_string(int err) {

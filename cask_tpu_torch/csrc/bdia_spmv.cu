@@ -34,13 +34,14 @@
 //   RB are unrolled, so the accumulators stay in registers.
 // - Sums are taken in the working type (float for f32, double for f64) in
 //   the plan's pair order, the order of the plain PyTorch twin.
-// - bf16 values (or a bf16 x) are the reference's bf16 value path: values
-//   and x are each bf16 or f32, at least one bf16, widened exactly to f32
-//   in registers (__bfloat162float) and summed in f32; y is f32.  A warp's
-//   value load is then 64 bytes, still whole 32-byte sectors.  Two block
-//   rows a thread (one __nv_bfloat162 load for both) measured slower on the
-//   FEM headline: 262,144 block rows then fill only half of the card's
-//   thread slots.
+// - Half values (or a half x) are the reference's half value paths: values
+//   and x are each H or f32 for one half type H (bf16 or f16), at least one
+//   H, widened exactly to f32 in registers (value_types.cuh) and summed in
+//   f32.  y is the reference's output type O: f32, but f16 for f16 values
+//   and x, the f32 sum rounded once at the store.  A warp's value load is
+//   then 64 bytes, still whole 32-byte sectors.  Two block rows a thread
+//   (one __nv_bfloat162 load for both) measured slower on the FEM headline:
+//   262,144 block rows then fill only half of the card's thread slots.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,14 +60,15 @@ struct DiagOffsets {
 __device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
 
-// V: value type; X: x type; A: working and output type (float, or double
-// for f64)
-template <typename V, typename X, typename A, int RB>
+// V: value type; X: x type; O: output type, summed in its working type A
+// (float, or double for f64)
+template <typename V, typename X, typename O, int RB>
 __global__ void __launch_bounds__(kThreads)
 bdia_spmv_kernel(const V* __restrict__ vals, const X* __restrict__ x,
-                 A* __restrict__ y, const DiagOffsets offs, int ndiag, int br,
+                 O* __restrict__ y, const DiagOffsets offs, int ndiag, int br,
                  int bc, int64_t m, int64_t n, int64_t nbr, int n_tiles,
                  int tile) {
+  using A = typename cask::Work<O>::type;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= nbr) return;
   const int r0 = blockIdx.y * RB;
@@ -97,23 +99,23 @@ bdia_spmv_kernel(const V* __restrict__ vals, const X* __restrict__ x,
 #pragma unroll
   for (int k = 0; k < RB; ++k) {
     const int64_t row = i * br + r0 + k;
-    if (r0 + k < br && row < m) y[row] = acc[k];
+    if (r0 + k < br && row < m) y[row] = cask::narrow<O>(acc[k]);
   }
 }
 
-template <typename V, typename X, typename A, int RB>
-int launch(const V* vals, const X* x, A* y, const DiagOffsets& offs, int ndiag,
+template <typename V, typename X, typename O, int RB>
+int launch(const V* vals, const X* x, O* y, const DiagOffsets& offs, int ndiag,
            int br, int bc, int64_t m, int64_t n, int64_t nbr, int n_tiles,
            int tile, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((nbr + kThreads - 1) / kThreads),
                   static_cast<unsigned>((br + RB - 1) / RB));
-  bdia_spmv_kernel<V, X, A, RB><<<grid, kThreads, 0, stream>>>(
+  bdia_spmv_kernel<V, X, O, RB><<<grid, kThreads, 0, stream>>>(
       vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename V, typename X, typename A>
-int dispatch(const V* vals, const X* x, A* y, const int* offsets, int ndiag,
+template <typename V, typename X, typename O>
+int dispatch(const V* vals, const X* x, O* y, const int* offsets, int ndiag,
              int br, int bc, int64_t m, int64_t n, int64_t nbr, int n_tiles,
              int tile, void* stream) {
   if (ndiag < 1 || ndiag > kMaxDiags || br < 1 || bc < 1 || nbr < 1 ||
@@ -123,10 +125,10 @@ int dispatch(const V* vals, const X* x, A* y, const int* offsets, int ndiag,
   DiagOffsets offs = {};
   for (int k = 0; k < ndiag; ++k) offs.d[k] = offsets[k];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (br <= 1) return launch<V, X, A, 1>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
-  if (br <= 2) return launch<V, X, A, 2>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
-  if (br <= 4) return launch<V, X, A, 4>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
-  return launch<V, X, A, 8>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  if (br <= 1) return launch<V, X, O, 1>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  if (br <= 2) return launch<V, X, O, 2>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  if (br <= 4) return launch<V, X, O, 4>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  return launch<V, X, O, 8>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
 }
 
 }  // namespace
@@ -153,17 +155,21 @@ int cask_bdia_spmv_f64(const double* vals, const double* x, double* y,
                                           n_tiles, tile, stream);
 }
 
-// bf16 values with a bf16 or f32 x, or f32 values with a bf16 x: f32 sums
-// and y.  The name gives the value and x types.
-#define CASK_BDIA_SPMV(NAME, V, X)                                                           \
-  int NAME(const V* vals, const X* x, float* y, const int* offsets, int ndiag, int br, int bc, \
+// Half values with an x of the same half type or f32, or f32 values with a
+// half x: f32 sums; y f32, or f16 for f16 values and x.  The name gives the
+// value and x types.
+#define CASK_BDIA_SPMV(NAME, V, X, O)                                                          \
+  int NAME(const V* vals, const X* x, O* y, const int* offsets, int ndiag, int br, int bc,      \
            long long m, long long n, long long nbr, int n_tiles, int tile, void* stream) {     \
-    return dispatch<V, X, float>(vals, x, y, offsets, ndiag, br, bc, m, n, nbr, n_tiles, tile, \
-                                 stream);                                                      \
+    return dispatch<V, X, O>(vals, x, y, offsets, ndiag, br, bc, m, n, nbr, n_tiles, tile,     \
+                             stream);                                                          \
   }
-CASK_BDIA_SPMV(cask_bdia_spmv_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
-CASK_BDIA_SPMV(cask_bdia_spmv_bf16_f32, __nv_bfloat16, float)
-CASK_BDIA_SPMV(cask_bdia_spmv_f32_bf16, float, __nv_bfloat16)
+CASK_BDIA_SPMV(cask_bdia_spmv_bf16_bf16, __nv_bfloat16, __nv_bfloat16, float)
+CASK_BDIA_SPMV(cask_bdia_spmv_bf16_f32, __nv_bfloat16, float, float)
+CASK_BDIA_SPMV(cask_bdia_spmv_f32_bf16, float, __nv_bfloat16, float)
+CASK_BDIA_SPMV(cask_bdia_spmv_f16_f16, __half, __half, __half)
+CASK_BDIA_SPMV(cask_bdia_spmv_f16_f32, __half, float, float)
+CASK_BDIA_SPMV(cask_bdia_spmv_f32_f16, float, __half, float)
 #undef CASK_BDIA_SPMV
 
 const char* cask_cuda_error_string(int err) {

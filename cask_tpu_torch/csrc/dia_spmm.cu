@@ -38,11 +38,12 @@
 //   written, and m != n works.
 // - Sums are taken in the working type, in offsets order, the order of the
 //   plain PyTorch twin.
-// - bf16 (value_types.cuh), the reference's bf16 value path and its
-//   fully-bf16 chain (dia_kernels.py:1026-1033): values and X are each bf16
-//   or f32, at least one bf16, widened exactly in registers and summed in
-//   f32; Y is f32, or bf16 rounded once at the store.  A bf16 X row moves in
-//   16-byte vectors of 8 where k is a multiple of 8.
+// - bf16 and f16 (value_types.cuh), the reference's half value paths and
+//   their fully-half chains (dia_kernels.py:1026-1033): values and X are
+//   each H or f32 for one half type H, at least one H, widened exactly in
+//   registers and summed in f32; Y is f32 or H (by default f16 for f16
+//   values and X, else f32), H rounded once at the store.  A half X row
+//   moves in 16-byte vectors of 8 where k is a multiple of 8.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,8 +144,8 @@ int cask_dia_spmm_f64(const double* vals, const int* offsets, int ndiag,
                                         stream);
 }
 
-// bf16 values and/or X (the other bf16 or f32): f32 sums; Y f32 or bf16.
-// The name gives the value, X and Y types.
+// Half values and/or X (the other of the same half type or f32): f32 sums;
+// Y f32 or that half type.  The name gives the value, X and Y types.
 #define CASK_DIA_SPMM(NAME, V, X, O)                                                      \
   int NAME(const V* vals, const int* offsets, int ndiag, const X* Xm, O* Y, long long m, \
            long long n, long long m_pad, int k, int vec, void* stream) {                 \
@@ -156,6 +157,12 @@ CASK_DIA_SPMM(cask_dia_spmm_bf16_f32_f32, __nv_bfloat16, float, float)
 CASK_DIA_SPMM(cask_dia_spmm_bf16_f32_bf16, __nv_bfloat16, float, __nv_bfloat16)
 CASK_DIA_SPMM(cask_dia_spmm_f32_bf16_f32, float, __nv_bfloat16, float)
 CASK_DIA_SPMM(cask_dia_spmm_f32_bf16_bf16, float, __nv_bfloat16, __nv_bfloat16)
+CASK_DIA_SPMM(cask_dia_spmm_f16_f16_f32, __half, __half, float)
+CASK_DIA_SPMM(cask_dia_spmm_f16_f16_f16, __half, __half, __half)
+CASK_DIA_SPMM(cask_dia_spmm_f16_f32_f32, __half, float, float)
+CASK_DIA_SPMM(cask_dia_spmm_f16_f32_f16, __half, float, __half)
+CASK_DIA_SPMM(cask_dia_spmm_f32_f16_f32, float, __half, float)
+CASK_DIA_SPMM(cask_dia_spmm_f32_f16_f16, float, __half, __half)
 #undef CASK_DIA_SPMM
 
 const char* cask_cuda_error_string(int err) {

@@ -34,12 +34,14 @@
 //   not the index.  Rows m <= i < m_pad are never written, and m != n works.
 // - Sums are taken in the working type (float for f32, double for f64), in
 //   offsets order, the order of the plain PyTorch twin.
-// - bf16 values (or a bf16 x), the reference's bf16 value path: values and
-//   x are each bf16 or f32, at least one bf16, widened exactly to f32 in
-//   registers and summed in f32; y is f32.  The value stream halves (a
-//   warp's load is 64 contiguous bytes, whole 32-byte sectors).  Two rows a
-//   thread (their values as one __nv_bfloat162) measured no faster on the
-//   4M-row stencil.
+// - Half values (or a half x), the reference's half value paths: values
+//   and x are each H or f32 for one half type H (bf16 or f16), at least one
+//   H, widened exactly to f32 in registers and summed in f32.  y is the
+//   reference's output type O: f32, but f16 for f16 values and x, the f32
+//   sum rounded once at the store.  The value stream halves (a warp's load
+//   is 64 contiguous bytes, whole 32-byte sectors).  Two rows a thread
+//   (their values as one __nv_bfloat162) measured no faster on the 4M-row
+//   stencil.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,12 +55,13 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
 
-// V: value type; X: x type; A: working and output type
-template <typename V, typename X, typename A>
+// V: value type; X: x type; O: output type, summed in its working type A
+template <typename V, typename X, typename O>
 __global__ void __launch_bounds__(kThreads)
 dia_spmv_kernel(const V* __restrict__ vals, const int* __restrict__ offsets,
-                int ndiag, const X* __restrict__ x, A* __restrict__ y,
+                int ndiag, const X* __restrict__ x, O* __restrict__ y,
                 int64_t m, int64_t n, int64_t m_pad) {
+  using A = typename cask::Work<O>::type;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= m) return;
   const V* v = vals + i;
@@ -70,17 +73,17 @@ dia_spmv_kernel(const V* __restrict__ vals, const int* __restrict__ offsets,
     const A xv = (j >= 0 && j < n) ? A(cask::widen(__ldg(x + j))) : A(0);
     acc = fma_t(a, xv, acc);
   }
-  y[i] = acc;
+  y[i] = cask::narrow<O>(acc);
 }
 
-template <typename V, typename X, typename A>
-int launch(const V* vals, const int* offsets, int ndiag, const X* x, A* y,
+template <typename V, typename X, typename O>
+int launch(const V* vals, const int* offsets, int ndiag, const X* x, O* y,
            int64_t m, int64_t n, int64_t m_pad, void* stream) {
   const int64_t blocks = (m + kThreads - 1) / kThreads;
   if (ndiag < 1 || m < 1 || n < 1 || m_pad < m || blocks > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  dia_spmv_kernel<V, X, A><<<static_cast<unsigned>(blocks), kThreads, 0,
+  dia_spmv_kernel<V, X, O><<<static_cast<unsigned>(blocks), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       vals, offsets, ndiag, x, y, m, n, m_pad);
   return static_cast<int>(cudaGetLastError());
@@ -106,16 +109,20 @@ int cask_dia_spmv_f64(const double* vals, const int* offsets, int ndiag,
   return launch<double, double, double>(vals, offsets, ndiag, x, y, m, n, m_pad, stream);
 }
 
-// bf16 values with a bf16 or f32 x, or f32 values with a bf16 x: f32 sums
-// and y.  The name gives the value and x types.
-#define CASK_DIA_SPMV(NAME, V, X)                                                       \
-  int NAME(const V* vals, const int* offsets, int ndiag, const X* x, float* y, long long m, \
+// Half values with an x of the same half type or f32, or f32 values with a
+// half x: f32 sums; y f32, or f16 for f16 values and x.  The name gives the
+// value and x types.
+#define CASK_DIA_SPMV(NAME, V, X, O)                                                      \
+  int NAME(const V* vals, const int* offsets, int ndiag, const X* x, O* y, long long m,   \
            long long n, long long m_pad, void* stream) {                                 \
-    return launch<V, X, float>(vals, offsets, ndiag, x, y, m, n, m_pad, stream);          \
+    return launch<V, X, O>(vals, offsets, ndiag, x, y, m, n, m_pad, stream);              \
   }
-CASK_DIA_SPMV(cask_dia_spmv_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
-CASK_DIA_SPMV(cask_dia_spmv_bf16_f32, __nv_bfloat16, float)
-CASK_DIA_SPMV(cask_dia_spmv_f32_bf16, float, __nv_bfloat16)
+CASK_DIA_SPMV(cask_dia_spmv_bf16_bf16, __nv_bfloat16, __nv_bfloat16, float)
+CASK_DIA_SPMV(cask_dia_spmv_bf16_f32, __nv_bfloat16, float, float)
+CASK_DIA_SPMV(cask_dia_spmv_f32_bf16, float, __nv_bfloat16, float)
+CASK_DIA_SPMV(cask_dia_spmv_f16_f16, __half, __half, __half)
+CASK_DIA_SPMV(cask_dia_spmv_f16_f32, __half, float, float)
+CASK_DIA_SPMV(cask_dia_spmv_f32_f16, float, __half, float)
 #undef CASK_DIA_SPMV
 
 const char* cask_cuda_error_string(int err) {

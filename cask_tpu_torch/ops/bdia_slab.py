@@ -153,7 +153,7 @@ def bdia_slab_ok(a: BdiaMatrix, g: int = 16) -> bool:
 def bdia_slab_plan(a: BdiaMatrix, g: int = 16, dtype=None) -> BdiaSlabs:
     """Shear the block band into per-tile dense slabs, on the plan's device
     (one-time); the remainder comes along.  ``dtype`` stores the slabs in
-    another type (the reference's bf16 option)."""
+    another type (the reference's bf16 and f16 options)."""
     if not bdia_slab_ok(a, g):
         raise ValueError(f"plan not slab-eligible at g={g} (offsets {a.block_offsets})")
     br, bc = a.blocksize

@@ -42,12 +42,16 @@ def _round_up(x: int, m: int) -> int:
 
 def remainder_spmm(rem_data, rem_row, rem_col, m: int, x: torch.Tensor,
                    dtype: torch.dtype) -> torch.Tensor:
-    """The COO remainder's product with ``x`` (1-D or 2-D) in ``dtype`` (the
-    product's output type, so bf16 values and operands sum in f32), the
-    reference's remainder add (``ops/spmm.py:217-221``)."""
-    xr = x[rem_col.long()].to(dtype)
-    prod = (rem_data.to(dtype)[:, None] * xr) if x.ndim == 2 else rem_data.to(dtype) * xr
-    return prod.new_zeros((m, *x.shape[1:])).index_add_(0, rem_row.long(), prod)
+    """The COO remainder's product with ``x`` (1-D or 2-D) as ``dtype``, the
+    product's output type: the reference's remainder add
+    (``ops/spmm.py:217-221``), summed in ``promote(dtype, f32)`` and rounded
+    once, as the kernels sum (an f16 ``y`` plus it then rounds twice, as the
+    reference's f16 ``y + remainder`` does)."""
+    acc = torch.promote_types(dtype, torch.float32)
+    xr = x[rem_col.long()].to(acc)
+    vals = rem_data.to(acc)
+    prod = vals[:, None] * xr if x.ndim == 2 else vals * xr
+    return prod.new_zeros((m, *x.shape[1:])).index_add_(0, rem_row.long(), prod).to(dtype)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -35,55 +35,53 @@ if TYPE_CHECKING:
 _LANE = 128
 MAX_PAIRS = 80  # (d, c) slots a plan may hold for the kernel (kMaxDiags)
 _KERNEL_DTYPES = (torch.float32, torch.float64)  # values and operand of one type
-# the bf16 value path: values and operand each bf16 or f32, at least one bf16
-_BF16_PATH = (torch.bfloat16, torch.float32)
-# the half types a kernel takes on its half path (values and operand each H
-# or f32, at least one H): bf16 for the block and banded kernels (B1-B6,
-# B8-B15), bf16 and f16 for BSR SpMM, POH and LELL (B7, B16-B18)
-BF16 = (torch.bfloat16,)
+# the half types every kernel takes on its half path: values and operand each
+# H or f32, at least one H, summed in f32 (the reference's value types)
 HALVES = (torch.bfloat16, torch.float16)
-VALUE_DTYPES = (*_KERNEL_DTYPES, torch.bfloat16)  # a plan's value types the kernels take
+VALUE_DTYPES = (*_KERNEL_DTYPES, *HALVES)  # a plan's value types the kernels take
 _NAMES = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16",
           torch.float16: "f16"}
 
 
 def _out_dtype(vals_dtype: torch.dtype, x_dtype: torch.dtype) -> torch.dtype:
     """``promote(values, operand)``, with bf16 promoted to f32: the SpMV
-    output type of the block and banded kernels, and LELL's (the reference's
-    ``lell_kernels.py:_out_dtype``: f16 values and operand give f16)."""
+    output type of the block and banded kernels and LELL's (the reference's
+    ``bdia_kernels.py:84-86``, ``lell_kernels.py:_out_dtype``: f16 values and
+    operand give f16, f16 with f32 gives f32)."""
     acc = torch.promote_types(vals_dtype, x_dtype)
     if torch.bfloat16 in (vals_dtype, x_dtype):
         acc = torch.promote_types(acc, torch.float32)
     return acc
 
 
-def kernel_types_ok(vals_dtype: torch.dtype, x_dtype: torch.dtype, halves=BF16) -> bool:
+def _half(vals_dtype: torch.dtype, x_dtype: torch.dtype):
+    """The half type of a half-path combination, else None."""
+    return next((h for h in HALVES if h in (vals_dtype, x_dtype)), None)
+
+
+def kernel_types_ok(vals_dtype: torch.dtype, x_dtype: torch.dtype) -> bool:
     """Do the kernels take these value and operand types?  One f32 or f64
-    type, or one half type H of ``halves`` (bf16 for the block and banded
-    kernels) with H or f32, at least one H (summed in f32)."""
+    type, or one half type H (bf16 or f16) with H or f32, at least one H
+    (summed in f32)."""
     if vals_dtype in _KERNEL_DTYPES and x_dtype == vals_dtype:
         return True
-    return any(h in (vals_dtype, x_dtype) and {vals_dtype, x_dtype} <= {h, torch.float32}
-               for h in halves)
+    h = _half(vals_dtype, x_dtype)
+    return h is not None and {vals_dtype, x_dtype} <= {h, torch.float32}
 
 
-def _type_error(vals_dtype, x_dtype, out=None, halves=BF16) -> TypeError:
+def _type_error(vals_dtype, x_dtype, out=None) -> TypeError:
     got = f"values {vals_dtype}, operand {x_dtype}" + ("" if out is None else f", out {out}")
-    if halves != BF16:
-        names = " or ".join(str(h)[6:] for h in halves)
-        return TypeError(f"the kernel takes float32/float64 values and operand of one type, "
-                         f"or {names} values or operand with the other of the same half type "
-                         f"or float32; got {got}")
     return TypeError(f"the kernels take float32/float64 values and operand of one type (SpMM "
-                     f"out of that type or float64), or bfloat16 values or operand with the "
-                     f"other bfloat16 or float32 (out float32, SpMM also bfloat16); got {got}")
+                     f"out of that type or float64), or bfloat16 or float16 values or operand "
+                     f"with the other of the same half type or float32 (SpMM out float32 or "
+                     f"that half type); got {got}")
 
 
-def check_types(vals_dtype: torch.dtype, x_dtype: torch.dtype, halves=BF16) -> None:
+def check_types(vals_dtype: torch.dtype, x_dtype: torch.dtype) -> None:
     """Raise ``TypeError``, naming the combination, unless the kernels take
     these value and operand types (:func:`kernel_types_ok`)."""
-    if not kernel_types_ok(vals_dtype, x_dtype, halves):
-        raise _type_error(vals_dtype, x_dtype, halves=halves)
+    if not kernel_types_ok(vals_dtype, x_dtype):
+        raise _type_error(vals_dtype, x_dtype)
 
 
 def entry(prefix: str, vals_dtype: torch.dtype, x_dtype: torch.dtype, out=None) -> str:
@@ -97,15 +95,14 @@ def entry(prefix: str, vals_dtype: torch.dtype, x_dtype: torch.dtype, out=None) 
     return f"{prefix}_{_NAMES[vals_dtype]}_{_NAMES[x_dtype]}{tail}"
 
 
-def entries(prefix: str, spmm: bool, f64_sums: bool = False, halves=BF16):
+def entries(prefix: str, spmm: bool, f64_sums: bool = False):
     """Every C entry point of a kernel source, as :func:`entry` names them
     (``f64_sums``: it has the f32-in, f64-out SpMM entry; ``spmm``: its half
-    entries name their output, f32 or the half type; ``halves``: the half
-    types it takes)."""
+    entries name their output, f32 or the half type)."""
     names = {entry(prefix, t, t) for t in _KERNEL_DTYPES}
     if f64_sums:
         names.add(entry(prefix, torch.float32, torch.float32, torch.float64))
-    for h in halves:
+    for h in HALVES:
         path = (h, torch.float32)
         for v in path:
             for x in path:
@@ -118,13 +115,16 @@ def entries(prefix: str, spmm: bool, f64_sums: bool = False, halves=BF16):
 def bdia_spmv_reference(a: "BdiaMatrix", x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch ``Σ_j vals[:, j] · x-shift`` over the packed pairs, in
     pair order: the port of ``BdiaMatrix._spmv_xla`` without its remainder.
+    Summed in ``promote(out, f32)`` and rounded once to the output type
+    :func:`_out_dtype` (f16 for f16 values and x), as the kernel sums.
 
     Works on any device; the CUDA kernel is held against it."""
     br, bc = a.blocksize
     m, n = a.shape
     nbr, nbc, lo, hi = a.nbr, a.nbc, a.lo, a.hi
     T, plane = a.n_tiles, a.ts * _LANE
-    acc = _out_dtype(a.vals.dtype, x.dtype)
+    out = _out_dtype(a.vals.dtype, x.dtype)
+    acc = torch.promote_types(out, torch.float32)
     xn = x.new_zeros(nbc * bc)
     xn[:n] = x
     # component rows x_c[i] = x[i·bc + c], zero outside [0, nbc): every
@@ -136,7 +136,7 @@ def bdia_spmv_reference(a: "BdiaMatrix", x: torch.Tensor) -> torch.Tensor:
     for j, (c, d) in enumerate(a.pairs):
         xs = xp[c, lo + d : lo + d + T * plane].reshape(T, plane)
         y += vt[:, :, j, :].to(acc) * xs.to(acc)
-    return y.reshape(br, T * plane)[:, :nbr].T.reshape(-1)[:m]
+    return y.reshape(br, T * plane)[:, :nbr].T.reshape(-1)[:m].to(out)
 
 
 def bdia_kernel_ok(a: "BdiaMatrix") -> bool:
@@ -147,18 +147,20 @@ def bdia_kernel_ok(a: "BdiaMatrix") -> bool:
 def result_dtype(vals_dtype: torch.dtype, x_dtype: torch.dtype, out=None) -> torch.dtype:
     """The SpMM entries' output type: ``out`` when given, else the
     promotion of values and X, bf16 promoted to f32 (the reference's
-    policy, ``bdia_kernels.py:619-622``)."""
+    policy, ``bdia_kernels.py:619-622``: f16 for f16 values and X)."""
     return torch_dtype(out) if out is not None else _out_dtype(vals_dtype, x_dtype)
 
 
 def check_out_dtype(vals_dtype: torch.dtype, x_dtype: torch.dtype, out: torch.dtype) -> None:
     """Raise ``TypeError``, naming the combination, unless an SpMM kernel
     takes these types: f32 or f64 values and X of one type, out of the same
-    type or f64 (``accum_dtype=float64``); or bf16 values or X with the
-    other bf16 or f32, out f32 or bf16 (the fully-bf16 chain)."""
+    type or f64 (``accum_dtype=float64``); or half values or X (bf16 or
+    f16) with the other of the same half type or f32, out f32 or that half
+    type (the fully-half chain)."""
     if not kernel_types_ok(vals_dtype, x_dtype):
         raise _type_error(vals_dtype, x_dtype, out)
-    outs = _BF16_PATH if torch.bfloat16 in (vals_dtype, x_dtype) else (vals_dtype, torch.float64)
+    h = _half(vals_dtype, x_dtype)
+    outs = (torch.float32, h) if h is not None else (vals_dtype, torch.float64)
     if out not in outs:
         raise _type_error(vals_dtype, x_dtype, out)
 
@@ -177,12 +179,11 @@ def vec_ok(k: int, *tensors: torch.Tensor) -> int:
                    for t in tensors))
 
 
-def bind(name: str, prefix: str, argtypes, *, spmm: bool, f64_sums: bool = False,
-         halves=BF16) -> ctypes.CDLL:
+def bind(name: str, prefix: str, argtypes, *, spmm: bool, f64_sums: bool = False) -> ctypes.CDLL:
     """Load ``csrc/<name>.cu``'s library and give each entry point of
     :func:`entries` the argument types ``argtypes``."""
     lib = build.load(name)
-    for fname in entries(prefix, spmm, f64_sums, halves):
+    for fname in entries(prefix, spmm, f64_sums):
         fn = getattr(lib, fname)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

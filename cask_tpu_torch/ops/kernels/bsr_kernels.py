@@ -22,7 +22,7 @@ from typing import TYPE_CHECKING
 
 import torch
 
-from cask_tpu_torch.ops.kernels.bdia_kernels import (HALVES, bind, check_types, entry, raise_on,
+from cask_tpu_torch.ops.kernels.bdia_kernels import (bind, check_types, entry, raise_on,
                                                      vec_ok)
 
 if TYPE_CHECKING:
@@ -54,7 +54,7 @@ def bsr_spmm_reference(p: "BsrSpmmKernel", x: torch.Tensor) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return bind("bsr_spmm", "cask_bsr_spmm", [p, p, p, p, ll, i, i, i, i, ll, ll, ll, i, i, p],
-                spmm=False, halves=HALVES)
+                spmm=False)
 
 
 def bsr_spmm(p: "BsrSpmmKernel", x: torch.Tensor) -> torch.Tensor:
@@ -72,7 +72,7 @@ def bsr_spmm(p: "BsrSpmmKernel", x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"X on {x.device} but the plan on {p.vals.device}")
     if x.ndim != 2 or x.shape[0] != n:
         raise ValueError(f"X must have shape ({n}, k), got {tuple(x.shape)}")
-    check_types(p.vals.dtype, x.dtype, HALVES)
+    check_types(p.vals.dtype, x.dtype)
     if p.vals.shape != (T, p.G * br, p.K * bc) or p.cols.shape != (T * p.G * p.K,) \
             or p.cols.dtype != torch.int32 or not 1 <= p.G <= 8:
         raise ValueError(f"vals {tuple(p.vals.shape)} / cols {tuple(p.cols.shape)} are not "

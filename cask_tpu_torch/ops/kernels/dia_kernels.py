@@ -46,17 +46,19 @@ def _padded(a: "DiaMatrix", x: torch.Tensor):
 
 def dia_spmv_reference(a: "DiaMatrix", x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch ``Σ_d vals[d] · x-shift``, in offsets order, values and
-    x widened to the output type first (f32 for bf16): the port of
+    x widened to ``promote(out, f32)`` first and the sum rounded once to the
+    output type :func:`_out_dtype` (f16 for f16 values and x): the port of
     ``DiaMatrix._spmv_xla`` without its remainder.
 
     Works on any device; the CUDA kernel is held against it."""
     xp, lo = _padded(a, x)
-    acc = _out_dtype(a.vals.dtype, x.dtype)
+    out = _out_dtype(a.vals.dtype, x.dtype)
+    acc = torch.promote_types(out, torch.float32)
     xp = xp.to(acc)
     y = torch.zeros(a.m_pad, dtype=acc, device=x.device)
     for d, off in enumerate(a.offsets):
         y = y + a.vals[d].to(acc) * xp[lo + off : lo + off + a.m_pad]
-    return y[: a.shape[0]]
+    return y[: a.shape[0]].to(out)
 
 
 def dia_spmm_reference(a: "DiaMatrix", x: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -76,7 +78,7 @@ def dia_spmm_reference(a: "DiaMatrix", x: torch.Tensor, out_dtype=None) -> torch
 
 def dia_kernel_ok(a: "DiaMatrix") -> bool:
     """Can the CUDA kernels take this plan?  They take any diagonal count,
-    f32, f64 and bf16 values."""
+    f32, f64, bf16 and f16 values."""
     return a.vals.dtype in VALUE_DTYPES
 
 
@@ -133,9 +135,9 @@ def dia_spmm(a: "DiaMatrix", x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """Diagonals' part of ``A·X`` for a dense row-major ``X (n, k)``: the CUDA
     kernel for a CUDA ``X``, the plain twin for a CPU ``X``.  ``out_dtype``
     as the reference's ring (``dia_kernels.py:1026-1033``): by default the
-    promotion of values and X (bf16 promoted to f32); bf16 for the
-    fully-bf16 chain, summed in f32 and rounded once.  Raises on what the
-    kernel does not take."""
+    promotion of values and X (bf16 promoted to f32, f16 · f16 gives f16);
+    the half type for the fully-half chain, summed in f32 and rounded once.
+    Raises on what the kernel does not take."""
     if not x.is_cuda:
         if a.vals.is_cuda:
             raise ValueError(f"X on {x.device} but the plan on {a.vals.device}")

@@ -26,8 +26,8 @@ import functools
 
 import torch
 
-from cask_tpu_torch.ops.kernels.bdia_kernels import (HALVES, _out_dtype, bind, check_types,
-                                                     entry, raise_on)
+from cask_tpu_torch.ops.kernels.bdia_kernels import (_out_dtype, bind, check_types, entry,
+                                                     raise_on)
 
 _LANE = 128
 out_dtype = _out_dtype  # f32 where either side is bf16 or one is f32; f16 · f16 -> f16
@@ -57,8 +57,7 @@ def lell_lane_sums_reference(vals: torch.Tensor, idx: torch.Tensor, x: torch.Ten
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    return bind("lell_spmv", "cask_lell_spmv", [p, p, p, p, i, ll, i, ll, p], spmm=False,
-                halves=HALVES)
+    return bind("lell_spmv", "cask_lell_spmv", [p, p, p, p, i, ll, i, ll, p], spmm=False)
 
 
 def lell_lane_sums(vals: torch.Tensor, idx: torch.Tensor, x: torch.Tensor,
@@ -76,7 +75,7 @@ def lell_lane_sums(vals: torch.Tensor, idx: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"x on {x.device} but the plan on {vals.device}")
     if x.ndim != 1:
         raise ValueError(f"x must be 1-D, got shape {tuple(x.shape)}")
-    check_types(vals.dtype, x.dtype, HALVES)
+    check_types(vals.dtype, x.dtype)
     if vals.ndim != 3 or vals.shape[2] != _LANE or idx.shape != vals.shape \
             or idx.dtype != torch.int32:
         raise ValueError(f"vals {tuple(vals.shape)} / idx {tuple(idx.shape)} {idx.dtype} "

@@ -26,8 +26,8 @@ from typing import TYPE_CHECKING, Optional
 import numpy as np
 import torch
 
-from cask_tpu_torch.ops.kernels.bdia_kernels import (HALVES, _out_dtype, bind, check_types,
-                                                     entry, raise_on)
+from cask_tpu_torch.ops.kernels.bdia_kernels import (_out_dtype, bind, check_types, entry,
+                                                     raise_on)
 
 if TYPE_CHECKING:
     from cask_tpu_torch.ops.poh import PohMatrix
@@ -116,7 +116,7 @@ def _lib(name: str) -> ctypes.CDLL:
         args = [p] * 7 + [i, i, i, i, i, ll, ll, p]
     else:  # ..., pieces, X, Y, n_pieces, R, C, T, m, n, k, stream
         args = [p] * 7 + [i, i, i, i, ll, ll, i, p]
-    return bind(name, f"cask_{name}", args, spmm=False, halves=HALVES)
+    return bind(name, f"cask_{name}", args, spmm=False)
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,7 +133,7 @@ def _check(p: "PohMatrix", x: torch.Tensor, ndim: int, what: str, whole_panel: b
     if x.ndim != ndim or x.shape[0] != n:
         raise ValueError(f"{what} must have shape ({n}{', k' if ndim == 2 else ''}), "
                          f"got {tuple(x.shape)}")
-    check_types(p.vals.dtype, x.dtype, HALVES)
+    check_types(p.vals.dtype, x.dtype)
     slots = (p.ntiles, p.slot_rows, 128)
     if p.vals.shape != slots or p.cloc.shape != slots or p.rloc.shape != slots \
             or p.cloc.dtype != torch.int32 or p.rloc.dtype != torch.int32 \

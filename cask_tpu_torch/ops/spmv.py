@@ -237,7 +237,8 @@ def cached_plan(a, x: torch.Tensor):
     for the CPU), when the matrix's tensors lie elsewhere, or when the plan
     does not qualify or its kernels do not take its values with ``x``'s type
     (:func:`cask_tpu_torch.ops.kernels.bdia_kernels.kernel_types_ok`: one
-    f32 or f64 type, or bf16 values or ``x`` with the other bf16 or f32)."""
+    f32 or f64 type, or bf16 or f16 values or ``x`` with the other of the
+    same half type or f32)."""
     if not x.is_cuda or (isinstance(a.data, torch.Tensor) and a.data.device != x.device):
         return None
     plan = default_plan_cache.get(a, device=x.device)

@@ -1,6 +1,6 @@
 """Take apart what sets the time of the POH SpMM and slab SpMM kernels.
 
-    python3 -m cask_tpu_torch.tune.kernel_probe [--slab | --types]
+    python3 -m cask_tpu_torch.tune.kernel_probe [--slab | --types | --sass CHECKOUT]
     env PYTHONPATH=<another checkout> python3 <this checkout>/cask_tpu_torch/tune/kernel_probe.py
 
 The second form times another checkout's kernels with this script (it uses
@@ -40,17 +40,29 @@ measurement, CUDA events, median of 10 samples of 3 calls:
 
 ``--slab`` runs only the f32 slab and its variants.
 
-``--types`` times B7 and B16-B18 at their headline sizes in every value
-type the checkout's kernels take, f32 and f64 first (POH SpMV, POH SpMM at
-k = 32 and ``HybLell.spmv`` on the power law above; BSR SpMM on
-``fem_blocks(512, dof=4)`` at k = 128), so that two versions' f32 and f64
-times can be compared in one run; a combination a version refuses prints
-its refusal.
+``--types`` times every kernel at its headline size in each value type the
+checkout's kernels take, f32 and f64 first, then bf16 and f16 with their
+operand in the same half type and in f32: the block and banded kernels (B1-B6,
+B8-B15: BDIA SpMV, the slab, the BDIA ring and scalar-DIA SpMM at k = 128 on
+``fem_blocks(512, dof=4)``, DIA SpMV on ``stencil_2d(2048)``, DIA SpMM at
+k = 32 on ``stencil_2d(1024)``), then B7 and B16-B18 (POH SpMV, POH SpMM at
+k = 32 and ``HybLell.spmv`` on the power law above; BSR SpMM on the FEM
+matrix at k = 128), so that two versions' times can be compared in one run;
+a combination a version refuses prints its refusal.
+
+``--sass CHECKOUT`` builds this checkout's kernels and another checkout's
+(say the parent commit's, unpacked with ``git archive``) and compares the
+SASS (``cuobjdump -sass``) of every kernel the two builds share,
+instruction for instruction: a change that must leave some instantiations'
+machine code as it was shows that it did.
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
+import os
+import re
 import subprocess
 import sys
 
@@ -302,8 +314,60 @@ def _one_panel(p, i: int):
                    row_panel=p.row_panel, col_window=p.col_window, **cut)
 
 
+def _time_or_refusal(name: str, tag: str, fn) -> None:
+    """One ``[probe] types`` line: the call's time, or the version's refusal."""
+    try:
+        fn()
+    except (TypeError, RuntimeError, ValueError) as e:
+        print(f"[probe] types {name} {tag}: refused ({str(e).splitlines()[0][:100]})",
+              flush=True)
+        return
+    print(f"[probe] types {name} {tag}: {_ms(fn) * 1e3:.1f} us", flush=True)
+
+
+def _types_block_banded(dev, combos) -> None:
+    """``--types``: B1-B6 and B8-B15 by value and operand type, on plans of
+    the f32 matrices cast to each value type (bit-equal to planning the
+    rounded matrix)."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+    from cask_tpu_torch.formats.generate import fem_blocks, stencil_2d
+    from cask_tpu_torch.ops.bdia import bdia_scalar_dia
+    from cask_tpu_torch.ops.bdia_slab import slab_auto_plan
+    from cask_tpu_torch.ops.kernels.bdia_kernels import bdia_spmm_ring, bdia_spmv
+    from cask_tpu_torch.ops.kernels.bdia_slab_kernels import bdia_spmm_slab
+    from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmm, dia_spmv
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    fem = ct.bdia_plan(fem_blocks(FEM_NX, dof=4, dtype=np.float32, seed=0, return_bsr=True),
+                       device=dev)
+    big = ct.dia_plan(stencil_2d(2048, dtype=np.float32), device=dev)
+    mid = ct.dia_plan(stencil_2d(1024, dtype=np.float32), device=dev)
+    scalar = bdia_scalar_dia(fem)
+    x = torch.randn(fem.shape[1], generator=gen, device=dev, dtype=torch.float64)
+    xs = torch.randn(big.shape[1], generator=gen, device=dev, dtype=torch.float64)
+    Xm = torch.randn((mid.shape[1], 32), generator=gen, device=dev, dtype=torch.float64)
+    Xw = torch.randn((fem.shape[1], 128), generator=gen, device=dev, dtype=torch.float64)
+    for vdt, xdt in combos:
+        p, s, d, dm = (q.astype(vdt) for q in (fem, scalar, big, mid))
+        sl = slab_auto_plan(p)
+        xv, xsv, Xmv, Xwv = (t.to(xdt) for t in (x, xs, Xm, Xw))
+        tag = f"values {str(vdt)[6:]}, operand {str(xdt)[6:]}"
+        for name, fn in (("bdia_spmv", lambda: bdia_spmv(p, xv)),
+                         ("dia_spmv", lambda: dia_spmv(d, xsv)),
+                         ("dia_spmm k=32", lambda: dia_spmm(dm, Xmv)),
+                         (f"bdia_spmm_slab k=128 (g {sl.g})", lambda: bdia_spmm_slab(sl, Xwv)),
+                         ("bdia_spmm_ring k=128", lambda: bdia_spmm_ring(p, Xwv)),
+                         ("dia_spmm k=128 (scalar DIA)", lambda: dia_spmm(s, Xwv))):
+            _time_or_refusal(name, tag, fn)
+        del p, s, d, dm, sl, xv, xsv, Xmv, Xwv
+
+
 def _types(dev) -> None:
-    """``--types``: B7 and B16-B18 by value and operand type."""
+    """``--types``: every kernel by value and operand type."""
     import numpy as np
     import torch
 
@@ -315,6 +379,7 @@ def _types(dev) -> None:
 
     f32, f64, bf, f16 = torch.float32, torch.float64, torch.bfloat16, torch.float16
     combos = [(f32, f32), (f64, f64), (bf, bf), (bf, f32), (f16, f16), (f16, f32)]
+    _types_block_banded(dev, combos)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     pl = power_law(PL_N, avg_degree=12, dtype=np.float64, seed=3)
@@ -336,13 +401,51 @@ def _types(dev) -> None:
                          ("poh_spmm k=32", lambda: poh_spmm(p, Xv)),
                          ("HybLell.spmv", lambda: h.spmv(xv)),
                          ("bsr_spmm k=128", lambda: bsr_spmm(q, Xwv))):
-            try:
-                fn()
-            except (TypeError, RuntimeError) as e:
-                print(f"[probe] types {name} {tag}: refused ({str(e).splitlines()[0][:100]})",
-                      flush=True)
-                continue
-            print(f"[probe] types {name} {tag}: {_ms(fn) * 1e3:.1f} us", flush=True)
+            _time_or_refusal(name, tag, fn)
+
+
+def _sass_by_kernel(lib) -> dict:
+    """{kernel: its SASS} of a built library, the anonymous namespace's
+    source-hashed name dropped from each kernel's mangled name and the
+    instruction offsets from its code."""
+    from cask_tpu_torch.ops.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         check=True).stdout
+    funcs = {}
+    for part in re.split(r"\n\s*Function : ", out)[1:]:
+        name, body = part.split("\n", 1)
+        funcs[re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", name.strip())] = \
+            re.sub(r"/\*[0-9a-f]{4}\*/", "", body)
+    return funcs
+
+
+def _sass(other: str) -> None:
+    """``--sass CHECKOUT``: this checkout's kernels against another's."""
+    from cask_tpu_torch.ops.kernels import build
+
+    other = os.path.abspath(other)
+    names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    mine = build.build_all(names)
+    code = ("import json, sys; from cask_tpu_torch.ops.kernels import build; "
+            "print(json.dumps({n: str(p) for n, p in build.build_all(sys.argv[1:]).items()}))")
+    out = subprocess.run([sys.executable, "-c", code, *names], cwd=other, capture_output=True,
+                         text=True, check=True, env={**os.environ, "PYTHONPATH": other})
+    theirs = json.loads(out.stdout.strip().splitlines()[-1])
+    same, differ, new = 0, [], 0
+    for name in names:
+        a, b = _sass_by_kernel(theirs[name]), _sass_by_kernel(mine[name])
+        for f, body in b.items():
+            if f not in a:
+                new += 1
+            elif a[f] == body:
+                same += 1
+            else:
+                differ.append(f)
+    print(f"[probe] sass against {other}: {same} kernels in both builds identical, "
+          f"{len(differ)} differ{': ' + ', '.join(differ) if differ else ''}; {new} only in "
+          f"this checkout", flush=True)
 
 
 def main() -> int:
@@ -367,6 +470,9 @@ def main() -> int:
     gen.manual_seed(0)
     if "--types" in sys.argv[1:]:
         _types(dev)
+        return 0
+    if "--sass" in sys.argv[1:]:
+        _sass(sys.argv[sys.argv.index("--sass") + 1])
         return 0
     slab_only = "--slab" in sys.argv[1:]
 

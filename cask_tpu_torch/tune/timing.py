@@ -5,11 +5,14 @@ reached through a relay.  Here the device's own clock is read directly:
 warm up, then time ``runs`` samples, each a stretch of ``reps`` back-to-
 back calls between two CUDA events, and take the median sample.
 
-Each sample starts behind ``_LEAD`` untimed calls, so the start event is
-recorded into a busy stream: while the host enqueues faster than the
-device runs, the device never waits on the host inside the timed stretch,
-and the host's launch cost stays out of the device time.  Where the host
-is the slower side (many small launches per call) the time is the host's.
+Each sample starts behind a spacer on the device (``torch.cuda._sleep``)
+long enough for the host to enqueue the whole stretch, so the device never
+waits on the host inside it: the time is the device's, also for a call
+whose host launch cost is as long as its kernel (a ~30 µs SpMV behind a
+Python wrapper).  The spacer is twice ``reps`` times the host's enqueue
+time of one call (the fastest warm-up call), capped at ``_MAX_SPACER_MS``:
+a call whose host side takes longer than that (the plain twins) is timed
+by the host.
 
 An operand that fits in the H100's 50 MB L2 is read from cache after the
 first call, not from HBM: time a bandwidth-bound kernel on operands larger
@@ -20,11 +23,13 @@ from __future__ import annotations
 
 import dataclasses
 import statistics
+import time
 from typing import Callable, List
 
 import torch
 
-_LEAD = 2  # untimed calls ahead of each sample's start event
+_MAX_SPACER_MS = 20.0  # the longest device spacer ahead of a sample
+_CLOCK_HZ = 1.98e9  # the H100's highest SM clock: a lower clock only lengthens the spacer
 
 
 @dataclasses.dataclass
@@ -39,13 +44,17 @@ def time_cuda(fn: Callable[[], object], *, warmup: int = 3, runs: int = 20,
     """Milliseconds per call of ``fn()`` on the current CUDA device."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_cuda needs a CUDA device")
-    for _ in range(warmup):
+    host_s = float("inf")
+    for _ in range(max(warmup, 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
+        host_s = min(host_s, time.perf_counter() - t0)
     torch.cuda.synchronize()
+    spacer_ms = min(2.0 * reps * host_s * 1e3 + 0.05, _MAX_SPACER_MS)
     events = []
     for _ in range(runs):
-        for _ in range(_LEAD):
-            fn()
+        torch.cuda._sleep(int(spacer_ms * 1e-3 * _CLOCK_HZ))
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):

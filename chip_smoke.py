@@ -35,13 +35,15 @@ card.  Phases, one line each:
 7. small-lell — the LELL kernel against its twin and scipy: ``lell_plan``
    at groups ∈ {1, 4, 8, 16} and ``lell_plan_hyb`` on a uniform matrix, a
    power law, a rectangle and a plan wider than the reference's 4096·B cap.
-7b. small-bf16 — the bf16 value path (values and operand each bf16 or
-   f32, at least one bf16; SpMM out f32 or bf16): the BDIA SpMV, DIA SpMV
-   and SpMM, ring and slab kernels (both frames) against their twins on the
-   small plans of phases 3-5, spmv and spmm at k ∈ {1, 12, 32, 65, 128};
+7b. small-bf16, small-f16 — the half value paths (values and operand each
+   H or f32, at least one H, for H bf16 and then f16; SpMM out f32 or H,
+   SpMV out f16 for f16 values and x, else f32): the BDIA SpMV, DIA SpMV and
+   SpMM, ring and slab kernels (both frames) against their twins on the
+   small plans of phases 3-5, spmv and spmm at k ∈ {1, 12, 32, 65, 128}, f32
+   outputs within 1e-5, half outputs within one ulp of the twin's f32 sum;
    and each slab kernel's error against f64 within 4x of its plain FP32
-   twin's (4xTF32 for f32, two TF32 passes with a bf16 operand), on the
-   headline-shaped and the TF32-sensitive case.
+   twin's (4xTF32 for f32, two TF32 passes with one half operand, one with
+   two f16 ones), on the headline-shaped and the TF32-sensitive case.
 7c. small-half — the half path of BSR SpMM, POH SpMV and SpMM and LELL
    (values and operand each bf16 or f16 or f32, at least one half, of one
    half type) against their twins on the small plans of phases 5-7: f32
@@ -71,14 +73,16 @@ card.  Phases, one line each:
    each row's diagonal raised by 1.1 × its absolute row sum: one
    ``poh_spmv`` launch per operator application; ``[poh-cg-bf16]`` the same
    over the system's bf16 POH plan, iterations within 2 of the f32 solve.
-19. bf16 — the paths of phases 8, 9, 11, 12 and 14 at full width with the
-   matrices' values in bf16 (f32 vectors): ``[spmv-bf16]`` spmv(bsr_bf16,
-   x), ``[cg-bf16]`` cg over a BdiaOperator of the bf16 plan,
-   ``[dia-spmv-bf16]`` and ``[dia-cg-bf16]`` on the stencils,
-   ``[spmm-bf16]`` spmm(bsr_bf16, X) at k = 32 (scalar DIA) and 128 (the
-   bf16 slab), the ring with f32 out and with ``accum_dtype=bf16`` (bf16
-   X), scalar DIA at k = 128 with f32 and bf16 out; each against its twin
-   and scipy f64 of the bf16-rounded matrix.
+19. bf16, f16 — the paths of phases 8, 9, 11, 12 and 14 at full width with
+   the matrices' values in bf16 and then f16 (f32 vectors): ``[spmv-H]``
+   spmv(bsr_H, x), ``[cg-H]`` cg over a BdiaOperator of the H plan,
+   ``[dia-spmv-H]`` and ``[dia-cg-H]`` on the stencils, ``[spmm-H]``
+   spmm(bsr_H, X) at k = 32 (scalar DIA) and 128 (the H slab), the ring
+   with f32 out and with ``accum_dtype=H`` (H X), scalar DIA at k = 128
+   with f32 and H out; each against its twin and scipy f64 of the
+   H-rounded matrix.  The f16 run adds f16 x to both SpMVs (f16 y) and
+   spmm(csr_f16, X) on the phase-13 stencil at k = 32, and its CG solves
+   must stay within 2 iterations of the f32 ones.
 19b. half — the power law with bf16 and with f16 values: ``[poh-spmv-half]``
    spmv(poh_plan(A_h), x), ``[poh-spmm-half]`` spmm at k = 32,
    ``[lell-half]`` lell_plan_hyb(A_h).spmv(x) (both tiers, segment sum and
@@ -474,13 +478,14 @@ def _check_half_out(name: str, y, twin32) -> float:
     return ulps
 
 
-def small_bf16(rng, dev) -> None:
-    """[small-bf16]: the BDIA SpMV, DIA SpMV and SpMM, ring and slab kernels
-    against their twins on the small plans of the f32 phases, for every
-    type combination of the bf16 path (values, operand: bf16/bf16,
-    bf16/f32, f32/bf16; SpMM out f32 or bf16), SpMV and SpMM at k in
-    BF16_KS, the slab in both frames; then the slabs' error class against
-    f64 (the plain FP32 twin's error times 4 at most)."""
+def small_block_half(rng, dev, h) -> None:
+    """[small-bf16] and [small-f16]: the BDIA SpMV, DIA SpMV and SpMM, ring
+    and slab kernels against their twins on the small plans of the f32
+    phases, for every type combination of the half path of ``h`` (values,
+    operand: H/H, H/f32, f32/H; SpMM out f32 or H; SpMV out f16 for f16
+    values and x, else f32), SpMV and SpMM at k in BF16_KS, the slab in both
+    frames; then the slabs' error class against f64 (the plain FP32 twin's
+    error times 4 at most)."""
     import numpy as np
     import torch
 
@@ -497,19 +502,22 @@ def small_bf16(rng, dev) -> None:
     from cask_tpu_torch.ops.kernels.dia_kernels import (dia_spmm, dia_spmm_reference,
                                                         dia_spmv, dia_spmv_reference)
 
-    bf, f32 = torch.bfloat16, torch.float32
-    combos = ((bf, bf), (bf, f32), (f32, bf))  # values, operand: at least one bf16
-    worst = {}  # kernel -> (worst f32-out normwise error, worst bf16-out ulps)
+    f32, ht = torch.float32, _short(h)
+    phase = f"small-{ht}"
+    combos = ((h, h), (h, f32), (f32, h))  # values, operand: at least one H
+    worst = {}  # kernel -> (worst f32-out normwise error, worst half-out ulps)
     n_checks = 0
 
-    def note(kernel, what, y, twin32, out, tol):
+    def note(kernel, what, y, twin32, tol):
+        """Hold ``y`` to the twin's f32 result ``twin32``: a half ``y``
+        within one ulp, an f32 one normwise within ``tol``."""
         nonlocal n_checks
         e, u = worst.get(kernel, (0.0, 0.0))
-        if out == bf:
+        if y.dtype == h:
             u = max(u, _check_half_out(what, y, twin32))
         else:
             if y.dtype != f32:
-                raise AssertionError(f"{what}: output {y.dtype}, not float32")
+                raise AssertionError(f"{what}: output {y.dtype}, not float32 or {h}")
             err = _relerr(y, twin32)
             _check(what, err, tol)
             e = max(e, err)
@@ -518,6 +526,9 @@ def small_bf16(rng, dev) -> None:
 
     def operand(shape, dt):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev).to(dt)
+
+    def spmv_out(vdt, xdt):
+        return torch.float16 if (vdt, xdt) == (torch.float16, torch.float16) else f32
 
     bdia_cases = [(f"fem{nx}_dof{dof}", fem_blocks(nx, dof=dof, dtype=np.float32,
                                                      return_bsr=True))
@@ -529,16 +540,19 @@ def small_bf16(rng, dev) -> None:
         for vdt, xdt in combos:
             plan = plan32.astype(vdt)
             x = operand(bsr.shape[1], xdt)
-            note("bdia_spmv", f"{name} {vdt}/{xdt} bdia_spmv", bdia_spmv(plan, x),
-                 bdia_spmv_reference(plan, x), None, BF16_TOL)
+            y = bdia_spmv(plan, x)
+            if y.dtype != spmv_out(vdt, xdt):
+                raise AssertionError(f"{name} {vdt}/{xdt} bdia_spmv: out {y.dtype}")
+            note("bdia_spmv", f"{name} {vdt}/{xdt} bdia_spmv", y,
+                 bdia_spmv_reference(plan.astype(f32), x.float()), BF16_TOL)
             if plan.npairs > 80:
                 continue
             for k in BF16_KS:
                 X = operand((bsr.shape[1], k), xdt)
-                for out in (None, bf):
+                for out in (f32, h):
                     note("bdia_spmm_ring", f"{name} {vdt}/{xdt} ring k={k} out {out}",
                          bdia_spmm_ring(plan, X, out_dtype=out),
-                         bdia_spmm_ring_reference(plan, X), out, BF16_TOL)
+                         bdia_spmm_ring_reference(plan, X, out_dtype=f32), BF16_TOL)
     for name, s64 in _dia_cases().items():
         s = s64.astype(np.float32)
         plan32 = ct.dia_plan(from_scipy(s), device=dev)
@@ -547,14 +561,17 @@ def small_bf16(rng, dev) -> None:
         for vdt, xdt in combos:
             plan = plan32.astype(vdt)
             x = operand(s.shape[1], xdt)
-            note("dia_spmv", f"{name} {vdt}/{xdt} dia_spmv", dia_spmv(plan, x),
-                 dia_spmv_reference(plan, x), None, BF16_TOL)
+            y = dia_spmv(plan, x)
+            if y.dtype != spmv_out(vdt, xdt):
+                raise AssertionError(f"{name} {vdt}/{xdt} dia_spmv: out {y.dtype}")
+            note("dia_spmv", f"{name} {vdt}/{xdt} dia_spmv", y,
+                 dia_spmv_reference(plan.astype(f32), x.float()), BF16_TOL)
             for k in BF16_KS:
                 X = operand((s.shape[1], k), xdt)
-                for out in (None, bf):
+                for out in (f32, h):
                     note("dia_spmm", f"{name} {vdt}/{xdt} dia_spmm k={k} out {out}",
-                         dia_spmm(plan, X, out_dtype=out), dia_spmm_reference(plan, X), out,
-                         BF16_TOL)
+                         dia_spmm(plan, X, out_dtype=out),
+                         dia_spmm_reference(plan, X, out_dtype=f32), BF16_TOL)
     widths = set()
     for name, b64 in _slab_cases().items():
         plan32 = ct.bdia_plan(b64.astype(np.float32), device=dev)
@@ -567,44 +584,48 @@ def small_bf16(rng, dev) -> None:
                                          if sl.blocksize[0] == sl.blocksize[1] else [])
                 for padded, xin in frames:
                     entry = bdia_spmm_slab_padded if padded else bdia_spmm_slab
-                    for out in (None, bf):
+                    for out in (f32, h):
                         note("bdia_spmm_slab", f"{name} {vdt}/{xdt} slab{' padded' * padded} "
                              f"k={k} out {out}", entry(sl, xin, out_dtype=out),
-                             bdia_spmm_slab_reference(sl, xin, padded=padded), out,
+                             bdia_spmm_slab_reference(sl, xin, padded=padded, out_dtype=f32),
                              BF16_SLAB_TOL)
     torch.cuda.synchronize()
-    print(f"[small-bf16] {n_checks} products (type combinations values/operand "
-          f"{', '.join(f'{str(v)[6:]}/{str(x)[6:]}' for v, x in combos)}; out f32 and "
-          f"bf16 for SpMM; k in {'/'.join(map(str, BF16_KS))}; {len(bdia_cases)} BDIA, "
+    print(f"[{phase}] {n_checks} products (type combinations values/operand "
+          f"{', '.join(f'{_short(v)}/{_short(x)}' for v, x in combos)}; out f32 and "
+          f"{ht} for SpMM, SpMV out {'f16 for f16/f16, else ' if h == torch.float16 else ''}"
+          f"f32; k in {'/'.join(map(str, BF16_KS))}; {len(bdia_cases)} BDIA, "
           f"{len(_dia_cases())} DIA and {len(_slab_cases())} slab plans, slab (g, W) "
           f"{sorted(widths)}, natural and padded frames): kernel vs twin worst "
-          + ", ".join(f"{k} {e:.2e} (f32 out) / {u:.2f} ulp (bf16 out)"
+          + ", ".join(f"{k} {e:.2e} (f32 out) / {u:.2f} ulp ({ht} out)"
                       for k, (e, u) in worst.items())
-          + f"; tol {BF16_TOL:.0e}, slab {BF16_SLAB_TOL:.0e}, bf16 out 1 ulp", flush=True)
+          + f"; tol {BF16_TOL:.0e}, slab {BF16_SLAB_TOL:.0e}, {ht} out 1 ulp", flush=True)
 
-    # the slabs' error class (f32 slab 4xTF32; bf16 slabs or X two passes):
-    # each kernel within 4x of its plain FP32 twin's error against f64
+    # the slabs' error class (f32 slab 4xTF32; half slabs or X two passes, f16
+    # with f16 one): each kernel within 4x of its plain FP32 twin's error
+    # against f64
     base = fem_blocks(16, dof=4, dtype=np.float32, return_bsr=True)
     low = dataclasses.replace(base, data=_low_bits(np.asarray(base.data)))
     xs = rng.standard_normal((base.shape[1], K_WIDE)).astype(np.float32)
     rows = []
+    kinds = ((f32, f32), (h, f32), (f32, h)) if h == torch.bfloat16 else combos
     for case, bsr, xh in (("headline-shaped", base, xs), ("TF32-sensitive", low, _low_bits(xs))):
         plan32 = ct.bdia_plan(bsr, device=dev)
-        for vdt, xdt in ((f32, f32), (bf, f32), (f32, bf)):
+        for vdt, xdt in kinds:
             sl = slab_auto_plan(plan32.astype(vdt))
             x = torch.from_numpy(xh).to(dev).to(xdt)
             s64 = dataclasses.replace(sl, slabs=sl.slabs.double())
             exact = bdia_spmm_slab_reference(s64, x.double())
-            y = bdia_spmm_slab(sl, x)
+            y = bdia_spmm_slab(sl, x, out_dtype=f32)
             torch.cuda.synchronize()
-            e_k, e_t = _relerr(y, exact), _relerr(bdia_spmm_slab_reference(sl, x), exact)
+            e_k = _relerr(y, exact)
+            e_t = _relerr(bdia_spmm_slab_reference(sl, x, out_dtype=f32), exact)
             if not e_k <= 4 * e_t:
                 raise AssertionError(f"{case} slab {vdt}/{xdt}: kernel error {e_k:.2e} above "
                                      f"4x the FP32 twin's {e_t:.2e}")
-            rows.append(f"{case} {str(vdt)[6:]}/{str(xdt)[6:]} {e_k:.2e} vs twin {e_t:.2e} "
+            rows.append(f"{case} {_short(vdt)}/{_short(xdt)} {e_k:.2e} vs twin {e_t:.2e} "
                         f"({e_k / e_t:.2f}x)")
-    print(f"[small-bf16] slab error class vs f64 (kernel vs plain FP32 twin, k {K_WIDE}; gate "
-          f"4x the twin's error on every case): " + "; ".join(rows), flush=True)
+    print(f"[{phase}] slab error class vs f64 (kernel vs plain FP32 twin, k {K_WIDE}, f32 "
+          f"out; gate 4x the twin's error on every case): " + "; ".join(rows), flush=True)
 
 
 HALF_KS = (1, 12, 32, 65, 128)  # BSR SpMM's k at small size (12, 65: off the 16-byte vectors)
@@ -995,10 +1016,10 @@ def main() -> int:
           f"{F64_TOL:.0e}", flush=True)
 
     t_lap = _lap("small-lell", t_lap)
-    # -- 7b. bf16 values: every kernel vs its twin, small ----------------------
-    small_bf16(rng, dev)
-
-    t_lap = _lap("small-bf16", t_lap)
+    # -- 7b. bf16 and f16 values of the block and banded kernels vs twins, small
+    for h in (torch.bfloat16, torch.float16):
+        small_block_half(rng, dev, h)
+        t_lap = _lap(f"small-{_short(h)}", t_lap)
     # -- 7c. bf16 and f16 values of B7, B16-B18: every kernel vs its twin -------
     small_half(rng, dev)
 
@@ -1465,137 +1486,8 @@ def main() -> int:
     del res, warm, spd64, spd64_bf, b64, spd, spd_sp, spd_bf, Mp, bp
 
     t_lap = _lap("poh-cg-bf16", t_lap)
-    # -- 19. bf16 main paths at full width: the same matrices, bf16 values ----
-    bf = torch.bfloat16
-
-    # [spmv-bf16]: spmv(bsr_bf16, x) -> the cached bf16 BDIA plan -> B1
-    a_bf = a.astype(bf)  # its own matrix: its own (bf16) plan in the cache
-    a_sp_bf = _half_matrix(a_sp, bf)
-    _reset()
-    t0 = time.perf_counter()
-    y = ct.spmv(a_bf, x)
-    torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-    launches_spmv_bf = _launched("bdia_spmv", "spmv(bsr_bf16, x)")
-    plan_bf = default_plan_cache.get(a_bf)
-    if launches_spmv_bf != 1 or plan_bf.dtype != bf or y.dtype != torch.float32:
-        raise AssertionError(f"spmv(bsr_bf16, x): {launches_spmv_bf} launches, plan "
-                             f"{plan_bf.dtype}, y {y.dtype}")
-    y_twin = plan_bf._spmv_reference(x)
-    err_twin = _relerr(y, y_twin)
-    _check("1M bf16 spmv kernel vs twin", err_twin, BF16_TOL)
-    abs_spmv_bf = float((y - y_twin).abs().max())
-    x64 = x.cpu().double().numpy()
-    err_sp = _relerr(y, torch.from_numpy(a_sp_bf @ x64))
-    _check("1M bf16 spmv kernel vs scipy f64 of the bf16 matrix", err_sp, BF16_TOL)
-    err_f32 = _relerr(y, torch.from_numpy(a_sp.astype(np.float64) @ x64))
-    print(f"[spmv-bf16] spmv(bsr_bf16, x f32): plan {plan_bf.dtype} {tuple(plan_bf.vals.shape)}, "
-          f"{plan_bf.vals.numel() * 2 / 1e6:.1f} MB of values; first call (plan + launch) "
-          f"{t_first:.1f} s; launches bdia_spmv {launches_spmv_bf}; y {y.dtype}; vs twin "
-          f"{err_twin:.2e} (max abs {abs_spmv_bf:.2e}), vs scipy f64 of the bf16-rounded "
-          f"matrix {err_sp:.2e} (tol {BF16_TOL:.0e}); vs the f32 matrix {err_f32:.2e} (the "
-          f"values' bf16 rounding)", flush=True)
-    del y, y_twin
-
-    # [cg-bf16]: cg(BdiaOperator(bf16 plan), b f32) -> B2, f32 Krylov vectors
-    t0 = time.perf_counter()
-    op_bf = ct.BdiaOperator(ct.bdia_plan(s_bsr.to(dev).astype(bf), device=dev))
-    t_sys = time.perf_counter() - t0
-    _reset()
-    t0 = time.perf_counter()
-    res = ct.solvers.cg(op_bf, b, tol=1e-6, maxiter=200)
-    torch.cuda.synchronize()
-    t_cg = time.perf_counter() - t0
-    launches_cg_bf = _launched("bdia_spmv", "cg over a bf16 BdiaOperator")
-    if not res.converged or launches_cg_bf != res.iterations + 1:
-        raise AssertionError(f"bf16 cg: converged {res.converged} in {res.iterations} "
-                             f"iterations, {launches_cg_bf} launches")
-    s64_bf = _half_matrix(to_scipy(s_csr), bf)
-    b64 = b.cpu().double().numpy()
-    true_rel = float(np.linalg.norm(b64 - s64_bf @ res.x.cpu().double().numpy())
-                     / np.linalg.norm(b64))
-    if not true_rel <= 1e-5:
-        raise AssertionError(f"bf16 cg true relative residual {true_rel:.3e} > 1e-5")
-    t0 = time.perf_counter()
-    warm = ct.solvers.cg(op_bf, b, tol=1e-6, maxiter=200)
-    torch.cuda.synchronize()
-    t_warm = time.perf_counter() - t0
-    y_op, y_op_twin = op_bf(b), op_bf.bdia._spmv_reference(b)
-    err_op = _relerr(y_op, y_op_twin)
-    _check("1M bf16 operator kernel vs twin", err_op, BF16_TOL)
-    abs_op_bf = float((y_op - y_op_twin).abs().max())
-    print(f"[cg-bf16] BdiaOperator of the bf16 plan of the same system, mode {op_bf.mode}, x "
-          f"and b f32: converged in {res.iterations} iterations (f32: {cg32[0]}), warm "
-          f"{t_warm / max(warm.iterations, 1) * 1e6:.0f} us per iteration (f32: "
-          f"{cg32[1]:.0f}; host clock); true relative residual vs the bf16-rounded matrix "
-          f"{true_rel:.2e} (f64 host, tol 1e-5); launches {launches_cg_bf} = iterations + 1; "
-          f"operator kernel vs twin {err_op:.2e}; system build {t_sys:.1f} s", flush=True)
-    del res, warm, s64_bf, s_csr, s_bsr, y_op, y_op_twin
-
-    # [dia-spmv-bf16]: spmv(csr_bf16, x) -> the cached bf16 DIA plan -> B8
-    st_bf = st.astype(bf)
-    _reset()
-    t0 = time.perf_counter()
-    ys = ct.spmv(st_bf, xs)
-    torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-    launches_dspmv_bf = _launched("dia_spmv", "spmv(csr_bf16, x)")
-    dplan_bf = default_plan_cache.get(st_bf)
-    if launches_dspmv_bf != 1 or dplan_bf.dtype != bf or ys.dtype != torch.float32:
-        raise AssertionError(f"spmv(csr_bf16, x): {launches_dspmv_bf} launches, plan "
-                             f"{dplan_bf.dtype}, y {ys.dtype}")
-    ys_twin = dplan_bf._spmv_reference(xs)
-    err_twin = _relerr(ys, ys_twin)
-    _check("4M bf16 dia spmv kernel vs twin", err_twin, BF16_TOL)
-    abs_dspmv_bf = float((ys - ys_twin).abs().max())
-    xs64 = xs.cpu().double().numpy()
-    err_sp = _relerr(ys, torch.from_numpy(_half_matrix(st_sp, bf) @ xs64))
-    _check("4M bf16 dia spmv vs scipy f64 of the bf16 matrix", err_sp, BF16_TOL)
-    print(f"[dia-spmv-bf16] spmv(csr_bf16, x f32): plan {dplan_bf.dtype} "
-          f"{tuple(dplan_bf.vals.shape)}; first call (plan + launch) {t_first:.1f} s; launches "
-          f"dia_spmv {launches_dspmv_bf}; vs twin {err_twin:.2e} (max abs {abs_dspmv_bf:.2e}), "
-          f"vs scipy f64 of the bf16-rounded matrix {err_sp:.2e} (tol {BF16_TOL:.0e})",
-          flush=True)
-    del ys, ys_twin
-
-    # [dia-cg-bf16]: cg(solver_operator(csr_bf16), b) on I + stencil -> B9
-    t0 = time.perf_counter()
-    dop_bf = ct.solver_operator(s_port.to(dev).astype(bf))
-    t_sys = time.perf_counter() - t0
-    _reset()
-    res = ct.solvers.cg(dop_bf, dop_bf.to_padded(bs), tol=1e-6, maxiter=500)
-    torch.cuda.synchronize()
-    launches_dcg_bf = _launched("dia_spmv", "cg over a bf16 solver_operator")
-    if not res.converged or launches_dcg_bf != res.iterations + 1:
-        raise AssertionError(f"bf16 dia cg: converged {res.converged} in {res.iterations} "
-                             f"iterations, {launches_dcg_bf} launches")
-    b64 = bs.cpu().double().numpy()
-    true_rel = float(np.linalg.norm(b64 - _half_matrix(s_sp, bf) @ dop_bf.from_padded(res.x).cpu()
-                                    .double().numpy()) / np.linalg.norm(b64))
-    if not true_rel <= 1e-5:
-        raise AssertionError(f"bf16 dia cg true relative residual {true_rel:.3e} > 1e-5")
-    t0 = time.perf_counter()
-    warm = ct.solvers.cg(dop_bf, dop_bf.to_padded(bs), tol=1e-6, maxiter=500)
-    torch.cuda.synchronize()
-    t_warm = time.perf_counter() - t0
-    yd_op, yd_twin = dop_bf(bs), dop_bf.dia._spmv_reference(bs)
-    err_op = _relerr(yd_op, yd_twin)
-    _check("4M bf16 operator kernel vs twin", err_op, BF16_TOL)
-    abs_dop_bf = float((yd_op - yd_twin).abs().max())
-    print(f"[dia-cg-bf16] solver_operator of the bf16 CSR, mode {dop_bf.mode}: converged in "
-          f"{res.iterations} iterations (f32: {dcg32[0]}), warm "
-          f"{t_warm / max(warm.iterations, 1) * 1e6:.0f} us per iteration (f32: "
-          f"{dcg32[1]:.0f}; host clock); true relative residual vs the bf16-rounded matrix "
-          f"{true_rel:.2e} (tol 1e-5); launches {launches_dcg_bf} = iterations + 1; operator "
-          f"kernel vs twin {err_op:.2e}; system build {t_sys:.1f} s", flush=True)
-    del res, warm, b64, yd_op, yd_twin
-
-    # [spmm-bf16]: spmm(bsr_bf16, X) at k = 32 (scalar DIA, B14) and 128 (the
-    # bf16 slab, B6); the ring (B4) with f32 and bf16 out; scalar DIA at k =
-    # 128 (B13) with f32 and bf16 out.  bf16 outs take bf16 X: the chain.
-    Xw_bf = Xw.to(bf)
-    Yw_sp_bf = torch.from_numpy(a_sp_bf @ Xw[:, :SCIPY_COLS].cpu().double().numpy())
-    Yw_sp_chain = torch.from_numpy(a_sp_bf @ Xw_bf[:, :SCIPY_COLS].cpu().double().numpy())
+    # -- 19. bf16 and f16 main paths at full width: the same matrices, half values
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     runs = {}  # label -> (launches, max abs error against the twin)
 
     def half_path(phase, label, kernel, call, twin, sp_ref, expect=1, twin_tol=None,
@@ -1630,43 +1522,186 @@ def main() -> int:
               f"scipy f64 of the rounded inputs {err_sp:.2e} (tol {sp_tol:.0e})"
               + ("" if y.ndim == 1 else f" on {sp_ref.shape[1]} columns"), flush=True)
 
-    Xb64 = torch.from_numpy(a_sp_bf @ Xb.cpu().double().numpy())
-    half_path("spmm-bf16", f"spmm(bsr_bf16, X f32), k={K}", "dia_spmm",
-              lambda: ct.spmm(a_bf, Xb), lambda: bdia_scalar_dia(plan_bf)._spmm_reference(Xb),
-              Xb64)
-    splan_bf = bdia_scalar_dia(plan_bf)
-    del Xb64
-    half_path("spmm-bf16", f"spmm(bsr_bf16, X f32), k={K_WIDE}: the bf16 slab",
-              "bdia_spmm_slab", lambda: ct.spmm(a_bf, Xw),
-              lambda: bdia_spmm_slab_reference(default_plan_cache.get(plan_bf, "slab"), Xw),
-              Yw_sp_bf, twin_tol=BF16_SLAB_TOL)
-    sl_bf = default_plan_cache.get(plan_bf, "slab")
-    print(f"[spmm-bf16] bf16 slab plan: g {sl_bf.g}, W {sl_bf.width}, "
-          f"{sl_bf.slabs.numel() * 2 / 1e6:.1f} MB (the f32 plan: g {sl.g}, "
-          f"{sl.slabs.numel() * 4 / 1e6:.1f} MB); the BDIA plan's values "
-          f"{plan_bf.vals.numel() * 2 / 1e6:.1f} MB, the scalar-DIA plan's "
-          f"{splan_bf.vals.numel() * 2 / 1e6:.1f} MB", flush=True)
-    half_path("spmm-bf16", f"spmm(plan_bf16, X f32, method='pallas_bdia'), k={K_WIDE}",
-              "bdia_spmm_ring", lambda: ct.spmm(plan_bf, Xw, method="pallas_bdia"),
-              lambda: bdia_spmm_ring_reference(plan_bf, Xw), Yw_sp_bf)
-    half_path("spmm-bf16",
-              f"spmm(plan_bf16, X bf16, method='pallas_bdia', accum_dtype=bf16), k={K_WIDE}",
-              "bdia_spmm_ring",
-              lambda: ct.spmm(plan_bf, Xw_bf, method="pallas_bdia", accum_dtype=bf),
-              lambda: bdia_spmm_ring_reference(plan_bf, Xw_bf), Yw_sp_chain, sp_tol=2e-2)
-    half_path("spmm-bf16", f"spmm(scalar-DIA plan_bf16, X f32), k={K_WIDE}", "dia_spmm",
-              lambda: ct.spmm(splan_bf, Xw), lambda: splan_bf._spmm_reference(Xw), Yw_sp_bf)
-    half_path("spmm-bf16",
-              f"dia_spmm(scalar-DIA plan_bf16, X bf16, out_dtype=bf16), k={K_WIDE}",
-              "dia_spmm", lambda: dia_spmm(splan_bf, Xw_bf, out_dtype=bf),
-              lambda: dia_spmm_reference(splan_bf, Xw_bf), Yw_sp_chain, sp_tol=2e-2)
+    def half_cg(phase, op, rhs, maxiter, s64, f32_run, kernel, what):
+        """cg over a half operator (f32 Krylov vectors) with all counts at 0:
+        one launch per application, the true residual of the rounded system
+        (f64 host) within 1e-5, and for f16 the f32 solve's iterations
+        within 2.  Returns (launches, the warm solve's us per iteration)."""
+        _reset()
+        res = ct.solvers.cg(op, op.to_padded(rhs), tol=1e-6, maxiter=maxiter)
+        torch.cuda.synchronize()
+        n = _launched(kernel, what)
+        if not res.converged or n != res.iterations + 1:
+            raise AssertionError(f"{what}: converged {res.converged} in {res.iterations} "
+                                 f"iterations, {n} launches")
+        if phase.endswith("f16") and abs(res.iterations - f32_run[0]) > 2:
+            raise AssertionError(f"{what}: {res.iterations} iterations, the f32 solve "
+                                 f"{f32_run[0]} (more than 2 apart)")
+        r64 = rhs.cpu().double().numpy()
+        true_rel = float(np.linalg.norm(r64 - s64 @ op.from_padded(res.x).cpu().double()
+                                        .numpy()) / np.linalg.norm(r64))
+        if not true_rel <= 1e-5:
+            raise AssertionError(f"{what}: true relative residual {true_rel:.3e} > 1e-5")
+        t0 = time.perf_counter()
+        warm = ct.solvers.cg(op, op.to_padded(rhs), tol=1e-6, maxiter=maxiter)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / max(warm.iterations, 1) * 1e6
+        print(f"[{phase}] {what}, x and b f32: converged in {res.iterations} iterations (f32: "
+              f"{f32_run[0]}), warm {us:.0f} us per iteration (f32: {f32_run[1]:.0f}; host "
+              f"clock); true relative residual vs the rounded matrix {true_rel:.2e} (f64 host, "
+              f"tol 1e-5); launches {n} = iterations + 1", flush=True)
+        return n
 
-    t_lap = _lap("bf16", t_lap)
+    x64 = x.cpu().double().numpy()
+    xs64 = xs.cpu().double().numpy()
+    half = {}  # h -> the plans, operands and launch counts the timing rows use
+    for h in (bf, f16):
+        ht = _short(h)
+        hv = half[h] = {}
+        # [spmv-H]: spmv(bsr_H, x) -> the cached H BDIA plan -> B1; f16 x too
+        a_h = a.astype(h)  # its own matrix: its own (half) plan in the cache
+        a_sp_h = hv["a_sp"] = _half_matrix(a_sp, h)
+        _reset()
+        t0 = time.perf_counter()
+        y = ct.spmv(a_h, x)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        hv["launches_spmv"] = _launched("bdia_spmv", f"spmv(bsr_{ht}, x)")
+        plan_h = hv["plan"] = default_plan_cache.get(a_h)
+        if hv["launches_spmv"] != 1 or plan_h.dtype != h or y.dtype != f32:
+            raise AssertionError(f"spmv(bsr_{ht}, x): {hv['launches_spmv']} launches, plan "
+                                 f"{plan_h.dtype}, y {y.dtype}")
+        y_twin = plan_h._spmv_reference(x)
+        err_twin = _relerr(y, y_twin)
+        _check(f"1M {ht} spmv kernel vs twin", err_twin, BF16_TOL)
+        hv["abs_spmv"] = float((y - y_twin).abs().max())
+        err_sp = _relerr(y, torch.from_numpy(a_sp_h @ x64))
+        _check(f"1M {ht} spmv kernel vs scipy f64 of the {ht} matrix", err_sp, BF16_TOL)
+        err_f32 = _relerr(y, torch.from_numpy(a_sp.astype(np.float64) @ x64))
+        print(f"[spmv-{ht}] spmv(bsr_{ht}, x f32): plan {plan_h.dtype} "
+              f"{tuple(plan_h.vals.shape)}, {plan_h.vals.numel() * 2 / 1e6:.1f} MB of values; "
+              f"first call (plan + launch) {t_first:.1f} s; launches bdia_spmv "
+              f"{hv['launches_spmv']}; y {y.dtype}; vs twin {err_twin:.2e} (max abs "
+              f"{hv['abs_spmv']:.2e}), vs scipy f64 of the {ht}-rounded matrix {err_sp:.2e} "
+              f"(tol {BF16_TOL:.0e}); vs the f32 matrix {err_f32:.2e} (the values' {ht} "
+              f"rounding)", flush=True)
+        del y, y_twin
+        if h == f16:  # f16 values and x: the reference's f16 y, rounded once
+            x_h = hv["x"] = x.to(h)
+            half_path(f"spmv-{ht}", f"spmv(bsr_{ht}, x {ht})", "bdia_spmv",
+                      lambda: ct.spmv(a_h, x_h),
+                      lambda: bdia_spmv_reference(plan_h.astype(f32), x_h.float()),
+                      torch.from_numpy(a_sp_h @ x_h.cpu().double().numpy()), sp_tol=1e-3)
+
+        # [cg-H]: cg(BdiaOperator(H plan), b f32) -> B2, f32 Krylov vectors
+        t0 = time.perf_counter()
+        op_h = hv["op"] = ct.BdiaOperator(ct.bdia_plan(s_bsr.to(dev).astype(h), device=dev))
+        t_sys = time.perf_counter() - t0
+        hv["launches_cg"] = half_cg(f"cg-{ht}", op_h, b, 200, _half_matrix(to_scipy(s_csr), h),
+                                    cg32, "bdia_spmv", f"BdiaOperator of the {ht} plan of the "
+                                    f"same system, mode {op_h.mode} (built in {t_sys:.1f} s)")
+        y_op, y_op_twin = op_h(b), op_h.bdia._spmv_reference(b)
+        _check(f"1M {ht} operator kernel vs twin", _relerr(y_op, y_op_twin), BF16_TOL)
+        hv["abs_op"] = float((y_op - y_op_twin).abs().max())
+        del y_op, y_op_twin
+
+        # [dia-spmv-H]: spmv(csr_H, x) -> the cached H DIA plan -> B8; f16 x too
+        st_h = st.astype(h)
+        st_sp_h = _half_matrix(st_sp, h)
+        _reset()
+        t0 = time.perf_counter()
+        ys = ct.spmv(st_h, xs)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        hv["launches_dspmv"] = _launched("dia_spmv", f"spmv(csr_{ht}, x)")
+        dplan_h = hv["dplan"] = default_plan_cache.get(st_h)
+        if hv["launches_dspmv"] != 1 or dplan_h.dtype != h or ys.dtype != f32:
+            raise AssertionError(f"spmv(csr_{ht}, x): {hv['launches_dspmv']} launches, plan "
+                                 f"{dplan_h.dtype}, y {ys.dtype}")
+        ys_twin = dplan_h._spmv_reference(xs)
+        err_twin = _relerr(ys, ys_twin)
+        _check(f"4M {ht} dia spmv kernel vs twin", err_twin, BF16_TOL)
+        hv["abs_dspmv"] = float((ys - ys_twin).abs().max())
+        err_sp = _relerr(ys, torch.from_numpy(st_sp_h @ xs64))
+        _check(f"4M {ht} dia spmv vs scipy f64 of the {ht} matrix", err_sp, BF16_TOL)
+        print(f"[dia-spmv-{ht}] spmv(csr_{ht}, x f32): plan {dplan_h.dtype} "
+              f"{tuple(dplan_h.vals.shape)}; first call (plan + launch) {t_first:.1f} s; "
+              f"launches dia_spmv {hv['launches_dspmv']}; vs twin {err_twin:.2e} (max abs "
+              f"{hv['abs_dspmv']:.2e}), vs scipy f64 of the {ht}-rounded matrix {err_sp:.2e} "
+              f"(tol {BF16_TOL:.0e})", flush=True)
+        del ys, ys_twin
+        if h == f16:
+            xs_h = hv["xs"] = xs.to(h)
+            half_path(f"dia-spmv-{ht}", f"spmv(csr_{ht}, x {ht})", "dia_spmv",
+                      lambda: ct.spmv(st_h, xs_h),
+                      lambda: dia_spmv_reference(dplan_h.astype(f32), xs_h.float()),
+                      torch.from_numpy(st_sp_h @ xs_h.cpu().double().numpy()), sp_tol=1e-3)
+        del st_sp_h
+
+        # [dia-cg-H]: cg(solver_operator(csr_H), b) on I + stencil -> B9
+        t0 = time.perf_counter()
+        dop_h = hv["dop"] = ct.solver_operator(s_port.to(dev).astype(h))
+        t_sys = time.perf_counter() - t0
+        hv["launches_dcg"] = half_cg(f"dia-cg-{ht}", dop_h, bs, 500, _half_matrix(s_sp, h), dcg32,
+                                     "dia_spmv", f"solver_operator of the {ht} CSR, mode "
+                                     f"{dop_h.mode} (built in {t_sys:.1f} s)")
+        yd_op, yd_twin = dop_h(bs), dop_h.dia._spmv_reference(bs)
+        _check(f"4M {ht} operator kernel vs twin", _relerr(yd_op, yd_twin), BF16_TOL)
+        hv["abs_dop"] = float((yd_op - yd_twin).abs().max())
+        del yd_op, yd_twin
+
+        # [spmm-H]: spmm(bsr_H, X) at k = 32 (scalar DIA, B14) and 128 (the half
+        # slab, B6); the ring (B4) with f32 and H out; scalar DIA at k = 128
+        # (B13) with f32 and H out.  H outs take H X: the fully-half chain.
+        phase = f"spmm-{ht}"
+        Xw_h = hv["Xw"] = Xw.to(h)
+        Yw_sp_h = torch.from_numpy(a_sp_h @ Xw[:, :SCIPY_COLS].cpu().double().numpy())
+        Yw_sp_chain = torch.from_numpy(a_sp_h @ Xw_h[:, :SCIPY_COLS].cpu().double().numpy())
+        chain_tol = 2e-2 if h == bf else 1e-3  # the output's own rounding
+        Xb64 = torch.from_numpy(a_sp_h @ Xb.cpu().double().numpy())
+        half_path(phase, f"spmm(bsr_{ht}, X f32), k={K}", "dia_spmm",
+                  lambda: ct.spmm(a_h, Xb), lambda: bdia_scalar_dia(plan_h)._spmm_reference(Xb),
+                  Xb64)
+        del Xb64
+        splan_h = hv["splan"] = bdia_scalar_dia(plan_h)
+        if h == f16:  # the banded CSR at k = 32: its cached f16 DIA plan (B14)
+            mm_h = mm.astype(h)
+            half_path(phase, f"spmm(csr_{ht}, X f32), k={K}", "dia_spmm",
+                      lambda: ct.spmm(mm_h, X),
+                      lambda: default_plan_cache.get(mm_h)._spmm_reference(X),
+                      torch.from_numpy(_half_matrix(mm_sp, h) @ X.cpu().double().numpy()))
+            hv["mplan"] = default_plan_cache.get(mm_h)
+        half_path(phase, f"spmm(bsr_{ht}, X f32), k={K_WIDE}: the {ht} slab",
+                  "bdia_spmm_slab", lambda: ct.spmm(a_h, Xw),
+                  lambda: bdia_spmm_slab_reference(default_plan_cache.get(plan_h, "slab"), Xw),
+                  Yw_sp_h, twin_tol=BF16_SLAB_TOL)
+        sl_h = hv["sl"] = default_plan_cache.get(plan_h, "slab")
+        print(f"[{phase}] {ht} slab plan: g {sl_h.g}, W {sl_h.width}, "
+              f"{sl_h.slabs.numel() * 2 / 1e6:.1f} MB (the f32 plan: g {sl.g}, "
+              f"{sl.slabs.numel() * 4 / 1e6:.1f} MB); the BDIA plan's values "
+              f"{plan_h.vals.numel() * 2 / 1e6:.1f} MB, the scalar-DIA plan's "
+              f"{splan_h.vals.numel() * 2 / 1e6:.1f} MB", flush=True)
+        half_path(phase, f"spmm(plan_{ht}, X f32, method='pallas_bdia'), k={K_WIDE}",
+                  "bdia_spmm_ring", lambda: ct.spmm(plan_h, Xw, method="pallas_bdia"),
+                  lambda: bdia_spmm_ring_reference(plan_h, Xw), Yw_sp_h)
+        half_path(phase, f"spmm(plan_{ht}, X {ht}, method='pallas_bdia', accum_dtype={ht}), "
+                  f"k={K_WIDE}", "bdia_spmm_ring",
+                  lambda: ct.spmm(plan_h, Xw_h, method="pallas_bdia", accum_dtype=h),
+                  lambda: bdia_spmm_ring_reference(plan_h, Xw_h, out_dtype=f32), Yw_sp_chain,
+                  sp_tol=chain_tol)
+        half_path(phase, f"spmm(scalar-DIA plan_{ht}, X f32), k={K_WIDE}", "dia_spmm",
+                  lambda: ct.spmm(splan_h, Xw), lambda: splan_h._spmm_reference(Xw), Yw_sp_h)
+        half_path(phase, f"dia_spmm(scalar-DIA plan_{ht}, X {ht}, out_dtype={ht}), "
+                  f"k={K_WIDE}", "dia_spmm", lambda: dia_spmm(splan_h, Xw_h, out_dtype=h),
+                  lambda: dia_spmm_reference(splan_h, Xw_h, out_dtype=f32), Yw_sp_chain,
+                  sp_tol=chain_tol)
+        del Yw_sp_h, Yw_sp_chain
+        t_lap = _lap(ht, t_lap)
+    del s_csr, s_bsr
     # -- 19b. half values of B7 and B16-B18 at full width: bf16 and f16 ---------
     # The power law's values rounded to bf16 and to f16, through poh_plan and
     # lell_plan_hyb of the half matrix; the FEM BSR's, through spmm(bsr_h, X,
     # method="pallas_bsr") at k = 128.  Operands in the half type and in f32.
-    f16 = torch.float16
     halves = (bf, f16)
     poh_h, hyb_h, bplan_h = {}, {}, {}
     for h in halves:
@@ -1816,61 +1851,89 @@ def main() -> int:
              2 * pl_sp.nnz,
              launches_lell, abs_lell)]
     rows = [r + (torch.float32,) for r in rows]  # the library call in f32
-    xy_bf = (n + m) * K_WIDE * 2  # bf16 X read once and bf16 Y written once
-    n_f32 = len(rows)
+    xy_h = (n + m) * K_WIDE * 2  # half X read once and half Y written once
+    # the half rows of the block and banded kernels (bytes at the values' and
+    # operands' widths; the library call in the values' half type)
+    for h in (bf, f16):
+        ht, hv = _short(h), half[h]
+        ph, oph, dph, doph, sph, slh, Xwh = (hv[k] for k in ("plan", "op", "dplan", "dop",
+                                                             "splan", "sl", "Xw"))
+        rows += [
+            (f"bdia_spmv {ht} [spmv(bsr_{ht}, x f32)]", "bdia_spmv",
+             f"{BDIA_PY}:290 (B1; also :409, B3)", lambda ph=ph: bdia_spmv(ph, x),
+             lambda ph=ph: bdia_spmv_reference(ph, x), a_sp, x,
+             ph.vals.numel() * 2 + (m + n) * 4, 2 * ph.vals.numel(), hv["launches_spmv"],
+             hv["abs_spmv"], h),
+            (f"bdia_spmv {ht} [BdiaOperator({ht} plan) in cg]", "bdia_spmv",
+             f"{BDIA_PY}:70 (B2)", lambda oph=oph: bdia_spmv(oph.bdia, b),
+             lambda oph=oph: bdia_spmv_reference(oph.bdia, b), sb_sp, b,
+             oph.bdia.vals.numel() * 2 + 2 * oph.bdia.shape[0] * 4,
+             2 * oph.bdia.vals.numel(), hv["launches_cg"], hv["abs_op"], h),
+            (f"dia_spmv {ht} [spmv(csr_{ht}, x f32)]", "dia_spmv", f"{DIA_PY}:176 (B8)",
+             lambda dph=dph: dia_spmv(dph, xs), lambda dph=dph: dia_spmv_reference(dph, xs),
+             st_sp, xs, dph.vals.numel() * 2 + (dph.shape[0] + dph.shape[1]) * 4,
+             2 * dph.vals.numel(), hv["launches_dspmv"], hv["abs_dspmv"], h),
+            (f"dia_spmv {ht} [solver_operator(csr_{ht}) in cg]", "dia_spmv",
+             f"{DIA_PY}:336 (B9), :511 (B10), :650 (B11)",
+             lambda doph=doph: dia_spmv(doph.dia, bs),
+             lambda doph=doph: dia_spmv_reference(doph.dia, bs), s_sp, bs,
+             doph.dia.vals.numel() * 2 + 2 * doph.dia.shape[0] * 4,
+             2 * doph.dia.vals.numel(), hv["launches_dcg"], hv["abs_dop"], h),
+            (f"dia_spmm {ht} [spmm(bsr_{ht}, X f32), k={K}]", "dia_spmm",
+             f"{DIA_PY}:1148 (B14, k <= 64)", lambda sph=sph: dia_spmm(sph, Xb),
+             lambda sph=sph: dia_spmm_reference(sph, Xb), a_sp, Xb,
+             ph.vals.numel() * 2 + (m + n) * K * 4, 2 * ph.vals.numel() * K,
+             *runs[f"spmm(bsr_{ht}, X f32), k={K}"], h),
+            (f"bdia_spmm_slab {ht} [spmm(bsr_{ht}, X f32), k={K_WIDE}: two TF32 passes]",
+             "bdia_slab_spmm", f"{SLAB_PY}:518 (B6; entries :505, :494), :290 (B5)",
+             lambda slh=slh: bdia_spmm_slab(slh, Xw),
+             lambda slh=slh: bdia_spmm_slab_reference(slh, Xw), a_sp, Xw,
+             ph.vals.numel() * 2 + xy_w, 2 * ph.vals.numel() * K_WIDE,
+             *runs[f"spmm(bsr_{ht}, X f32), k={K_WIDE}: the {ht} slab"], h),
+            (f"bdia_spmm_ring {ht} [spmm(plan_{ht}, X f32, method='pallas_bdia'), "
+             f"k={K_WIDE}]", "bdia_spmm", f"{BDIA_PY}:607 (B4)",
+             lambda ph=ph: bdia_spmm_ring(ph, Xw),
+             lambda ph=ph: bdia_spmm_ring_reference(ph, Xw), a_sp, Xw,
+             ph.vals.numel() * 2 + xy_w, 2 * ph.vals.numel() * K_WIDE,
+             *runs[f"spmm(plan_{ht}, X f32, method='pallas_bdia'), k={K_WIDE}"], h),
+            (f"bdia_spmm_ring {ht} [X and Y {ht}: accum_dtype={ht}], k={K_WIDE}", "bdia_spmm",
+             f"{BDIA_PY}:607 (B4)", lambda ph=ph, X=Xwh, h=h: bdia_spmm_ring(ph, X, out_dtype=h),
+             lambda ph=ph, X=Xwh, h=h: bdia_spmm_ring_reference(ph, X, out_dtype=h), a_sp,
+             Xwh, ph.vals.numel() * 2 + xy_h, 2 * ph.vals.numel() * K_WIDE,
+             *runs[f"spmm(plan_{ht}, X {ht}, method='pallas_bdia', accum_dtype={ht}), "
+                   f"k={K_WIDE}"], h),
+            (f"dia_spmm {ht} [spmm(scalar-DIA plan_{ht}, X f32), k={K_WIDE}]", "dia_spmm",
+             f"{DIA_PY}:1023 (B13), :1314 (B15)", lambda sph=sph: dia_spmm(sph, Xw),
+             lambda sph=sph: dia_spmm_reference(sph, Xw), a_sp, Xw,
+             ph.vals.numel() * 2 + xy_w, 2 * ph.vals.numel() * K_WIDE,
+             *runs[f"spmm(scalar-DIA plan_{ht}, X f32), k={K_WIDE}"], h),
+            (f"dia_spmm {ht} [X and Y {ht}: out_dtype={ht}], k={K_WIDE}", "dia_spmm",
+             f"{DIA_PY}:1023 (B13), :1314 (B15)",
+             lambda sph=sph, X=Xwh, h=h: dia_spmm(sph, X, out_dtype=h),
+             lambda sph=sph, X=Xwh, h=h: dia_spmm_reference(sph, X, out_dtype=h), a_sp, Xwh,
+             ph.vals.numel() * 2 + xy_h, 2 * ph.vals.numel() * K_WIDE,
+             *runs[f"dia_spmm(scalar-DIA plan_{ht}, X {ht}, out_dtype={ht}), k={K_WIDE}"], h),
+        ]
+    # the f16 slice's own rows: f16 values and x (f16 y), and the banded CSR at
+    # k = 32 (the bf16 phases run neither)
+    hv = half[f16]
+    p16, dp16, mp16, x16, xs16 = hv["plan"], hv["dplan"], hv["mplan"], hv["x"], hv["xs"]
     rows += [
-        ("bdia_spmv bf16 [spmv(bsr_bf16, x f32)]", "bdia_spmv",
-         f"{BDIA_PY}:290 (B1; also :409, B3)", lambda: bdia_spmv(plan_bf, x),
-         lambda: bdia_spmv_reference(plan_bf, x), a_sp, x,
-         plan_bf.vals.numel() * 2 + (m + n) * 4, 2 * plan_bf.vals.numel(), launches_spmv_bf,
-         abs_spmv_bf),
-        ("bdia_spmv bf16 [BdiaOperator(bf16 plan) in cg]", "bdia_spmv", f"{BDIA_PY}:70 (B2)",
-         lambda: bdia_spmv(op_bf.bdia, b), lambda: bdia_spmv_reference(op_bf.bdia, b), sb_sp, b,
-         op_bf.bdia.vals.numel() * 2 + 2 * op_bf.bdia.shape[0] * 4,
-         2 * op_bf.bdia.vals.numel(), launches_cg_bf, abs_op_bf),
-        ("dia_spmv bf16 [spmv(csr_bf16, x f32)]", "dia_spmv", f"{DIA_PY}:176 (B8)",
-         lambda: dia_spmv(dplan_bf, xs), lambda: dia_spmv_reference(dplan_bf, xs), st_sp, xs,
-         dplan_bf.vals.numel() * 2 + (dplan_bf.shape[0] + dplan_bf.shape[1]) * 4,
-         2 * dplan_bf.vals.numel(), launches_dspmv_bf, abs_dspmv_bf),
-        ("dia_spmv bf16 [solver_operator(csr_bf16) in cg]", "dia_spmv",
-         f"{DIA_PY}:336 (B9), :511 (B10), :650 (B11)", lambda: dia_spmv(dop_bf.dia, bs),
-         lambda: dia_spmv_reference(dop_bf.dia, bs), s_sp, bs,
-         dop_bf.dia.vals.numel() * 2 + 2 * dop_bf.dia.shape[0] * 4,
-         2 * dop_bf.dia.vals.numel(), launches_dcg_bf, abs_dop_bf),
-        (f"dia_spmm bf16 [spmm(bsr_bf16, X f32), k={K}]", "dia_spmm",
-         f"{DIA_PY}:1148 (B14, k <= 64)", lambda: dia_spmm(splan_bf, Xb),
-         lambda: dia_spmm_reference(splan_bf, Xb), a_sp, Xb,
-         plan_bf.vals.numel() * 2 + (m + n) * K * 4, 2 * plan_bf.vals.numel() * K,
-         *runs[f"spmm(bsr_bf16, X f32), k={K}"]),
-        (f"bdia_spmm_slab bf16 [spmm(bsr_bf16, X f32), k={K_WIDE}: two TF32 passes]",
-         "bdia_slab_spmm", f"{SLAB_PY}:518 (B6; entries :505, :494), :290 (B5)",
-         lambda: bdia_spmm_slab(sl_bf, Xw), lambda: bdia_spmm_slab_reference(sl_bf, Xw), a_sp,
-         Xw, plan_bf.vals.numel() * 2 + xy_w, 2 * plan_bf.vals.numel() * K_WIDE,
-         *runs[f"spmm(bsr_bf16, X f32), k={K_WIDE}: the bf16 slab"]),
-        (f"bdia_spmm_ring bf16 [spmm(plan_bf16, X f32, method='pallas_bdia'), k={K_WIDE}]",
-         "bdia_spmm", f"{BDIA_PY}:607 (B4)", lambda: bdia_spmm_ring(plan_bf, Xw),
-         lambda: bdia_spmm_ring_reference(plan_bf, Xw), a_sp, Xw,
-         plan_bf.vals.numel() * 2 + xy_w, 2 * plan_bf.vals.numel() * K_WIDE,
-         *runs[f"spmm(plan_bf16, X f32, method='pallas_bdia'), k={K_WIDE}"]),
-        (f"bdia_spmm_ring bf16 [X and Y bf16: accum_dtype=bf16], k={K_WIDE}", "bdia_spmm",
-         f"{BDIA_PY}:607 (B4)", lambda: bdia_spmm_ring(plan_bf, Xw_bf, out_dtype=bf),
-         lambda: bdia_spmm_ring_reference(plan_bf, Xw_bf, out_dtype=bf), a_sp, Xw_bf,
-         plan_bf.vals.numel() * 2 + xy_bf, 2 * plan_bf.vals.numel() * K_WIDE,
-         *runs[f"spmm(plan_bf16, X bf16, method='pallas_bdia', accum_dtype=bf16), "
-                f"k={K_WIDE}"]),
-        (f"dia_spmm bf16 [spmm(scalar-DIA plan_bf16, X f32), k={K_WIDE}]", "dia_spmm",
-         f"{DIA_PY}:1023 (B13), :1314 (B15)", lambda: dia_spmm(splan_bf, Xw),
-         lambda: dia_spmm_reference(splan_bf, Xw), a_sp, Xw,
-         plan_bf.vals.numel() * 2 + xy_w, 2 * plan_bf.vals.numel() * K_WIDE,
-         *runs[f"spmm(scalar-DIA plan_bf16, X f32), k={K_WIDE}"]),
-        (f"dia_spmm bf16 [X and Y bf16: out_dtype=bf16], k={K_WIDE}", "dia_spmm",
-         f"{DIA_PY}:1023 (B13), :1314 (B15)", lambda: dia_spmm(splan_bf, Xw_bf, out_dtype=bf),
-         lambda: dia_spmm_reference(splan_bf, Xw_bf, out_dtype=bf), a_sp, Xw_bf,
-         plan_bf.vals.numel() * 2 + xy_bf, 2 * plan_bf.vals.numel() * K_WIDE,
-         *runs[f"dia_spmm(scalar-DIA plan_bf16, X bf16, out_dtype=bf16), k={K_WIDE}"]),
+        ("bdia_spmv f16 [spmv(bsr_f16, x f16): f16 y]", "bdia_spmv",
+         f"{BDIA_PY}:290 (B1; also :409, B3)", lambda: bdia_spmv(p16, x16),
+         lambda: bdia_spmv_reference(p16, x16), a_sp, x16, (p16.vals.numel() + m + n) * 2,
+         2 * p16.vals.numel(), *runs["spmv(bsr_f16, x f16)"], f16),
+        ("dia_spmv f16 [spmv(csr_f16, x f16): f16 y]", "dia_spmv", f"{DIA_PY}:176 (B8)",
+         lambda: dia_spmv(dp16, xs16), lambda: dia_spmv_reference(dp16, xs16), st_sp, xs16,
+         (dp16.vals.numel() + dp16.shape[0] + dp16.shape[1]) * 2, 2 * dp16.vals.numel(),
+         *runs["spmv(csr_f16, x f16)"], f16),
+        (f"dia_spmm f16 [spmm(csr_f16, X f32), k={K}]", "dia_spmm",
+         f"{DIA_PY}:1148 (B14, k <= 64), :789 (B12)", lambda: dia_spmm(mp16, X),
+         lambda: dia_spmm_reference(mp16, X), mm_sp, X,
+         mp16.vals.numel() * 2 + (mp16.shape[0] + mp16.shape[1]) * K * 4,
+         2 * mp16.vals.numel() * K, *runs[f"spmm(csr_f16, X f32), k={K}"], f16),
     ]
-    rows[n_f32:] = [r + (bf,) for r in rows[n_f32:]]  # the library call in bf16
-    n_bf16 = len(rows)
+    n_block_half = len(rows)
     # the half rows of B7 and B16-B18 (bytes at the values' and operands' widths)
     for h in halves:
         ht, ph, hh, bq = _short(h), poh_h[h], hyb_h[h], bplan_h[h]
@@ -1932,7 +1995,8 @@ def main() -> int:
                 lib_err = _relerr(y_lib, kernel())
                 lib_what = (f"library (torch.sparse_csr_tensor {lt} @ {lt} -> {y_lib.dtype}, "
                             f"{lib_err:.1e} from the kernel)")
-                _check(f"{name} library call vs kernel", lib_err, 2e-2 if i < n_bf16 else 1e-1)
+                _check(f"{name} library call vs kernel", lib_err,
+                       2e-2 if i < n_block_half else 1e-1)
                 del y_lib
         else:
             S = lib_csr(lib_op, torch.float32)

@@ -219,9 +219,9 @@ class TestOperator:
         p = tbdia.bdia_plan(a, device="cpu")
         assert p.npairs > MAX_PAIRS and not bdia_kernel_ok(p)
         _, ok = _plans("fem8")
-        # bf16 values take the bf16 path; f16 has no kernel
+        # bf16 and f16 values take the half paths
         assert bdia_kernel_ok(ok) and bdia_kernel_ok(ok.astype(torch.bfloat16))
-        assert not bdia_kernel_ok(ok.astype(torch.float16))
+        assert bdia_kernel_ok(ok.astype(torch.float16))
 
 
 class TestBuild:

@@ -440,8 +440,9 @@ class TestDispatch:
             assert ct.spmm(sl, X, accum_dtype=out).dtype == want
 
     @pytest.mark.parametrize("vdt,xdt,out", [
-        (torch.float16, torch.float16, None), (BF16, torch.float16, None),
-        (torch.float16, F32, None), (BF16, torch.float64, None), (torch.float64, BF16, None),
+        (torch.float16, torch.float64, None), (BF16, torch.float16, None),
+        (torch.float64, torch.float16, None), (BF16, torch.float64, None),
+        (torch.float64, BF16, None),
         (BF16, F32, torch.float64), (BF16, BF16, torch.float16), (F32, F32, BF16)])
     def test_other_combinations_raise(self, vdt, xdt, out):
         want = bk.result_dtype(vdt, xdt, out)
@@ -452,10 +453,10 @@ class TestDispatch:
             with pytest.raises(TypeError, match=str(xdt)):
                 check_types(vdt, xdt)
 
-    def test_kernel_gates_take_bf16_not_f16(self):
+    def test_kernel_gates_take_bf16_and_f16(self):
         _, tb, _ = _bsr_pair("fem6")
         tp = tbdia.bdia_plan(tb, tb.blocksize, device="cpu")
-        assert bk.bdia_kernel_ok(tp) and not bk.bdia_kernel_ok(tp.astype(torch.float16))
+        assert bk.bdia_kernel_ok(tp) and bk.bdia_kernel_ok(tp.astype(torch.float16))
         assert tbdia.BdiaOperator(tp).mode == "reference"
 
 

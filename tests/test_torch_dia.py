@@ -162,9 +162,9 @@ class TestPlan:
         p32 = tp.astype(np.float32).to("cpu")
         assert p32.dtype == torch.float32 and p32.rem_row.dtype == torch.int32
         assert p32.offsets_dev.dtype == torch.int32 and p32.device.type == "cpu"
-        # bf16 values take the bf16 path; f16 has no kernel
+        # bf16 and f16 values take the half paths
         assert dia_kernel_ok(p32) and dia_kernel_ok(tp.astype(torch.bfloat16))
-        assert not dia_kernel_ok(tp.astype(torch.float16))
+        assert dia_kernel_ok(tp.astype(torch.float16))
 
     def test_interop_plan_computes_the_same_y(self):
         jp, tp = _plans("remainder", with_vals_t=True)

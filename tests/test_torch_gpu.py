@@ -30,6 +30,7 @@ from cask_tpu_torch.formats.generate import (_diag_shift, banded, fem_blocks, po
                                              random_uniform, stencil_2d)
 from cask_tpu_torch.ops.bdia_slab import bdia_slab_plan, slab_auto_plan
 from cask_tpu_torch.ops.bsr_spmm import BsrSpmmKernel
+from cask_tpu_torch.ops.kernels import bdia_kernels as bk
 from cask_tpu_torch.ops.kernels.bdia_kernels import (MAX_PAIRS, bdia_spmm_ring,
                                                      bdia_spmm_ring_reference, bdia_spmv,
                                                      bdia_spmv_reference)
@@ -37,7 +38,8 @@ from cask_tpu_torch.ops.kernels.bdia_slab_kernels import (bdia_spmm_slab,
                                                           bdia_spmm_slab_padded,
                                                           bdia_spmm_slab_reference)
 from cask_tpu_torch.ops.kernels.bsr_kernels import bsr_spmm, bsr_spmm_reference
-from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmm, dia_spmm_reference, dia_spmv
+from cask_tpu_torch.ops.kernels.dia_kernels import (dia_spmm, dia_spmm_reference, dia_spmv,
+                                                    dia_spmv_reference)
 from cask_tpu_torch.ops.kernels.lell_kernels import lell_lane_sums, lell_lane_sums_reference
 from cask_tpu_torch.ops.kernels.poh_kernels import (poh_spmm, poh_spmm_reference, poh_spmv,
                                                     poh_spmv_reference)
@@ -113,13 +115,17 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
         bdia_spmv(p, torch.zeros(p.shape[1], dtype=torch.float64))
     with pytest.raises(ValueError):  # not contiguous
         bdia_spmv(p, torch.zeros(2 * p.shape[1], dtype=torch.float64, device=cuda)[::2])
-    # bf16 values take the bf16 path (f32 sums and y); f16 has no kernel
+    # bf16 values take the bf16 path (f32 sums and y), f16 values and x the
+    # f16 path (f32 sums, f16 y)
     y = bdia_spmv(p.astype(torch.bfloat16),
                   torch.zeros(p.shape[1], dtype=torch.bfloat16, device=cuda))
     assert y.dtype == torch.float32 and torch.count_nonzero(y) == 0
-    with pytest.raises(TypeError, match="float16"):
-        bdia_spmv(p.astype(torch.float16),
+    y = bdia_spmv(p.astype(torch.float16),
                   torch.zeros(p.shape[1], dtype=torch.float16, device=cuda))
+    assert y.dtype == torch.float16 and torch.count_nonzero(y) == 0
+    with pytest.raises(TypeError, match="float16"):  # a half type with f64
+        bdia_spmv(p.astype(torch.float16), torch.zeros(p.shape[1], dtype=torch.float64,
+                                                       device=cuda))
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -295,11 +301,14 @@ def test_dia_kernels_raise_on_what_they_do_not_take(cuda):
         dia_spmm(p, torch.zeros((n, 4), dtype=torch.float64, device=cuda).T.contiguous().T)
     with pytest.raises(ValueError):  # 1-D x to the SpMM kernel
         dia_spmm(p, torch.zeros(n, dtype=torch.float64, device=cuda))
-    # bf16 values take the bf16 path (f32 sums and y); f16 has no kernel
+    # bf16 values take the bf16 path (f32 sums and y), f16 values and x the
+    # f16 path (f32 sums, f16 y)
     y = dia_spmv(p.astype(torch.bfloat16), torch.zeros(n, dtype=torch.bfloat16, device=cuda))
     assert y.dtype == torch.float32 and torch.count_nonzero(y) == 0
-    with pytest.raises(TypeError, match="float16"):
-        dia_spmv(p.astype(torch.float16), torch.zeros(n, dtype=torch.float16, device=cuda))
+    y = dia_spmv(p.astype(torch.float16), torch.zeros(n, dtype=torch.float16, device=cuda))
+    assert y.dtype == torch.float16 and torch.count_nonzero(y) == 0
+    with pytest.raises(TypeError, match="float16"):  # a half type with f64
+        dia_spmv(p.astype(torch.float16), torch.zeros(n, dtype=torch.float64, device=cuda))
 
 
 def test_dia_transposed_tall_plan(cuda):
@@ -584,11 +593,12 @@ def test_wide_kernels_f64_output_and_refusals(cuda):
                      bdia_spmm_ring_reference(p, x, out_dtype=torch.float64))):
         assert y.dtype == torch.float64 and _relerr(y, twin) <= TOL[np.float64]
     assert _relerr(ct.spmm(sl, x, accum_dtype=np.float64), y_sp) <= TOL[np.float64]
-    # bf16 slabs take the bf16 path (two TF32 passes, f32 out); f16 has no kernel
-    y = bdia_spmm_slab(bdia_slab_plan(p, 16, dtype=torch.bfloat16), x)
-    assert y.dtype == torch.float32 and y.shape == x.shape
-    with pytest.raises(TypeError, match="float16"):
-        bdia_spmm_slab(bdia_slab_plan(p, 16, dtype=torch.float16), x)
+    # bf16 and f16 slabs take the half path (two TF32 passes with f32 X, f32 out)
+    for h in (torch.bfloat16, torch.float16):
+        y = bdia_spmm_slab(bdia_slab_plan(p, 16, dtype=h), x)
+        assert y.dtype == torch.float32 and y.shape == x.shape
+    with pytest.raises(TypeError, match="float16"):  # a half type with f64
+        bdia_spmm_slab(bdia_slab_plan(p, 16, dtype=torch.float16), x.double())
     with pytest.raises(TypeError):  # f32 plan, f64 X
         bdia_spmm_ring(p, x.double())
     with pytest.raises(TypeError):
@@ -903,13 +913,27 @@ def test_lell_kernel_raises_on_what_it_does_not_take(cuda):
         lell_lane_sums(p.vals.cpu(), p.idx.cpu(), x, 8)
 
 
-# -- bf16 values: the reference's bf16 value path --------------------------------
+# -- half values of the block and banded kernels (B1-B6, B8-B15): bf16 and f16 ---
 
-BF16, F32 = torch.bfloat16, torch.float32
-# values and operand: each bf16 or f32, at least one bf16
-BF16_COMBOS = [(BF16, BF16), (BF16, F32), (F32, BF16)]
-BF16_TOL = 1e-5  # f32 out, vs the twin: the same bf16 products summed in f32
-BF16_SLAB_TOL = 2e-6  # f32 out, the slab's split TF32 products vs the twin
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
+# values and operand: each H or f32, at least one H, for H in bf16 and f16
+HALF_COMBOS = [(h, h) for h in (BF16, F16)] + [(h, F32) for h in (BF16, F16)] \
+    + [(F32, h) for h in (BF16, F16)]
+HALF_TOL = 1e-5  # f32 out, vs the twin: the same half products summed in f32
+HALF_SLAB_TOL = 2e-6  # f32 out, the half slab's one or two TF32 passes vs the twin
+TOL_F16_COMPOSED = 1e-3  # an f16 y plus its f16 remainder: two f16 roundings
+# a SpMM's output: the default (f16 for f16 values and X, else f32), f32, or
+# the combination's half type (the fully-half chain)
+OUTS = [None, "f32", "half"]
+
+
+def _half_of(vdt, xdt):
+    return BF16 if BF16 in (vdt, xdt) else F16
+
+
+def _out(vdt, xdt, out):
+    """The ``out_dtype`` argument an ``OUTS`` entry stands for."""
+    return {None: None, "f32": F32, "half": _half_of(vdt, xdt)}[out]
 
 
 def _half_close(y, twin32) -> bool:
@@ -925,126 +949,148 @@ def _half_close(y, twin32) -> bool:
     return bool(((y - ref).abs() <= ulp + slack).all())
 
 
-def _check_bf16(y, twin, out, tol=BF16_TOL):
-    """f32 out: normwise within ``tol`` of the twin; bf16 out: see
-    :func:`_half_close` (``twin`` is the twin's f32 result)."""
-    if out == BF16:
-        assert y.dtype == BF16 and _half_close(y, twin)
+def _check_half(y, twin32, want, tol=HALF_TOL):
+    """``y`` of type ``want``: a half output within one ulp of the twin's f32
+    sums (:func:`_half_close`), an f32 one normwise within ``tol``."""
+    assert y.dtype == want, (y.dtype, want)
+    if want in (BF16, F16):
+        assert _half_close(y, twin32)
     else:
-        assert y.dtype == F32 and _relerr(y, twin) <= tol
+        assert _relerr(y, twin32) <= tol
 
 
-def _rounded(t: torch.Tensor) -> torch.Tensor:
-    """A tensor's values as the bf16 path sees them, in f64 on the host."""
-    return t.cpu().double()
+def _operand(shape, dt, seed, cuda):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape)
+                            .astype(np.float32)).to(cuda).to(dt)
+
+
+def _rounded_scipy(s, vdt) -> sp.csr_matrix:
+    """The f64 scipy matrix of ``s`` with its values rounded to ``vdt``."""
+    out = s.astype(np.float64)
+    out.data = torch.from_numpy(np.asarray(s.data, np.float32)).to(vdt).double().numpy()
+    return out
+
+
+def _spmv_out(vdt, xdt):
+    return F16 if (vdt, xdt) == (F16, F16) else F32
 
 
 @pytest.mark.parametrize("name", ["fem2", "fem4", "fem8", "fem3_br3", "fem16", "remainder",
                                   "rect4x2", "ragged"])
-@pytest.mark.parametrize("vdt,xdt", BF16_COMBOS)
-def test_bf16_bdia_spmv_matches_twin(cuda, name, vdt, xdt):
+@pytest.mark.parametrize("vdt,xdt", HALF_COMBOS)
+def test_half_bdia_spmv_matches_twin(cuda, name, vdt, xdt):
     bsr = CASES[name](np.float32)
     p = ct.bdia_plan(bsr, device=cuda).astype(vdt)
-    x = torch.from_numpy(np.random.default_rng(50).standard_normal(p.shape[1])
-                         .astype(np.float32)).to(cuda).to(xdt)
+    x = _operand(p.shape[1], xdt, 50, cuda)
     before = bdia_spmv.launches
     y = p.spmv(x)
+    yk = bdia_spmv(p, x)
     torch.cuda.synchronize()
-    assert bdia_spmv.launches == before + 1
-    _check_bf16(y, p._spmv_reference(x), None)
-    s = to_scipy(bsr).astype(np.float32)
-    s.data = torch.from_numpy(s.data).to(vdt).double().numpy()  # the values the plan holds
-    assert _relerr(y, torch.from_numpy(s @ _rounded(x).numpy())) <= BF16_TOL
+    assert bdia_spmv.launches == before + 2
+    _check_half(yk, bdia_spmv_reference(p.astype(F32), x.float()), _spmv_out(vdt, xdt))
+    s = _rounded_scipy(to_scipy(bsr), vdt)  # the values the plan holds
+    y_sp = torch.from_numpy(s @ x.cpu().double().numpy())
+    if y.dtype == F16 and p.rem_data.shape[0]:  # the f16 y plus the f16 remainder
+        assert _relerr(y, y_sp) <= TOL_F16_COMPOSED
+    elif y.dtype == F16:  # the exact sum rounded once
+        assert _half_close(y, y_sp)
+    else:
+        assert _relerr(y, y_sp) <= HALF_TOL
 
 
 @pytest.mark.parametrize("name", list(DIA_CASES))
-@pytest.mark.parametrize("vdt,xdt", BF16_COMBOS)
-def test_bf16_dia_spmv_matches_twin(cuda, name, vdt, xdt):
+@pytest.mark.parametrize("vdt,xdt", HALF_COMBOS)
+def test_half_dia_spmv_matches_twin(cuda, name, vdt, xdt):
     s, p = _dia(name, np.float32, cuda)
     p = p.astype(vdt)
-    x = torch.from_numpy(np.random.default_rng(51).standard_normal(s.shape[1])
-                         .astype(np.float32)).to(cuda).to(xdt)
+    x = _operand(s.shape[1], xdt, 51, cuda)
     before = dia_spmv.launches
     y = p.spmv(x)
+    yk = dia_spmv(p, x)
     torch.cuda.synchronize()
-    assert dia_spmv.launches == before + 1
-    _check_bf16(y, p._spmv_reference(x), None)
+    assert dia_spmv.launches == before + 2 and y.dtype == _spmv_out(vdt, xdt)
+    _check_half(yk, dia_spmv_reference(p.astype(F32), x.float()), _spmv_out(vdt, xdt))
 
 
 @pytest.mark.parametrize("name", list(DIA_CASES))
-@pytest.mark.parametrize("vdt,xdt", BF16_COMBOS)
-@pytest.mark.parametrize("k", [1, 12, 65, 128])  # 12, 65: bf16 rows off the 16-byte vector
-@pytest.mark.parametrize("out", [None, BF16])
-def test_bf16_dia_spmm_matches_twin(cuda, name, vdt, xdt, k, out):
+@pytest.mark.parametrize("vdt,xdt", HALF_COMBOS)
+@pytest.mark.parametrize("k", [1, 12, 65, 128])  # 12, 65: half rows off the 16-byte vector
+@pytest.mark.parametrize("out", OUTS)
+def test_half_dia_spmm_matches_twin(cuda, name, vdt, xdt, k, out):
     s, p = _dia(name, np.float32, cuda)
     p = p.astype(vdt)
-    x = torch.from_numpy(np.random.default_rng(52).standard_normal((s.shape[1], k))
-                         .astype(np.float32)).to(cuda).to(xdt)
+    x = _operand((s.shape[1], k), xdt, 52, cuda)
+    out = _out(vdt, xdt, out)
     before = dia_spmm.launches
     y = dia_spmm(p, x, out_dtype=out)
     torch.cuda.synchronize()
     assert dia_spmm.launches == before + 1 and y.shape == (s.shape[0], k)
-    _check_bf16(y, dia_spmm_reference(p, x), out)
+    _check_half(y, dia_spmm_reference(p, x, out_dtype=F32), bk.result_dtype(vdt, xdt, out))
 
 
 @pytest.mark.parametrize("name", ["fem4", "fem2", "fem3_ragged", "remainder", "rect_matrix",
                                   "eight_far"])
-@pytest.mark.parametrize("vdt,xdt", BF16_COMBOS)
+@pytest.mark.parametrize("vdt,xdt", HALF_COMBOS)
 @pytest.mark.parametrize("k", [1, 12, 65, 128])
-@pytest.mark.parametrize("out", [None, BF16])
-def test_bf16_ring_matches_twin(cuda, name, vdt, xdt, k, out):
+@pytest.mark.parametrize("out", OUTS)
+def test_half_ring_matches_twin(cuda, name, vdt, xdt, k, out):
     bsr = WIDE_CASES[name](np.float32)
     p = ct.bdia_plan(bsr, device=cuda).astype(vdt)
-    x = torch.from_numpy(np.random.default_rng(53).standard_normal((bsr.shape[1], k))
-                         .astype(np.float32)).to(cuda).to(xdt)
+    x = _operand((bsr.shape[1], k), xdt, 53, cuda)
+    out = _out(vdt, xdt, out)
     before = bdia_spmm_ring.launches
     y = bdia_spmm_ring(p, x, out_dtype=out)
     torch.cuda.synchronize()
     assert bdia_spmm_ring.launches == before + 1 and y.shape == (bsr.shape[0], k)
-    _check_bf16(y, bdia_spmm_ring_reference(p, x), out)
+    _check_half(y, bdia_spmm_ring_reference(p, x, out_dtype=F32),
+                bk.result_dtype(vdt, xdt, out))
 
 
 @pytest.mark.parametrize("name", ["fem4", "fem2", "remainder", "rect_matrix", "far18",
                                   "eight_far"])
-@pytest.mark.parametrize("vdt,xdt", BF16_COMBOS)
+@pytest.mark.parametrize("vdt,xdt", HALF_COMBOS)
 @pytest.mark.parametrize("k", [1, 12, 65, 128])
-@pytest.mark.parametrize("out", [None, BF16])
-def test_bf16_slab_matches_twin_in_both_frames(cuda, name, vdt, xdt, k, out):
+@pytest.mark.parametrize("out", OUTS)
+def test_half_slab_matches_twin_in_both_frames(cuda, name, vdt, xdt, k, out):
     bsr = WIDE_CASES[name](np.float32)
     p = ct.bdia_plan(bsr, device=cuda)
     sl = slab_auto_plan(p.astype(vdt))
-    x = torch.from_numpy(np.random.default_rng(54).standard_normal((bsr.shape[1], k))
-                         .astype(np.float32)).to(cuda).to(xdt)
+    x = _operand((bsr.shape[1], k), xdt, 54, cuda)
+    out = _out(vdt, xdt, out)
+    want = bk.result_dtype(vdt, xdt, out)
     before = bdia_spmm_slab.launches
     y = bdia_spmm_slab(sl, x, out_dtype=out)
     torch.cuda.synchronize()
     assert bdia_spmm_slab.launches == before + 1 and y.shape == (bsr.shape[0], k)
-    _check_bf16(y, bdia_spmm_slab_reference(sl, x), out, BF16_SLAB_TOL)
+    _check_half(y, bdia_spmm_slab_reference(sl, x, out_dtype=F32), want, HALF_SLAB_TOL)
     if sl.blocksize[0] == sl.blocksize[1]:  # the padded chain layout
         xp = sl.to_padded(x)
         yp = bdia_spmm_slab_padded(sl, xp, out_dtype=out)
         torch.cuda.synchronize()
-        _check_bf16(yp, bdia_spmm_slab_reference(sl, xp, padded=True), out, BF16_SLAB_TOL)
+        _check_half(yp, bdia_spmm_slab_reference(sl, xp, padded=True, out_dtype=F32), want,
+                    HALF_SLAB_TOL)
 
 
 def _slab_errors(sl, x):
     """(kernel, plain FP32 twin) normwise errors against the exact f64
-    product of the slabs' and X's values."""
+    product of the slabs' and X's values (f32 outputs)."""
     s64 = dataclasses.replace(sl, slabs=sl.slabs.double())
     exact = bdia_spmm_slab_reference(s64, x.double())
-    y = bdia_spmm_slab(sl, x)
+    y = bdia_spmm_slab(sl, x, out_dtype=F32)
     torch.cuda.synchronize()
-    twin = bdia_spmm_slab_reference(sl, x)  # f32 sums (TF32 off: full FP32 products)
+    twin = bdia_spmm_slab_reference(sl, x, out_dtype=F32)  # f32 sums (TF32 off: full FP32)
     return _relerr(y, exact), _relerr(twin, exact)
 
 
 @pytest.mark.parametrize("case", ["headline-shaped", "TF32-sensitive"])
-@pytest.mark.parametrize("vdt,xdt", [(F32, F32), (BF16, F32), (F32, BF16)])
+@pytest.mark.parametrize("vdt,xdt", [(F32, F32), (BF16, F32), (F32, BF16), (F16, F32),
+                                     (F32, F16), (F16, F16)])
 def test_slab_error_class_is_the_plain_fp32_twins(cuda, case, vdt, xdt):
-    # the split TF32 products (4 passes f32 x f32, 2 with one bf16 operand)
-    # stay within 4x of the plain FP32 twin's own error against f64, also on
-    # the TF32-sensitive case (every operand's 12 low mantissa bits set),
-    # where 3xTF32's dropped lo·lo terms all shared the product's sign
+    # the split TF32 products (4 passes f32 x f32, 2 with one half operand,
+    # one with two f16 ones) stay within 4x of the plain FP32 twin's own
+    # error against f64, also on the TF32-sensitive case (every operand's 12
+    # low mantissa bits set), where 3xTF32's dropped lo·lo terms all shared
+    # the product's sign
     assert not torch.backends.cuda.matmul.allow_tf32
     bsr = fem_blocks(16, dof=4, dtype=np.float32, return_bsr=True)
     rng = np.random.default_rng(55)
@@ -1057,45 +1103,52 @@ def test_slab_error_class_is_the_plain_fp32_twins(cuda, case, vdt, xdt):
     assert err_kernel <= 4 * err_twin, (err_kernel, err_twin)
 
 
-def test_bf16_auto_routes_launch_their_kernels(cuda):
-    # the routes of a bf16 BSR and a bf16 banded CSR, f32 operands: each
-    # launches its kernel with the bf16 plan, and no gather formulation
-    a = fem_blocks(16, dof=4, dtype=np.float32, return_bsr=True).to(cuda).astype(BF16)
+@pytest.mark.parametrize("h", [BF16, F16])
+def test_half_auto_routes_launch_their_kernels(cuda, h):
+    # the routes of a half BSR and a half banded CSR: each launches its kernel
+    # with the half plan, and no gather formulation; f32 operands give f32,
+    # an f16 operand of an f16 matrix gives f16
+    a = fem_blocks(16, dof=4, dtype=np.float32, return_bsr=True).to(cuda).astype(h)
     rng = np.random.default_rng(56)
     x = torch.from_numpy(rng.standard_normal(a.shape[1]).astype(np.float32)).to(cuda)
     counts = {f: f.launches for f in (bdia_spmv, dia_spmv, dia_spmm, bdia_spmm_slab,
                                       bdia_spmm_ring)}
     y = ct.spmv(a, x)
     p = spmv_mod.default_plan_cache.get(a)
-    assert p.dtype == BF16 and bdia_spmv.launches == counts[bdia_spmv] + 1
-    _check_bf16(y, p._spmv_reference(x), None)
+    assert p.dtype == h and bdia_spmv.launches == counts[bdia_spmv] + 1
+    _check_half(y, p._spmv_reference(x), F32)
+    yh = ct.spmv(a, x.to(h))
+    assert bdia_spmv.launches == counts[bdia_spmv] + 2
+    _check_half(yh, bdia_spmv_reference(p.astype(F32), x.to(h).float()), _spmv_out(h, h))
     for k, kernel in ((32, dia_spmm), (128, bdia_spmm_slab)):
         X = torch.from_numpy(rng.standard_normal((a.shape[1], k)).astype(np.float32)).to(cuda)
         before = kernel.launches
         Y = ct.spmm(a, X)
         assert Y.dtype == F32 and kernel.launches == before + 1
-        assert _relerr(Y, ct.spmm(p.to("cpu"), X.cpu())) <= BF16_SLAB_TOL * 5
+        assert _relerr(Y, ct.spmm(p.to("cpu"), X.cpu())) <= HALF_SLAB_TOL * 5
     X = torch.from_numpy(rng.standard_normal((a.shape[1], 128)).astype(np.float32)).to(cuda)
     before = bdia_spmm_ring.launches
-    Yr = ct.spmm(p, X, method="pallas_bdia", accum_dtype=BF16)
-    assert Yr.dtype == BF16 and bdia_spmm_ring.launches == before + 1
-    assert _half_close(Yr, bdia_spmm_ring_reference(p, X))
-    c = stencil_2d(40, dtype=np.float32).to(cuda).astype(BF16)
+    Yr = ct.spmm(p, X, method="pallas_bdia", accum_dtype=h)
+    assert Yr.dtype == h and bdia_spmm_ring.launches == before + 1
+    assert _half_close(Yr, bdia_spmm_ring_reference(p, X, out_dtype=F32))
+    c = stencil_2d(40, dtype=np.float32).to(cuda).astype(h)
     xs = torch.from_numpy(rng.standard_normal(c.shape[1]).astype(np.float32)).to(cuda)
     before = dia_spmv.launches
     ys = ct.spmv(c, xs)
     assert ys.dtype == F32 and dia_spmv.launches == before + 1
-    assert spmv_mod.default_plan_cache.get(c).dtype == BF16
+    assert ct.spmv(c, xs.to(h)).dtype == _spmv_out(h, h) and dia_spmv.launches == before + 2
+    assert spmv_mod.default_plan_cache.get(c).dtype == h
 
 
-def test_cg_over_bf16_operators_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("h", [BF16, F16])
+def test_cg_over_half_operators_on_card_matches_cpu(cuda, h):
     s = to_scipy(fem_blocks(12, dof=4))
     spd = csr_to_bsr(_diag_shift(from_scipy((s + s.T).tocsr()), 1.1), (4, 4))
     st = to_scipy(stencil_2d(40))
     st = from_scipy((st + 8.0 * sp.identity(st.shape[0])).tocsr().astype(np.float32))
     for make, kernel, n in ((lambda dev: ct.BdiaOperator(ct.bdia_plan(spd, device=dev)
-                                                         .astype(BF16)), bdia_spmv, spd.shape[0]),
-                            (lambda dev: ct.solver_operator(st.to(dev).astype(BF16)), dia_spmv,
+                                                         .astype(h)), bdia_spmv, spd.shape[0]),
+                            (lambda dev: ct.solver_operator(st.to(dev).astype(h)), dia_spmv,
                              st.shape[0])):
         b = torch.from_numpy(np.random.default_rng(57).standard_normal(n).astype(np.float32))
         before = kernel.launches
@@ -1107,15 +1160,16 @@ def test_cg_over_bf16_operators_on_card_matches_cpu(cuda):
         assert _relerr(res.x, ref.x) <= 1e-4
 
 
-def test_bf16_kernels_raise_on_what_they_do_not_take(cuda):
+def test_half_kernels_raise_on_what_they_do_not_take(cuda):
     bsr = WIDE_CASES["fem4"](np.float32)
     p = ct.bdia_plan(bsr, device=cuda)
     sl = slab_auto_plan(p.astype(BF16))
     d = ct.dia_plan(from_scipy(DIA_CASES["banded"]().astype(np.float32)), device=cuda)
     n = bsr.shape[1]
-    for v, xdt, out in ((torch.float16, torch.float16, None), (BF16, torch.float16, None),
+    for v, xdt, out in ((F16, torch.float64, None), (BF16, F16, None), (F16, BF16, None),
                         (BF16, torch.float64, None), (BF16, F32, torch.float64),
-                        (F32, F32, BF16)):
+                        (F16, F32, torch.float64), (F32, F32, BF16), (F16, F16, BF16),
+                        (BF16, BF16, F16)):
         X = torch.zeros((n, 16), dtype=xdt, device=cuda)
         with pytest.raises(TypeError):
             bdia_spmm_ring(p.astype(v), X, out_dtype=out)
@@ -1127,15 +1181,12 @@ def test_bf16_kernels_raise_on_what_they_do_not_take(cuda):
         if out is None:
             with pytest.raises(TypeError):
                 bdia_spmv(p.astype(v), X[:, 0].contiguous())
+            with pytest.raises(TypeError):
+                dia_spmv(d.astype(v), torch.zeros(d.shape[1], dtype=xdt, device=cuda))
 
 
 # -- half values of BSR SpMM, POH and LELL (B7, B16-B18): bf16 and f16 -----------
 
-F16 = torch.float16
-# values and operand: each H or f32, at least one H, for H in bf16 and f16
-HALF_COMBOS = [(h, h) for h in (BF16, F16)] + [(h, F32) for h in (BF16, F16)] \
-    + [(F32, h) for h in (BF16, F16)]
-HALF_TOL = 1e-5  # f32 out, vs the twin: the same half products summed in f32
 HALF_POH_CASES = ["power_law", "wide", "dense_column", "empty_rows_cols", "all_zero", "50x70",
                   "tile_slots_8192", "row_panel_8192", "hub_row"]
 
@@ -1216,13 +1267,6 @@ def test_half_lell_hyb_launches_both_tiers(cuda, name, vdt, xdt):
     ref = _rounded_scipy(to_scipy(a), vdt) @ x.cpu().double().numpy()
     tol = 1e-3 if y.dtype == F16 else HALF_TOL  # f16 y: lane sums and remainder, each rounded
     assert _relerr(y, torch.from_numpy(ref)) <= tol
-
-
-def _rounded_scipy(s, vdt) -> sp.csr_matrix:
-    """``s`` with its values rounded to ``vdt`` (as f64)."""
-    out = s.astype(np.float64)
-    out.data = torch.from_numpy(np.asarray(s.data, np.float32)).to(vdt).double().numpy()
-    return out
 
 
 @pytest.mark.parametrize("name", ["fem4", "fem2", "fem3_br3", "fem16", "rect4x2", "ragged"])

@@ -406,23 +406,30 @@ class TestTwinsAgainstScipy:
 class TestTypes:
     @pytest.mark.parametrize("h,vdt,xdt", COMBOS, ids=COMBO_IDS)
     def test_the_half_kernels_take_each_combination(self, h, vdt, xdt):
-        assert bk.kernel_types_ok(vdt, xdt, bk.HALVES)
-        bk.check_types(vdt, xdt, bk.HALVES)
+        assert bk.kernel_types_ok(vdt, xdt)
+        bk.check_types(vdt, xdt)
         name = bk.entry("cask_poh_spmv", vdt, xdt)
-        assert name in bk.entries("cask_poh_spmv", False, halves=bk.HALVES)
+        assert name in bk.entries("cask_poh_spmv", False)
         assert name == f"cask_poh_spmv_{bk._NAMES[vdt]}_{bk._NAMES[xdt]}"
 
     @pytest.mark.parametrize("vdt,xdt", [(BF16, F16), (F16, BF16), (F16, torch.float64),
                                          (torch.float64, BF16), (BF16, torch.float64),
                                          (F32, torch.float64)])
     def test_other_combinations_raise_and_name_it(self, vdt, xdt):
-        assert not bk.kernel_types_ok(vdt, xdt, bk.HALVES)
+        assert not bk.kernel_types_ok(vdt, xdt)
         with pytest.raises(TypeError, match=str(vdt)):
-            bk.check_types(vdt, xdt, bk.HALVES)
+            bk.check_types(vdt, xdt)
 
-    def test_the_block_and_banded_kernels_still_refuse_f16(self):
-        assert not bk.kernel_types_ok(F16, F16) and not bk.kernel_types_ok(F16, F32)
-        assert not any("f16" in e.split("_") for e in bk.entries("cask_bdia_spmv", False))
+    def test_the_block_and_banded_kernels_take_f16(self):
+        # one gate for every kernel: the block and banded kernels' f16 entries
+        # (SpMV out f16 for f16 values and x, else f32; SpMM out f32 or f16)
+        assert bk.kernel_types_ok(F16, F16) and bk.kernel_types_ok(F16, F32)
+        assert bk.kernel_types_ok(F32, F16) and F16 in bk.VALUE_DTYPES
+        assert {"cask_bdia_spmv_f16_f16", "cask_bdia_spmv_f16_f32",
+                "cask_bdia_spmv_f32_f16"} <= set(bk.entries("cask_bdia_spmv", False))
+        assert {f"cask_dia_spmm_{v}_{x}_{o}" for v, x in (("f16", "f16"), ("f16", "f32"),
+                                                          ("f32", "f16"))
+                for o in ("f32", "f16")} <= set(bk.entries("cask_dia_spmm", True))
 
     def test_lane_sums_output_types(self):
         s = LELL_CASES["uniform"]().astype(np.float32)
@@ -462,7 +469,7 @@ def test_cg_over_a_bf16_poh_plan_matches_the_reference():
     assert _relerr(sh @ res.x.double().numpy(), b) <= 2e-5
 
 
-# -- f16 on the block and banded kernels (B1-B5, B8-B15): the next slice ---------
+# -- f16 on the block and banded kernels (B1-B5, B8-B15) ----------------------
 
 
 def _f16_block_and_banded():
@@ -518,8 +525,8 @@ def f16_plans():
 @pytest.mark.parametrize("name", list(_ref_f16_entries()))
 def test_the_reference_block_and_banded_kernels_take_f16(f16_plans, name, monkeypatch):
     # the reference's kernel runs f16 values and operand to its pallas_call and
-    # returns f16; the port's block and banded kernels refuse f16 still (ROADMAP
-    # Queue B 1), as tests/test_torch_bf16.py pins
+    # returns f16; the port's block and banded kernels take f16 too
+    # (tests/test_torch_f16.py holds them against these kernels)
     from jax.experimental import pallas as pl
 
     calls = []
@@ -527,7 +534,7 @@ def test_the_reference_block_and_banded_kernels_take_f16(f16_plans, name, monkey
     monkeypatch.setattr(pl, "pallas_call", lambda *a, **k: calls.append(1) or real(*a, **k))
     y = _ref_f16_entries()[name](*f16_plans)
     assert calls and np.asarray(y).dtype == np.float16
-    assert not bk.kernel_types_ok(F16, F16) and not bk.kernel_types_ok(F16, F32)
+    assert bk.kernel_types_ok(F16, F16) and bk.kernel_types_ok(F16, F32)
 
 
 def test_no_port_module_nor_chip_smoke_imports_jax_or_the_reference():
