@@ -1,6 +1,6 @@
-// Shared by the POH kernels (poh_spmv.cu, poh_spmm.cu): the warp's peer
-// reduction before a shared-memory atomic, and the dynamic shared-memory
-// opt-in.
+// Shared by the POH kernels: the warp's peer reduction before a
+// shared-memory atomic (poh_spmm.cu), and the dynamic shared-memory opt-in
+// (poh_spmv.cu, poh_spmm.cu).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -111,6 +111,31 @@ __device__ __forceinline__ void load_vec(const X* p, A (&out)[VEC]) {
   }
 }
 
+// four consecutive elements into working-type registers with one streaming
+// (evict-first, ld.global.cs) vector load: 16 bytes, 8 for half values, two
+// of 16 for f64; p must be aligned to the vector's width
+template <typename V, typename A>
+__device__ __forceinline__ void load4_cs(const V* p, A (&out)[4]) {
+  if constexpr (sizeof(V) == 2) {
+    const uint2 q = __ldcs(reinterpret_cast<const uint2*>(p));
+    const float2 lo = unpack_half2<V>(q.x), hi = unpack_half2<V>(q.y);
+    out[0] = A(lo.x); out[1] = A(lo.y); out[2] = A(hi.x); out[3] = A(hi.y);
+  } else if constexpr (sizeof(V) == 4) {
+    const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+    out[0] = A(q.x); out[1] = A(q.y); out[2] = A(q.z); out[3] = A(q.w);
+  } else {
+    const double2 a = __ldcs(reinterpret_cast<const double2*>(p));
+    const double2 b = __ldcs(reinterpret_cast<const double2*>(p) + 1);
+    out[0] = A(a.x); out[1] = A(a.y); out[2] = A(b.x); out[3] = A(b.y);
+  }
+}
+
+// four consecutive int32 indices with one streaming 16-byte load
+__device__ __forceinline__ void load4i_cs(const int* p, int (&out)[4]) {
+  const int4 q = __ldcs(reinterpret_cast<const int4*>(p));
+  out[0] = q.x; out[1] = q.y; out[2] = q.z; out[3] = q.w;
+}
+
 // VEC working-type values stored as the output type O with streaming
 // stores: vector stores of 16 bytes (8 for 4 half values) where the row's
 // chunk is that wide and aligned (the caller's vec gate), scalar otherwise

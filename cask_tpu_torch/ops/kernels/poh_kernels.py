@@ -8,8 +8,10 @@ tensor it runs its plain PyTorch twin.  They replace
 ``cask_tpu/ops/pallas/poh_kernels.py:poh_spmv_pallas`` (B16) and
 ``:poh_spmm_pallas`` (B17), whose one-hot MXU products are the TPU's way to
 gather and scatter: the Hopper kernels gather x and scatter into a
-shared-memory panel accumulator directly, in plain FP32/FP64.  The SpMM
-kernel works in the pieces of :func:`spmm_pieces`, built once with the plan.
+shared-memory panel accumulator directly, in plain FP32/FP64.  Each kernel
+works in pieces of its own, built once with the plan (:func:`spmv_pieces`,
+:func:`spmm_pieces`); the SpMV kernel also reads each panel's two heaviest
+rows (:func:`heavy_rows`), which it sums in registers.
 
 Types (:func:`out_dtype`): f32 or f64 values and operand of one type, or
 the half path (bf16 or f16 values or operand, with the other of the same
@@ -33,7 +35,9 @@ if TYPE_CHECKING:
     from cask_tpu_torch.ops.poh import PohMatrix
 
 _MAX_SMEM = 232448  # bytes of shared memory a block may opt in to (227 KB)
-_CTAS_PER_SM = 8  # SpMV: aim for this many CTAs per SM when splitting panels
+_CTAS_PER_SM = 16  # SpMV: pieces of about ntiles / (16 · SMs) tiles
+_SMS = 132  # an H100 SXM's SMs: the SpMV pieces are a plan-time table
+_HEAVY = 2  # rows per panel the SpMV kernel sums in registers
 
 
 def _slot_coords(p: "PohMatrix"):
@@ -76,6 +80,33 @@ def spmm_pieces(panel_ptr: torch.Tensor, cap: Optional[int] = None) -> torch.Ten
     return torch.from_numpy(pieces.astype(np.int32)).to(panel_ptr.device)
 
 
+def spmv_pieces(panel_ptr: torch.Tensor) -> torch.Tensor:
+    """The SpMV kernel's work pieces: :func:`spmm_pieces` at a cap of
+    ``ceil(ntiles / (16 · 132))`` tiles, so an H100's 132 SMs get about
+    sixteen blocks each of about equal work (a hub panel of 4x the mean tile
+    count is cut like any other): on the 1M-row power law 8 tiles, 173 µs,
+    against 181 µs at 16 and 225 at 64 (``kernel_probe.py --poh-spmv``,
+    NVIDIA H100 80GB HBM3 at 700 W)."""
+    ntiles = int(panel_ptr[-1]) if panel_ptr.numel() else 0
+    return spmm_pieces(panel_ptr, -(-ntiles // (_CTAS_PER_SM * _SMS)))
+
+
+def heavy_rows(vals: torch.Tensor, rloc: torch.Tensor, panel: torch.Tensor, n_panels: int,
+               row_panel: int) -> torch.Tensor:
+    """``(n_panels, 2)`` int32 on ``vals``' device: the panel-local rows
+    (``rloc``) holding the most and the next most live slots (value ≠ 0) of
+    each panel, -1 where a panel has fewer such rows; slots with ``rloc``
+    outside ``[0, row_panel)`` do not count.  The SpMV kernel sums these
+    rows' slots in registers in place of shared atomics on one address."""
+    nt = vals.shape[0]
+    r = rloc.reshape(nt, -1).long()
+    keep = (vals.reshape(nt, -1) != 0) & (r >= 0) & (r < row_panel)
+    key = (panel.long()[:, None] * row_panel + r)[keep]
+    counts = torch.bincount(key, minlength=n_panels * row_panel)[: n_panels * row_panel]
+    best = counts.view(n_panels, row_panel).topk(_HEAVY, dim=1)
+    return torch.where(best.values > 0, best.indices, -1).to(torch.int32)
+
+
 def out_dtype(vals_dtype: torch.dtype, x_dtype: torch.dtype) -> torch.dtype:
     """The POH kernels' output type: ``promote(values, x, f32)`` (the
     reference's ``out_dt``, poh_kernels.py:408), f32 for every half
@@ -112,16 +143,11 @@ def poh_spmm_reference(p: "PohMatrix", x: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if name == "poh_spmv":  # ..., x, y, n_panels, splits, R, C, T, m, n, stream
-        args = [p] * 7 + [i, i, i, i, i, ll, ll, p]
+    if name == "poh_spmv":  # ..., pieces, heavy, x, y, n_pieces, R, C, T, m, n, stream
+        args = [p] * 8 + [i, i, i, i, ll, ll, p]
     else:  # ..., pieces, X, Y, n_pieces, R, C, T, m, n, k, stream
         args = [p] * 7 + [i, i, i, i, ll, ll, i, p]
     return bind(name, f"cask_{name}", args, spmm=False)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(p: "PohMatrix", x: torch.Tensor, ndim: int, what: str, whole_panel: bool) -> None:
@@ -161,17 +187,16 @@ def poh_spmv(p: "PohMatrix", x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros(m, dtype=out_dtype(p.vals.dtype, x.dtype), device=x.device)  # added into
     if m == 0 or n == 0:
         return y
-    # split each panel's tile run so the grid holds _CTAS_PER_SM CTAs per SM
-    # (no more pieces than tiles)
-    want = -(-_CTAS_PER_SM * _sm_count(x.device.index or 0) // p.n_panels)
-    splits = max(1, min(want, p.ntiles))
+    pieces, heavy = p.spmv_pieces, p.heavy_row
+    if pieces.device != x.device or heavy.device != x.device:
+        raise ValueError(f"x on {x.device} but the plan's tables on {pieces.device}")
     lib = _lib("poh_spmv")
     fn = getattr(lib, entry("cask_poh_spmv", p.vals.dtype, x.dtype))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(p.vals.data_ptr(), p.cloc.data_ptr(), p.rloc.data_ptr(), p.wlo.data_ptr(),
-                 p.panel_ptr.data_ptr(), x.data_ptr(), y.data_ptr(), p.n_panels, splits,
-                 p.row_panel, p.col_window, p.slot_rows * 128, m, n, stream)
+                 pieces.data_ptr(), heavy.data_ptr(), x.data_ptr(), y.data_ptr(),
+                 pieces.shape[0], p.row_panel, p.col_window, p.slot_rows * 128, m, n, stream)
     raise_on(lib, err, "poh_spmv")
     poh_spmv.launches += 1
     return y

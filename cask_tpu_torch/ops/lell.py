@@ -13,12 +13,13 @@ owns several slot rows, all 128 lanes feeding it, folded by a segment sum).
 
 Planning is host numpy and packs exactly as the JAX package does; the
 plan's tensors then live on the device the caller names (by default the
-CUDA device).  The packed sums run in the CUDA kernel of
-:mod:`cask_tpu_torch.ops.kernels.lell_kernels` on a CUDA device, or its
-plain twin on the CPU; the hub tier's segment sum and the remainder are
-plain PyTorch (``index_add_``), as they are XLA outside the reference's
-kernel.  The reference's kernel refuses a matrix wider than 4096·B columns
-(``_SB_CAP``); the port takes any width.
+CUDA device).  The products run in the CUDA kernels of
+:mod:`cask_tpu_torch.ops.kernels.lell_kernels` on a CUDA device
+(:func:`~cask_tpu_torch.ops.kernels.lell_kernels.lell_spmv`: the grouped
+tier's rows, then the hub tier's segment sum and the remainder by atomics,
+all in the kernels, where the reference leaves them to XLA outside its
+kernel), or their plain twins on the CPU.  The reference's kernel refuses a
+matrix wider than 4096·B columns (``_SB_CAP``); the port takes any width.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ import torch
 
 from cask_tpu_torch.formats.convert import coo_from_arrays, coo_to_csr, lex_order
 from cask_tpu_torch.formats.matrix import CSR, host, to_device, value_dtype
-from cask_tpu_torch.ops.kernels.lell_kernels import lell_lane_sums, lell_lane_sums_reference
+from cask_tpu_torch.ops.kernels.lell_kernels import (hub_partial, lell_lane_sums, lell_spmv,
+                                                     lell_spmv_reference)
 from cask_tpu_torch.utils.platform import plan_device
 
 _LANE = 128
@@ -72,28 +74,13 @@ class LellMatrix:
         return int(torch.count_nonzero(self.vals)) / max(self.vals.numel(), 1)
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
-        """``A·x``: the packed layers' group sums (kernel on a CUDA device,
-        twin on the CPU), then the COO remainder."""
-        return self._spmv(x, lell_lane_sums)
+        """``A·x``: the packed layers' group sums and the COO remainder
+        (kernels on a CUDA device, twin on the CPU)."""
+        return lell_spmv(self, None, x)
 
     def _spmv_reference(self, x: torch.Tensor) -> torch.Tensor:
         """The same math with the plain twin on any device."""
-        return self._spmv(x, lell_lane_sums_reference)
-
-    def _spmv(self, x, lane_sums):
-        m = self.shape[0]
-        y = lane_sums(self.vals, self.idx, x, self.groups).reshape(-1)[:m]
-        if y.shape[0] < m:
-            # trailing empty rows past the last packed slot row: the slot rows
-            # stop there, so y is padded (the reference returns it short)
-            y = torch.cat([y, y.new_zeros(m - y.shape[0])])
-        if self.rem_data.shape[0]:
-            # products and their sum in the output's sum type (f32 for a half
-            # output), rounded once: the reference rounds each half product
-            acc = torch.promote_types(y.dtype, torch.float32)
-            prod = self.rem_data.to(acc) * x[self.rem_col.long()].to(acc)
-            y = y.to(acc).index_add(0, self.rem_row.long(), prod).to(y.dtype)
-        return y
+        return lell_spmv_reference(self, None, x)
 
 
 def lell_plan(a: CSR, *, max_layers: int = 6, groups: int = 8, device=None) -> LellMatrix:
@@ -166,15 +153,10 @@ class ChunkedLell:
         return int(torch.count_nonzero(self.vals)) / max(self.vals.numel(), 1)
 
     def spmv_partial(self, x: torch.Tensor) -> torch.Tensor:
-        """Per-row partial sums (length m, zeros for non-hub rows)."""
-        return self._partial(x, lell_lane_sums)
-
-    def _partial(self, x, lane_sums):
-        m = self.shape[0]
-        sums = lane_sums(self.vals, self.idx, x, 1).reshape(-1)  # (S_pad,)
-        acc = torch.promote_types(sums.dtype, torch.float32)  # a half output sums in f32
-        return (sums.new_zeros(m + 1, dtype=acc).index_add_(0, self.slot2row.long(),
-                                                            sums.to(acc))[:m].to(sums.dtype))
+        """Per-row partial sums (length m, zeros for non-hub rows): the lane
+        sums kernel, then a segment sum in PyTorch (``HybLell.spmv`` adds the
+        tier in its kernels instead)."""
+        return hub_partial(self, x, lell_lane_sums)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -194,19 +176,14 @@ class HybLell:
         return self.main.traffic_bytes + self.hub.traffic_bytes
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
-        """``A·x``: the kernel on each tier on a CUDA device (the twin on the
-        CPU), the hub rows' segment sum and the remainder in PyTorch."""
-        y = self.main.spmv(x)
-        if self.hub.vals.shape[1] > 0:
-            y = y + self.hub.spmv_partial(x)
-        return y
+        """``A·x``: on a CUDA device two launches (the grouped tier's rows,
+        then the hub tier and the remainder added by atomics; three for an
+        f16 · f16 y), the plain twin on the CPU."""
+        return lell_spmv(self.main, self.hub, x)
 
     def _spmv_reference(self, x: torch.Tensor) -> torch.Tensor:
         """The same math with the plain twin on any device."""
-        y = self.main._spmv_reference(x)
-        if self.hub.vals.shape[1] > 0:
-            y = y + self.hub._partial(x, lell_lane_sums_reference)
-        return y
+        return lell_spmv_reference(self.main, self.hub, x)
 
 
 def _pack_chunked_arrays(m, rows, indices, data, chunk_layers: int, dtype):

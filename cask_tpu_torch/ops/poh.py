@@ -14,10 +14,12 @@ CUDA device).  The reference also stores ``rloc`` transposed per tile
 (``rloc_t``) so that every one-hot product on the TPU's matrix unit is NN;
 the Hopper kernels gather and scatter directly and never read it, so the
 port's plan leaves it out.  ``panel_ptr`` (the first tile of each panel,
-built once with the plan on its device) is the port's own addition: the
-kernels split each panel's tile run by it.  So is ``spmm_pieces``, the SpMM
-kernel's work pieces (panels above the mean tile count cut into runs of
-about the mean), also built once with the plan.
+built once with the plan on its device) is the port's own addition, and
+so are the kernels' tables built from it and the pack, once with the plan:
+``spmv_pieces`` and ``spmm_pieces``, the SpMV and SpMM kernels' work pieces
+(panels cut into runs of at most about ntiles / (16 · 132) tiles, and of
+about the mean tile count), and ``heavy_row``, each panel's two rows with
+the most live slots, which the SpMV kernel sums in registers.
 
 The products run in the CUDA kernels of
 :mod:`cask_tpu_torch.ops.kernels.poh_kernels` on a CUDA device, or in
@@ -34,7 +36,8 @@ import torch
 
 from cask_tpu_torch.formats.convert import coo_to_csr
 from cask_tpu_torch.formats.matrix import COO, CSR, host, to_device, torch_dtype, value_dtype
-from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmm, poh_spmv, spmm_pieces
+from cask_tpu_torch.ops.kernels.poh_kernels import (heavy_rows, poh_spmm, poh_spmv,
+                                                    spmm_pieces, spmv_pieces)
 from cask_tpu_torch.utils.platform import plan_device
 
 _LANE = 128
@@ -70,6 +73,10 @@ class PohMatrix:
     panel_ptr: torch.Tensor = dataclasses.field(init=False, repr=False)
     # (P, 4) int32 (panel, first tile, end tile, cut): see spmm_pieces
     spmm_pieces: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # (P', 4) int32, the same for the SpMV kernel: see spmv_pieces
+    spmv_pieces: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # (n_panels, 2) int32 rloc of each panel's two rows with most live slots, -1: none
+    heavy_row: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         bounds = torch.arange(self.n_panels + 1, dtype=self.panel.dtype,
@@ -77,6 +84,9 @@ class PohMatrix:
         object.__setattr__(self, "panel_ptr", torch.searchsorted(
             self.panel.contiguous(), bounds, out_int32=True))
         object.__setattr__(self, "spmm_pieces", spmm_pieces(self.panel_ptr))
+        object.__setattr__(self, "spmv_pieces", spmv_pieces(self.panel_ptr))
+        object.__setattr__(self, "heavy_row", heavy_rows(self.vals, self.rloc, self.panel,
+                                                         self.n_panels, self.row_panel))
 
     @property
     def ntiles(self) -> int:

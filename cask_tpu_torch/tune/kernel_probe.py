@@ -1,6 +1,8 @@
-"""Take apart what sets the time of the POH SpMM and slab SpMM kernels.
+"""Take apart what sets the time of the POH SpMM and SpMV, LELL and slab SpMM
+kernels.
 
-    python3 -m cask_tpu_torch.tune.kernel_probe [--slab | --types | --sass CHECKOUT]
+    python3 -m cask_tpu_torch.tune.kernel_probe [--slab | --poh-spmv | --lell | --types
+                                                 | --sass CHECKOUT]
     env PYTHONPATH=<another checkout> python3 <this checkout>/cask_tpu_torch/tune/kernel_probe.py
 
 The second form times another checkout's kernels with this script (it uses
@@ -39,6 +41,32 @@ measurement, CUDA events, median of 10 samples of 3 calls:
   the slab's products on this card.
 
 ``--slab`` runs only the f32 slab and its variants.
+
+``--poh-spmv`` takes POH SpMV (B16) apart on the power law above, f32:
+the entry ``poh_spmv(p, x)`` as it stands, then variants of
+``csrc/poh_spmv.cu`` built from text edits (called directly, y zeroed per
+call), each on two tables of work pieces (rows ``(panel, first tile, end
+tile, cut)``: the split of every panel into ``ceil(8·SMs / panels)`` equal
+parts that the earlier split-per-panel kernel launched, and pieces of about equal tile
+count, at several caps) and on the heaviest piece of each alone: without
+the match and peer reduction before each shared atomic (plain shared
+atomics), without shared atomics at all (plain adds, racy: timing only),
+without the x gathers (a constant in place of each x element), the slot
+stream alone (no gathers, no atomics), and without the flush of the
+partial sums into y.  The split-per-panel source first takes the pieces table in
+place of its split rule (an edit of its first lines), so every variant
+runs the same pieces.  On a source with a heavy-row table, also without
+it (every slot through the shared atomics).
+
+``--lell`` takes ``HybLell.spmv`` (B18) apart on the same power law, f32:
+the entry, each tier's kernel alone through ``lell_lane_sums``, the two
+launches in a row and the entry's PyTorch glue alone (where the entry has
+glue: the lane sums given, the rest of the entry timed), as built and
+through source variants: for the layer-serial source, every layer's values, then
+indices, then x entries loaded before any use; for the redesigned one, the
+register bound lifted or moved (128, 48 registers), other numbers of layers
+a thread loads at once, and no x gathers.  Each variant's build prints its
+registers and spill bytes.
 
 ``--types`` times every kernel at its headline size in each value type the
 checkout's kernels take, f32 and f64 first, then bf16 and f16 with their
@@ -97,6 +125,126 @@ POH_VARIANTS = {
 }
 
 
+# text edits of csrc/poh_spmv.cu.  The split-per-panel kernel splits each panel in
+# `splits` equal parts; its first lines are edited to read the parts from a
+# pieces table passed as panel_ptr, so each variant runs any table.
+_PS_PIECES = ("""  const int I = blockIdx.x / splits;
+  const int piece = blockIdx.x % splits;
+  const int t_lo = __ldg(panel_ptr + I);
+  const int nt = __ldg(panel_ptr + I + 1) - t_lo;
+  const int ta = t_lo + static_cast<int>(static_cast<int64_t>(nt) * piece / splits);
+  const int tb = t_lo + static_cast<int>(static_cast<int64_t>(nt) * (piece + 1) / splits);
+""", """  const int I = __ldg(panel_ptr + 4 * blockIdx.x);
+  const int ta = __ldg(panel_ptr + 4 * blockIdx.x + 1);
+  const int tb = __ldg(panel_ptr + 4 * blockIdx.x + 2);
+""")
+_PS_NO_MATCH = ("""const unsigned peers = __match_any_sync(0xffffffffu, key);
+        A prod[1] = {v[u] * xv[u]};
+        reduce_peers(peers, prod);
+        if (live && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1) {""",
+                """A prod[1] = {v[u] * xv[u]};
+        if (live) {""")
+_PS_PLAIN_ADD = ("atomicAdd(acc + key, prod[0]);", "acc[key] += prod[0];")
+_PS_NO_X = ("A(cask::widen(__ldg(x + col)))", "A(c[u] & 1)")
+_PS_SINK = [("  for (int t = ta; t < tb; ++t) {",
+             "  A sink = A(0);\n  for (int t = ta; t < tb; ++t) {"),
+            ("""A prod[1] = {v[u] * xv[u]};
+        if (live) {
+          acc[key] += prod[0];""", """sink += v[u] * xv[u] + A(r[u]);
+        if (false) {"""),
+            ("  __syncthreads();\n\n  const int64_t row0",
+             "  if (sink == A(-1234567)) y[threadIdx.x] = sink;\n  __syncthreads();\n\n"
+             "  const int64_t row0")]
+_PS_NO_FLUSH = ("if (s != A(0) && row0 + r < m) atomicAdd(y + row0 + r, s);",
+                "if (s == A(-1234567) && row0 + r < m) y[row0 + r] = s;")
+
+# text edits of the redesigned csrc/poh_spmv.cu (pieces and a heavy-row table)
+_PN_PLAIN_ADD = ("red_shared(acc + r[u], prod);", "acc[r[u]] += prod;")
+_PN_NO_X = ("A(cask::widen(__ldg(x + col)))", "A(c[u] & 1)")
+_PN_SINK = [("        red_shared(acc + r[u], prod);", "        sink += prod + A(r[u]);"),
+            ("  A heavy_sum = A(0), heavy_sum1 = A(0);",
+             "  A heavy_sum = A(0), heavy_sum1 = A(0), sink = A(0);"),
+            ("  __syncthreads();\n\n  // flush",
+             "  if (sink == A(-1234567)) y[threadIdx.x] = sink;\n  __syncthreads();\n\n"
+             "  // flush")]
+_PN_NO_FLUSH = ("if (s != A(0) && row0 + r < m) atomicAdd(y + row0 + r, s);",
+                "if (s == A(-1234567) && row0 + r < m) y[row0 + r] = s;")
+
+# name -> alternative edit lists (the split-per-panel source's, the pieces one's):
+# the first that fits the source is built
+POH_SPMV_VARIANTS = {
+    "as built": [[_PS_PIECES], []],
+    "no match (plain shared atomics)": [[_PS_PIECES, _PS_NO_MATCH]],
+    "no shared atomics (plain adds, racy)": [[_PS_PIECES, _PS_NO_MATCH, _PS_PLAIN_ADD],
+                                             [_PN_PLAIN_ADD]],
+    "no x gathers": [[_PS_PIECES, _PS_NO_X], [_PN_NO_X]],
+    "slot stream alone": [[_PS_PIECES, _PS_NO_MATCH, _PS_PLAIN_ADD, _PS_NO_X, *_PS_SINK],
+                          [_PN_NO_X, *_PN_SINK]],
+    "no global flush": [[_PS_PIECES, _PS_NO_FLUSH], [_PN_NO_FLUSH]],
+}
+
+# text edit of the layer-serial csrc/lell_spmv.cu: every layer's values, then
+# indices, then x entries loaded before any use (8 layers at a time)
+_LELL_OLD_LOOP = """    for (int ell = 0; ell < L; ++ell) {
+      const T v = T(cask::widen(__ldcs(vals + ell * plane + off)));
+      if (v != T(0)) {
+        const int64_t col = static_cast<int64_t>(__ldcs(idx + ell * plane + off)) * B + b;
+        if (col >= 0 && col < n) acc = fma_t(v, T(cask::widen(__ldg(x + col))), acc);
+      }
+    }"""
+_LELL_BATCHED = """    for (int e0 = 0; e0 < L; e0 += 8) {
+      T v[8], xv[8];
+      int c[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = e0 + e < L ? T(cask::widen(__ldcs(vals + (e0 + e) * plane + off))) : T(0);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) c[e] = v[e] != T(0) ? __ldcs(idx + (e0 + e) * plane + off) : -1;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int64_t col = static_cast<int64_t>(c[e]) * B + b;
+        xv[e] = (c[e] >= 0 && col < n) ? T(cask::widen(__ldg(x + col))) : T(0);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc = fma_t(v[e], xv[e], acc);
+    }"""
+# and of the redesigned one (a warp per slot row, kChunk layers at a time)
+def _lell_chunks(rows: int, hub: int):
+    """The edit that makes the grouped and hub tiers load ``rows`` and
+    ``hub`` layers at a time (f64 half that)."""
+    return [("constexpr int kRowsChunk = sizeof(T) == 8 ? 3 : 6;",
+             f"constexpr int kRowsChunk = sizeof(T) == 8 ? {max(rows // 2, 1)} : {rows};"),
+            ("constexpr int kHubChunk = sizeof(T) == 8 ? 2 : 4;",
+             f"constexpr int kHubChunk = sizeof(T) == 8 ? {max(hub // 2, 1)} : {hub};")]
+
+
+def _lell_blocks(b: int):
+    """The edit that holds the tier kernels to ``b`` resident blocks an SM
+    (0: no register bound)."""
+    bounds = "__launch_bounds__(kThreads, kMinBlocks)"
+    return [(bounds + "\nlell_rows_kernel",
+             (bounds.replace("kMinBlocks", str(b)) if b else "__launch_bounds__(kThreads)")
+             + "\nlell_rows_kernel"),
+            (bounds + "\nlell_hub_kernel",
+             (bounds.replace("kMinBlocks", str(b)) if b else "__launch_bounds__(kThreads)")
+             + "\nlell_hub_kernel")]
+
+
+LELL_VARIANTS = {
+    "as built": [],
+    "every layer's loads before any use": [[(_LELL_OLD_LOOP, _LELL_BATCHED)]],
+    "no register bound": [_lell_blocks(0)],
+    "at most 128 registers": [_lell_blocks(2)],
+    "at most 48 registers": [_lell_blocks(5)],
+    "3 grouped, 2 hub layers at a time": [_lell_chunks(3, 2)],
+    "4 grouped, 4 hub layers at a time": [_lell_chunks(4, 4)],
+    "8 grouped, 4 hub layers at a time, no register bound": [
+        _lell_chunks(8, 4) + _lell_blocks(0)],
+    "no x gathers": [[("acc[j] = fma_t(v[e][j], T(cask::widen(__ldg(x + col))), acc[j]);",
+                       "acc[j] = fma_t(v[e][j], T(c[e][j] & 1), acc[j]);")]],
+}
+
+
 def _ms(fn) -> float:
     from cask_tpu_torch.tune.timing import time_cuda
 
@@ -150,16 +298,20 @@ def _build_variants(source: str, variants: dict) -> dict:
     out.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for i, (name, edits) in enumerate(variants.items()):
-        text = src
-        for old, new in edits:
-            if old not in text:
-                print(f"[probe] variant '{name}' does not fit this source: skipped", flush=True)
+        # a variant is one list of edits, or alternative lists (the first that fits)
+        for alt in (edits if edits and isinstance(edits[0], list) else [edits]):
+            text = src
+            for old, new in alt:  # in order: an edit may match the text of an earlier one
+                if old not in text:
+                    break
+                text = text.replace(old, new)
+            else:
+                cu = out / f"{source}_v{i}.cu"
+                cu.write_text(text)
+                jobs[name] = (cu.with_suffix(".so"), _nvcc(cu))
                 break
-            text = text.replace(old, new)
         else:
-            cu = out / f"{source}_v{i}.cu"
-            cu.write_text(text)
-            jobs[name] = (cu.with_suffix(".so"), _nvcc(cu))
+            print(f"[probe] variant '{name}' does not fit this source: skipped", flush=True)
     return {name: _wait(so, proc, name) for name, (so, proc) in jobs.items()}
 
 
@@ -175,6 +327,11 @@ def _wait(so, proc, name):
     log = proc.communicate()[0]
     if proc.returncode:
         raise RuntimeError(f"'{name}' failed to build:\n{log}")
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", log))
+    if regs:
+        print(f"[probe] built '{name}': {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
+              f"spill bytes {spills}", flush=True)
     return so
 
 
@@ -239,7 +396,7 @@ extern "C" int run(float* out, int blocks, int iters, void* stream) {
 
 
 def _sparse_csr(a, dev):
-    """The BSR matrix as an f32 torch sparse CSR tensor on ``dev``."""
+    """The BSR or CSR matrix as an f32 torch sparse CSR tensor on ``dev``."""
     import numpy as np
     import torch
 
@@ -312,6 +469,142 @@ def _one_panel(p, i: int):
                                              "last")}
     return type(p)(panel=p.panel[ta:tb] * 0, shape=(p.row_panel, p.shape[1]),
                    row_panel=p.row_panel, col_window=p.col_window, **cut)
+
+
+def _split_pieces(p, sms: int):
+    """The pieces of the split-per-panel kernel's rule: every panel in
+    ``ceil(8·SMs / panels)`` equal parts (at most ntiles), panel-major, as
+    ``(panel, first tile, end tile, 1)`` rows."""
+    import numpy as np
+    import torch
+
+    ptr = p.panel_ptr.cpu().numpy().astype(np.int64)
+    splits = max(1, min(-(-8 * sms // p.n_panels), p.ntiles))
+    rows = [(i, ptr[i] + (ptr[i + 1] - ptr[i]) * j // splits,
+             ptr[i] + (ptr[i + 1] - ptr[i]) * (j + 1) // splits, 1)
+            for i in range(p.n_panels) for j in range(splits)]
+    return torch.tensor(rows, dtype=torch.int32, device=p.vals.device), splits
+
+
+def _poh_spmv_probe(dev, gen) -> None:
+    """``--poh-spmv``: POH SpMV's entry and source variants on the power law."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+    from cask_tpu_torch.formats.generate import power_law
+    from cask_tpu_torch.ops.kernels import build
+    from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmv, spmm_pieces
+
+    parent_form = "int splits" in (build.CSRC / "poh_spmv.cu").read_text()
+    libs = _build_variants("poh_spmv", POH_SPMV_VARIANTS)
+    a = power_law(PL_N, avg_degree=12, dtype=np.float32, seed=3)
+    p = ct.poh_plan(a, device=dev)
+    x = torch.randn(PL_N, generator=gen, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split, splits = _split_pieces(p, sms)
+    cap = -(-p.ntiles // (8 * sms))
+    tables = {f"split {splits} per panel": split}
+    for c in (cap // 2, cap, 2 * cap, 4 * cap):
+        tables[f"pieces of <= {c} tiles"] = spmm_pieces(p.panel_ptr, c)
+    per = torch.diff(p.panel_ptr).cpu().numpy()
+    print(f"[probe] poh_spmv power_law: {p.ntiles} tiles, {p.n_panels} panels, tiles per "
+          f"panel {per.min()}-{per.max()} (mean {per.mean():.1f}), fill {p.fill():.3f}; "
+          + ", ".join(f"{name}: {t.shape[0]} pieces, largest "
+                      f"{int((t[:, 2] - t[:, 1]).max())} tiles" for name, t in tables.items()),
+          flush=True)
+    print(f"[probe] poh_spmv entry poh_spmv(p, x) as built: "
+          f"{_ms(lambda: poh_spmv(p, x)) * 1e3:.1f} us", flush=True)
+    S = _sparse_csr(a, dev)
+    print(f"[probe] cuSPARSE (torch.sparse_csr_tensor @ x) float32: "
+          f"{_ms(lambda: S @ x) * 1e3:.1f} us", flush=True)
+    del S
+    heavy = getattr(p, "heavy_row", None)
+    none = None if heavy is None else torch.full_like(heavy, -1)
+    P, I_, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    runs = []  # (variant label, entry, heavy-row table)
+    for name, so in libs.items():
+        fn = ctypes.CDLL(str(so)).cask_poh_spmv_f32
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([P] * 7 + [I_] * 5 + [LL, LL, P]) if parent_form else \
+            ([P] * 8 + [I_] * 4 + [LL, LL, P])
+        runs.append((name, fn, heavy))
+        if name == "as built" and heavy is not None:
+            one = heavy.clone()
+            one[:, 1:] = -1
+            runs += [("the heaviest row alone in registers", fn, one),
+                     ("no heavy-row table (every slot a shared atomic)", fn, none)]
+    for vname, fn, hv in runs:
+        for tname, table in tables.items():
+            def call(fn=fn, table=table, hv=hv):
+                y = torch.zeros(PL_N, device=dev)
+                common = (p.vals.data_ptr(), p.cloc.data_ptr(), p.rloc.data_ptr(),
+                          p.wlo.data_ptr(), table.data_ptr())
+                tail = (p.row_panel, p.col_window, p.slot_rows * 128, PL_N, PL_N,
+                        torch.cuda.current_stream().cuda_stream)
+                if parent_form:
+                    err = fn(*common, x.data_ptr(), y.data_ptr(), table.shape[0], 1, *tail)
+                else:
+                    err = fn(*common, hv.data_ptr(), x.data_ptr(), y.data_ptr(),
+                             table.shape[0], *tail)
+                if err:
+                    raise RuntimeError(f"variant '{vname}': CUDA error {err}")
+            big = table[int((table[:, 2] - table[:, 1]).argmax())][None].contiguous()
+            print(f"[probe] poh_spmv variant '{vname}', {tname} (y zeroed per call): "
+                  f"{_ms(call) * 1e3:.1f} us; its largest piece alone "
+                  f"{_ms(lambda: call(table=big)) * 1e3:.1f} us", flush=True)
+
+
+def _lell_probe(dev, gen) -> None:
+    """``--lell``: ``HybLell.spmv``'s parts and the source variants."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+    import cask_tpu_torch.ops.kernels.lell_kernels as lk
+    from cask_tpu_torch.formats.generate import power_law
+    from cask_tpu_torch.ops.kernels import build
+
+    libs = _build_variants("lell_spmv", LELL_VARIANTS)
+    a = power_law(PL_N, avg_degree=12, dtype=np.float32, seed=3)
+    h = ct.lell_plan_hyb(a, device=dev)
+    x = torch.randn(PL_N, generator=gen, device=dev)
+    m, hub = h.main, h.hub
+    print(f"[probe] lell power_law: grouped tier {tuple(m.vals.shape)} (G {m.groups}, fill "
+          f"{m.fill():.3f}), hub tier {tuple(hub.vals.shape)} (fill {hub.fill():.3f}), "
+          f"remainder {m.rem_data.shape[0]}", flush=True)
+
+    def parts(tag):
+        grouped = lambda: lk.lell_lane_sums(m.vals, m.idx, x, m.groups)  # noqa: E731
+        hubs = lambda: lk.lell_lane_sums(hub.vals, hub.idx, x, 1)  # noqa: E731
+        for what, fn in (("entry HybLell.spmv", lambda: h.spmv(x)),
+                         ("grouped tier kernel alone", grouped),
+                         ("hub tier kernel alone", hubs),
+                         ("both tiers' kernels", lambda: (grouped(), hubs()))):
+            print(f"[probe] lell {tag} {what}: {_ms(fn) * 1e3:.1f} us", flush=True)
+
+    parts("as built,")
+    if hasattr(type(m), "_spmv") and hasattr(type(hub), "_partial"):
+        sm, sh = (lk.lell_lane_sums(m.vals, m.idx, x, m.groups),
+                  lk.lell_lane_sums(hub.vals, hub.idx, x, 1))
+        glue = lambda: m._spmv(x, lambda *_: sm) + hub._partial(x, lambda *_: sh)  # noqa: E731
+        print(f"[probe] lell as built, the entry's glue alone (lane sums given): "
+              f"{_ms(glue) * 1e3:.1f} us", flush=True)
+    else:
+        print("[probe] lell as built: the entry has no PyTorch glue", flush=True)
+    S = _sparse_csr(a, dev)
+    print(f"[probe] cuSPARSE (torch.sparse_csr_tensor @ x) float32: "
+          f"{_ms(lambda: S @ x) * 1e3:.1f} us", flush=True)
+    del S
+    load = build.load  # the wrapper pointed at each variant's library in turn
+    try:
+        for vname, so in libs.items():
+            build.load = lambda name, so=so: ctypes.CDLL(str(so))
+            lk._lib.cache_clear()
+            parts(f"variant '{vname}',")
+    finally:
+        build.load = load
+        lk._lib.cache_clear()
 
 
 def _time_or_refusal(name: str, tag: str, fn) -> None:
@@ -473,6 +766,12 @@ def main() -> int:
         return 0
     if "--sass" in sys.argv[1:]:
         _sass(sys.argv[sys.argv.index("--sass") + 1])
+        return 0
+    if "--poh-spmv" in sys.argv[1:] or "--lell" in sys.argv[1:]:
+        if "--poh-spmv" in sys.argv[1:]:
+            _poh_spmv_probe(dev, gen)
+        if "--lell" in sys.argv[1:]:
+            _lell_probe(dev, gen)
         return 0
     slab_only = "--slab" in sys.argv[1:]
 

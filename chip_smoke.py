@@ -10,8 +10,8 @@ card.  Phases, one line each:
 2. build — ``nvcc`` builds every kernel from ``cask_tpu_torch/csrc``, one
    compiler per source, all at once; the ptxas register and spill lines,
    per instantiation for the redesigned kernels (the slab's tensor-core
-   kernel and POH SpMM, its half instantiations too), none of which may
-   spill.
+   kernel, POH SpMM and SpMV and the LELL kernels, their half
+   instantiations too), none of which may spill.
 3. small — the BDIA kernel against its plain PyTorch twin on small FEM
    matrices (dof 2/4/8), one with a COO remainder and one with (4, 2)
    blocks, in f32 and f64.
@@ -29,12 +29,16 @@ card.  Phases, one line each:
    on the edge plans of the JAX package's POH tests (power law, both
    rectangles, a band, one dense column, empty rows and columns, the
    all-zero matrix, n below the window, other panel, window and tile
-   sizes, ``graph_pattern_120.mtx`` through ``read_mtx``, and one hub row
-   whose panel the SpMM kernel cuts into pieces): ``spmv``,
-   ``transposed`` and ``spmm`` at k ∈ {1, 32, 150}, f32 and f64.
-7. small-lell — the LELL kernel against its twin and scipy: ``lell_plan``
-   at groups ∈ {1, 4, 8, 16} and ``lell_plan_hyb`` on a uniform matrix, a
-   power law, a rectangle and a plan wider than the reference's 4096·B cap.
+   sizes, ``graph_pattern_120.mtx`` through ``read_mtx``, one hub row
+   whose panel both kernels cut into pieces, two panels whose live slots
+   each hold one row, one tile per panel): ``spmv``, ``transposed`` and
+   ``spmm`` at k ∈ {1, 32, 150}, f32 and f64.
+7. small-lell — the LELL kernels against their twins and scipy:
+   ``lell_plan`` at groups ∈ {1, 2, 4, ..., 128}, at one layer, with two
+   trailing layers of padding and cut to 61 slot rows (not a multiple of a
+   block's eight), and ``lell_plan_hyb`` on a uniform matrix, a power law,
+   a rectangle, a plan wider than the reference's 4096·B cap and a hub row
+   whose hub slot rows run across blocks.
 7b. small-bf16, small-f16 — the half value paths (values and operand each
    H or f32, at least one H, for H bf16 and then f16; SpMM out f32 or H,
    SpMV out f16 for f16 values and x, else f32): the BDIA SpMV, DIA SpMV and
@@ -46,7 +50,8 @@ card.  Phases, one line each:
    two f16 ones), on the headline-shaped and the TF32-sensitive case.
 7c. small-half — the half path of BSR SpMM, POH SpMV and SpMM and LELL
    (values and operand each bf16 or f16 or f32, at least one half, of one
-   half type) against their twins on the small plans of phases 5-7: f32
+   half type) against their twins on the small plans of phases 5-7 (LELL:
+   each tier's group sums and the whole ``spmv`` of each plan): f32
    outputs within 1e-5, half outputs (BSR's, the values' type; LELL's f16
    for f16 values and x) within one ulp of the twin's f32 sum.
 8. spmv — ``spmv(bsr, x)`` through the public entry point on the
@@ -67,8 +72,8 @@ card.  Phases, one line each:
    avg_degree=12)`` (f32): the unstructured path, one ``poh_spmv`` launch.
 16. poh-spmm — ``spmm(plan, X)`` on the same plan at k = 32, in the
    plan's pieces.
-17. lell — ``lell_plan_hyb(A).spmv(x)``: the LELL kernel on the grouped and
-   the hub tier.
+17. lell — ``lell_plan_hyb(A).spmv(x)``: two launches, the grouped tier's
+   rows, then the hub tier and the COO remainder added by atomics.
 18. poh-cg — CG with Jacobi over the POH plan of the SPD ``A + Aᵀ`` with
    each row's diagonal raised by 1.1 × its absolute row sum: one
    ``poh_spmv`` launch per operator application; ``[poh-cg-bf16]`` the same
@@ -85,10 +90,11 @@ card.  Phases, one line each:
    must stay within 2 iterations of the f32 ones.
 19b. half — the power law with bf16 and with f16 values: ``[poh-spmv-half]``
    spmv(poh_plan(A_h), x), ``[poh-spmm-half]`` spmm at k = 32,
-   ``[lell-half]`` lell_plan_hyb(A_h).spmv(x) (both tiers, segment sum and
-   remainder); ``[spmm-wide-half]`` spmm(bsr_h, X, method="pallas_bsr") on
-   the FEM matrix at k = 128; each with its operand in the half type and
-   in f32, against its twin and scipy f64 of the rounded inputs.
+   ``[lell-half]`` lell_plan_hyb(A_h).spmv(x) (two launches, three for an
+   f16 y: summed in f32, then rounded once); ``[spmm-wide-half]``
+   spmm(bsr_h, X, method="pallas_bsr") on the FEM matrix at k = 128; each
+   with its operand in the half type and in f32, against its twin and
+   scipy f64 of the rounded inputs.
 20. timing — each kernel entry, its plain twin and the one PyTorch call
    that computes the same product (a cuSPARSE product through
    ``torch.sparse_csr_tensor``; in bf16 or f16 for the half entries, or
@@ -144,7 +150,8 @@ LELL_PY = "cask_tpu/ops/pallas/lell_kernels.py"
 
 
 # the instantiations this version redesigned (mangled names): no spills allowed
-REDESIGNED = r"(slab_spmm_tc_kernelI\w+?EEvPK|poh_spmm_kernelI\w+?Li\d+E)"
+REDESIGNED = (r"(slab_spmm_tc_kernelI\w+?EEvPK|poh_spmm_kernelI\w+?Li\d+E"
+              r"|poh_spmv_kernelI\w+?EEv|lell_\w+?_kernelI\w+?EEv)")
 
 
 _LAPS = {}  # phase -> seconds, for the [done] line
@@ -204,13 +211,13 @@ def _counters():
                                                               bdia_spmm_slab_padded)
     from cask_tpu_torch.ops.kernels.bsr_kernels import bsr_spmm
     from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmm, dia_spmv
-    from cask_tpu_torch.ops.kernels.lell_kernels import lell_lane_sums
+    from cask_tpu_torch.ops.kernels.lell_kernels import lell_spmv
     from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmm, poh_spmv
 
     return {"bdia_spmv": bdia_spmv, "dia_spmv": dia_spmv, "dia_spmm": dia_spmm,
             "bdia_spmm_slab": bdia_spmm_slab, "bdia_spmm_slab_padded": bdia_spmm_slab_padded,
             "bdia_spmm_ring": bdia_spmm_ring, "bsr_spmm": bsr_spmm, "poh_spmv": poh_spmv,
-            "poh_spmm": poh_spmm, "lell_spmv": lell_lane_sums}
+            "poh_spmm": poh_spmm, "lell_spmv": lell_spmv}
 
 
 def _reset() -> None:
@@ -351,7 +358,22 @@ def _poh_cases():
         "tile_slots=8192": (pl4k, {"row_panel": 8192, "tile_slots": 8192}),
         "graph_pattern_120.mtx": (to_scipy(read_mtx(mtx)), {}),
         "hub row (a cut panel)": (_hub_row(), {}),
+        "one row per panel": (_one_row_per_panel(), {}),
+        "one tile per panel": (ru(12000, 6000, density=5e-5, seed=81), {}),
     }
+
+
+def _one_row_per_panel():
+    """Two panels whose live slots each hold one row (rows 7 and 5000):
+    every slot takes the SpMV kernel's heavy-row path."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(80)
+    rows = np.repeat([7, 5000], [3000, 2500])
+    cols = np.concatenate([rng.choice(9000, 3000, replace=False),
+                           rng.choice(9000, 2500, replace=False)])
+    return sp.csr_matrix((rng.standard_normal(5500), (rows, cols)), shape=(8192, 9000))
 
 
 def _hub_row():
@@ -383,7 +405,59 @@ def _lell_cases():
         "1500x900": to_scipy(random_uniform(1500, 900, density=0.01, seed=7)),
         "500x70000 (past the reference's cap)": to_scipy(
             random_uniform(500, 70_000, density=2e-4, seed=43)),
+        "hub rows across blocks": _hub_rows_across_blocks(),
     }
+
+
+def _hub_rows_across_blocks():
+    """The hub-row matrix with rows 40-42 of 3000 entries more: row 5's
+    hub slot rows span several of a block's eight, and rows 40-42 start and
+    end inside a block."""
+    import numpy as np
+
+    s = _hub_row().tolil()
+    for r in (40, 41, 42):
+        s[r, :3000] = np.random.default_rng(r).standard_normal(3000)
+    return s.tocsr()
+
+
+LELL_GROUPS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def _lell_tiers(a, dev):
+    """(name, LellMatrix, groups) of the LELL edges of CSR ``a``: every
+    group count, one layer (the rest spills to the remainder), two trailing
+    layers of padding, and 61 slot rows (not a multiple of a block's 8; the
+    rows past them empty)."""
+    import torch
+
+    import cask_tpu_torch as ct
+
+    out = [(f"groups={g}", ct.lell_plan(a, groups=g, device=dev), g) for g in LELL_GROUPS]
+    out.append(("max_layers=1", ct.lell_plan(a, max_layers=1, device=dev), 8))
+    p = ct.lell_plan(a, device=dev)
+    pad = torch.zeros((2,) + tuple(p.vals.shape[1:]), dtype=p.vals.dtype, device=p.vals.device)
+    out.append(("two trailing padding layers", dataclasses.replace(
+        p, vals=torch.cat([p.vals, pad]), idx=torch.cat([p.idx, pad.int()])), 8))
+    keep = p.rem_row < 61 * p.groups
+    out.append(("61 slot rows", dataclasses.replace(
+        p, vals=p.vals[:, :61].contiguous(), idx=p.idx[:, :61].contiguous(),
+        rem_data=p.rem_data[keep], rem_row=p.rem_row[keep], rem_col=p.rem_col[keep]), 8))
+    return out
+
+
+def _widened_lell(main, hub, x):
+    """The LELL twin on values, remainder and x widened to the kernels'
+    working type (f64 for f64, else f32): the sums the output rounds once."""
+    import torch
+
+    from cask_tpu_torch.ops.kernels.lell_kernels import lell_spmv_reference
+
+    w = torch.float64 if torch.float64 in (main.vals.dtype, x.dtype) else torch.float32
+    main = dataclasses.replace(main, vals=main.vals.to(w), rem_data=main.rem_data.to(w))
+    if hub is not None:
+        hub = dataclasses.replace(hub, vals=hub.vals.to(w))
+    return lell_spmv_reference(main, hub, x.to(w))
 
 
 def _row_shifted_spd(s):
@@ -656,7 +730,7 @@ def small_half(rng, dev) -> None:
     from cask_tpu_torch.ops.bsr_spmm import BsrSpmmKernel
     from cask_tpu_torch.ops.kernels.bsr_kernels import bsr_spmm, bsr_spmm_reference
     from cask_tpu_torch.ops.kernels.lell_kernels import (lell_lane_sums,
-                                                         lell_lane_sums_reference)
+                                                         lell_lane_sums_reference, lell_spmv)
     from cask_tpu_torch.ops.kernels.poh_kernels import (poh_spmm, poh_spmm_reference,
                                                         poh_spmv, poh_spmv_reference)
 
@@ -700,8 +774,7 @@ def small_half(rng, dev) -> None:
                      poh_spmm_reference(p, X))
     for name, s64 in _lell_cases().items():
         s = s64.astype(np.float32)
-        tiers = [(f"groups={g}", ct.lell_plan(from_scipy(s), groups=g, device=dev), g)
-                 for g in (1, 8, 16)]
+        tiers = _lell_tiers(from_scipy(s), dev)
         hyb = ct.lell_plan_hyb(from_scipy(s), device=dev)
         tiers += [("hyb grouped", hyb.main, hyb.main.groups), ("hyb hub", hyb.hub, 1)]
         for vdt, xdt in combos:
@@ -715,6 +788,16 @@ def small_half(rng, dev) -> None:
                                          f"twin's")
                 note("lell_spmv", f"{name} {what} {_short(vdt)}/{_short(xdt)} lell_spmv", y,
                      twin32)
+                if what == "hyb hub":
+                    continue
+                # the whole product, f32-summed and rounded once
+                main = dataclasses.replace(tier, vals=vals, rem_data=tier.rem_data.to(vdt))
+                hub = None
+                if what == "hyb grouped":
+                    hub = dataclasses.replace(hyb.hub, vals=hyb.hub.vals.to(vdt))
+                y = lell_spmv(main, hub, x)
+                note("lell_spmv", f"{name} {what} {_short(vdt)}/{_short(xdt)} spmv", y,
+                     _widened_lell(main, hub, x))
     for name, b64 in _slab_cases().items():
         p32 = BsrSpmmKernel.plan(b64.astype(np.float32), max(HALF_KS), device=dev)
         for vdt, xdt in combos:
@@ -732,7 +815,8 @@ def small_half(rng, dev) -> None:
     print(f"[small-half] {n_checks} products (type combinations values/operand "
           f"{', '.join(f'{_short(v)}/{_short(x)}' for v, x in combos)}; "
           f"{len(_poh_cases())} POH plans x spmv, transposed spmv, spmm k in 1/32/150; "
-          f"{len(_lell_cases())} LELL matrices x groups 1/8/16 and both hyb tiers; "
+          f"{len(_lell_cases())} LELL matrices x groups 1-128, the edge tiers and both hyb "
+          f"tiers, lane sums and spmv; "
           f"{len(_slab_cases())} BSR plans x k in {'/'.join(map(str, HALF_KS))}): kernel vs "
           f"twin worst " + ", ".join(f"{k} {e:.2e} (f32 out) / {u:.2f} ulp (half out)"
                                      for k, (e, u) in worst.items())
@@ -994,8 +1078,7 @@ def main() -> int:
             tol = F32_TOL if dt == np.float32 else F64_TOL
             x = torch.from_numpy(rng.standard_normal(s.shape[1]).astype(dt)).to(dev)
             y_sp = torch.from_numpy(s.astype(np.float64) @ x.cpu().double().numpy())
-            plans = [(f"groups={g}", ct.lell_plan(from_scipy(s), groups=g, device=dev))
-                     for g in (1, 4, 8, 16)]
+            plans = [(what, lp) for what, lp, _ in _lell_tiers(from_scipy(s), dev)]
             plans.append(("hyb", ct.lell_plan_hyb(from_scipy(s), device=dev)))
             for what, lp in plans:
                 tiers = [lp] if what != "hyb" else [lp.main, lp.hub]
@@ -1007,11 +1090,17 @@ def main() -> int:
                     worst[dt] = max(worst[dt], err)
                 y = lp.spmv(x)
                 torch.cuda.synchronize()
+                err = _relerr_or_zero(y, lp._spmv_reference(x))
+                _check(f"{name} {dt.__name__} {what} spmv vs twin", err, tol)
+                worst[dt] = max(worst[dt], err)
+                if what in ("two trailing padding layers", "61 slot rows"):
+                    continue  # cut or padded by hand: the twin is the reference
                 _check(f"{name} {dt.__name__} {what} spmv vs scipy f64", _relerr(y, y_sp), tol)
                 n_checks += 1
     print(f"[small-lell] {n_checks} products ({len(_lell_cases())} matrices x f32/f64 x "
-          f"lell_plan groups 1/4/8/16 and lell_plan_hyb; the 500x70000 one past the "
-          f"reference's 4096*B cap): kernel vs twin worst {worst[np.float32]:.2e} f32, "
+          f"lell_plan groups {'/'.join(map(str, LELL_GROUPS))}, one layer, trailing padding "
+          f"layers, 61 slot rows and lell_plan_hyb; the 500x70000 one past the reference's "
+          f"4096*B cap): lane sums and spmv vs twin worst {worst[np.float32]:.2e} f32, "
           f"{worst[np.float64]:.2e} f64; spmv vs scipy f64 within {F32_TOL:.0e} / "
           f"{F64_TOL:.0e}", flush=True)
 
@@ -1390,8 +1479,9 @@ def main() -> int:
     torch.cuda.synchronize()
     launches_lell = _launched("lell_spmv", "HybLell.spmv")
     if launches_lell != 2:
-        raise AssertionError(f"HybLell.spmv launched the LELL kernel {launches_lell} times, "
-                             f"not 2 (grouped and hub tiers)")
+        raise AssertionError(f"HybLell.spmv launched the LELL kernels {launches_lell} times, "
+                             f"not 2 (the grouped tier's rows, then the hub tier and the "
+                             f"remainder)")
     yl_twin = hyb._spmv_reference(xp)
     err_twin = _relerr(yl, yl_twin)
     _check("1M HybLell.spmv kernel vs twin", err_twin, F32_TOL)
@@ -1734,8 +1824,14 @@ def main() -> int:
             del X_in, X64
             f16_out = (h, xdt) == (f16, f16)  # the lane sums rounded, then a remainder too
             half_path("lell-half", f"lell_plan_hyb(A_{ht}).spmv(x {xt})", "lell_spmv",
-                      lambda: hh.spmv(x_in), lambda: hh._spmv_reference(x_in), x64, expect=2,
-                      twin_tol=1e-3 if f16_out else None, sp_tol=1e-3 if f16_out else BF16_TOL)
+                      lambda: hh.spmv(x_in), lambda: hh._spmv_reference(x_in), x64,
+                      expect=3 if f16_out else 2, twin_tol=1e-3 if f16_out else None,
+                      sp_tol=1e-3 if f16_out else BF16_TOL)
+            if f16_out:  # summed in f32 and rounded once: one ulp of the f32 sums
+                ulps = _check_half_out(f"1M lell {ht}/{xt} spmv", hh.spmv(x_in),
+                                       _widened_lell(hh.main, hh.hub, x_in))
+                print(f"[lell-half] spmv {ht}/{xt}: f16 y {ulps:.2f} ulp of the f32-summed "
+                      f"twin (bound 1)", flush=True)
             worst = 0.0  # each tier's lane sums: one rounding of the twin's f32 sums
             for tier, g in ((hh.main, hh.main.groups), (hh.hub, 1)):
                 y_t = lell_lane_sums(tier.vals, tier.idx, x_in, g)
@@ -1843,7 +1939,8 @@ def main() -> int:
              lambda: poh_spmm(pplan, Xp), lambda: poh_spmm_reference(pplan, Xp), pl_sp, Xp,
              _pack_bytes(pplan.vals, 8) + pplan.ntiles * 4 + 2 * PL_N * K * 4,
              2 * pl_sp.nnz * K, launches_pohmm, abs_pohmm),
-            ("lell_spmv f32 [HybLell.spmv: 2 launches + segment sum + remainder]", "lell_spmv",
+            ("lell_spmv f32 [HybLell.spmv: 2 launches, the hub tier and remainder by atomics]",
+             "lell_spmv",
              f"{LELL_PY}:377 (B18; also :365)", lambda: hyb.spmv(xp),
              lambda: hyb._spmv_reference(xp), pl_sp, xp,
              _pack_bytes(hyb.main.vals, 4) + hyb.main.rem_data.numel() * 12
@@ -1952,8 +2049,8 @@ def main() -> int:
                  lambda ph=ph, X=X_in: poh_spmm_reference(ph, X), pl_sp, X_in,
                  _pack_bytes(ph.vals, 8) + ph.ntiles * 4 + PL_N * K * (xb + 4),
                  2 * pl_sp.nnz * K, *runs[f"spmm(poh_{ht}, X {xt}), k={K}"], h),
-                (f"lell_spmv {ht} [lell_plan_hyb(A_{ht}).spmv(x {xt}): 2 launches + segment "
-                 f"sum + remainder]", "lell_spmv", f"{LELL_PY}:377 (B18; also :365)",
+                (f"lell_spmv {ht} [lell_plan_hyb(A_{ht}).spmv(x {xt}): {2 + (y_out == 2)} "
+                 f"launches]", "lell_spmv", f"{LELL_PY}:377 (B18; also :365)",
                  lambda hh=hh, x=x_in: hh.spmv(x), lambda hh=hh, x=x_in: hh._spmv_reference(x),
                  pl_sp, x_in,
                  _pack_bytes(hh.main.vals, 4) + hh.main.rem_data.numel() * 10

@@ -2,7 +2,7 @@
 
 Kernels: BDIA SpMV, DIA SpMV and SpMM, the wide-k block SpMM kernels
 (slab in both frames, BDIA ring, ELL-packed BSR), and the unstructured-matrix
-kernels (POH SpMV and SpMM, LELL group sums).
+kernels (POH SpMV and SpMM, LELL group sums and the whole LELL product).
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -40,7 +40,8 @@ from cask_tpu_torch.ops.kernels.bdia_slab_kernels import (bdia_spmm_slab,
 from cask_tpu_torch.ops.kernels.bsr_kernels import bsr_spmm, bsr_spmm_reference
 from cask_tpu_torch.ops.kernels.dia_kernels import (dia_spmm, dia_spmm_reference, dia_spmv,
                                                     dia_spmv_reference)
-from cask_tpu_torch.ops.kernels.lell_kernels import lell_lane_sums, lell_lane_sums_reference
+from cask_tpu_torch.ops.kernels.lell_kernels import (lell_lane_sums, lell_lane_sums_reference,
+                                                     lell_spmv, lell_spmv_reference)
 from cask_tpu_torch.ops.kernels.poh_kernels import (poh_spmm, poh_spmm_reference, poh_spmv,
                                                     poh_spmv_reference)
 from cask_tpu_torch.ops.poh import poh_to_coo
@@ -892,11 +893,19 @@ def test_lell_hyb_launches_both_tiers(cuda, name, dtype):
     h = ct.lell_plan_hyb(a, device=cuda)
     x = torch.from_numpy(np.random.default_rng(45).standard_normal(a.shape[1])
                          .astype(dtype)).to(cuda)
-    before = lell_lane_sums.launches
+    before = lell_spmv.launches
     y = h.spmv(x)
-    assert lell_lane_sums.launches - before == (2 if h.hub.vals.shape[1] else 1)
+    # the grouped tier's rows, then one launch adding the hub tier and the remainder
+    assert lell_spmv.launches - before == 1 + _lell_adds(h)
     ref = to_scipy(a).astype(np.float64) @ x.cpu().double().numpy()
     assert _relerr(y, torch.from_numpy(ref)) <= TOL[dtype]
+    assert _relerr(y, h._spmv_reference(x)) <= TOL[dtype]
+
+
+def _lell_adds(h) -> int:
+    """1 when ``HybLell.spmv`` adds a hub tier or a remainder into y (its
+    second launch), else 0."""
+    return int(h.hub.vals.shape[1] > 0 or h.main.rem_data.shape[0] > 0)
 
 
 def test_lell_kernel_raises_on_what_it_does_not_take(cuda):
@@ -1259,14 +1268,16 @@ def test_half_lell_hyb_launches_both_tiers(cuda, name, vdt, xdt):
     assert h.main.vals.dtype == vdt and h.hub.vals.dtype == vdt
     x = torch.from_numpy(np.random.default_rng(64).standard_normal(a.shape[1])
                          .astype(np.float32)).to(cuda).to(xdt)
-    before = lell_lane_sums.launches
+    before = lell_spmv.launches
     y = h.spmv(x)
     torch.cuda.synchronize()
-    assert lell_lane_sums.launches - before == (2 if h.hub.vals.shape[1] else 1)
+    adds = _lell_adds(h)  # an f16 y with a hub tier or remainder: summed in f32, then rounded
+    assert lell_spmv.launches - before == 1 + adds + (adds and y.dtype == F16)
     assert h.main.vals.shape == h32.main.vals.shape
     ref = _rounded_scipy(to_scipy(a), vdt) @ x.cpu().double().numpy()
-    tol = 1e-3 if y.dtype == F16 else HALF_TOL  # f16 y: lane sums and remainder, each rounded
+    tol = 1e-3 if y.dtype == F16 else HALF_TOL  # f16 y: the twin rounds it up to three times
     assert _relerr(y, torch.from_numpy(ref)) <= tol
+    _check_half(y, _lell_twin(h.main, h.hub, x), _spmv_out(vdt, xdt))
 
 
 @pytest.mark.parametrize("name", ["fem4", "fem2", "fem3_br3", "fem16", "rect4x2", "ragged"])
@@ -1304,7 +1315,7 @@ def test_half_entry_points_launch_their_kernels(cuda):
             x = torch.from_numpy(rng.standard_normal(a.shape[1]).astype(np.float32)).to(cuda)
             x = x.to(xdt)
             counts = (poh_spmv.launches, poh_spmm.launches, bsr_spmm.launches,
-                      lell_lane_sums.launches)
+                      lell_spmv.launches)
             assert ct.spmv(p, x).dtype == F32
             assert ct.spmm(p, torch.stack([x, x], 1)).dtype == F32
             Xb = torch.ones((b.shape[1], 16), dtype=xdt, device=cuda)
@@ -1315,7 +1326,8 @@ def test_half_entry_points_launch_their_kernels(cuda):
             assert Yb.dtype == h and yl.dtype == (F16 if (h, xdt) == (F16, F16) else F32)
             assert (poh_spmv.launches - counts[0], poh_spmm.launches - counts[1],
                     bsr_spmm.launches - counts[2]) == (1, 1, 1)
-            assert lell_lane_sums.launches - counts[3] == (2 if hyb.hub.vals.shape[1] else 1)
+            adds = _lell_adds(hyb)
+            assert lell_spmv.launches - counts[3] == 1 + adds + (adds and yl.dtype == F16)
 
 
 def test_cg_over_a_bf16_poh_plan_on_card_matches_cpu(cuda):
@@ -1335,3 +1347,144 @@ def test_cg_over_a_bf16_poh_plan_on_card_matches_cpu(cuda):
     assert res.converged and ref.converged and abs(res.iterations - ref.iterations) <= 2
     sb = _rounded_scipy(to_scipy(spd), BF16)
     assert _relerr(torch.from_numpy(sb @ res.x.cpu().double().numpy()), b) <= 2e-6
+
+
+# -- the redesigned POH SpMV and LELL kernels (B16, B18): edge plans, every type --
+
+F64 = torch.float64
+ALL_COMBOS = [(F32, F32), (F64, F64)] + HALF_COMBOS
+
+
+def _work(vdt, xdt):
+    """The twin's type that holds the kernels' sums: f64 for f64, else f32."""
+    return F64 if F64 in (vdt, xdt) else F32
+
+
+def _check_sums(y, twin_wide, vdt, xdt):
+    """A kernel output against the twin's sums in the working type: a half
+    output within one ulp, f32 within 1e-5 and f64 within 1e-12 normwise (an
+    all-zero twin matched exactly)."""
+    if y.dtype in (BF16, F16):
+        assert _half_close(y, twin_wide)
+    elif float(twin_wide.double().norm()) == 0.0:
+        assert float(y.double().norm()) == 0.0
+    else:
+        assert _relerr(y, twin_wide) <= (1e-12 if y.dtype == F64 else HALF_TOL)
+
+
+def _poh_one_row_per_panel():
+    # every live slot of a panel holds one row: rows 7 and 5000 of two panels
+    rng = np.random.default_rng(80)
+    rows = np.repeat([7, 5000], [3000, 2500])
+    cols = np.concatenate([rng.choice(9000, 3000, replace=False),
+                           rng.choice(9000, 2500, replace=False)])
+    return from_scipy(sp.csr_matrix((rng.standard_normal(5500), (rows, cols)),
+                                    shape=(8192, 9000)))
+
+
+POH_EDGES = {  # name -> CSR on the host: the redesigned SpMV kernel's edges
+    "one_row_per_panel": _poh_one_row_per_panel,
+    "cut_panels": _poh_hub_row,  # the hub row's panel in several SpMV pieces
+    "one_tile_per_panel": lambda: random_uniform(12000, 6000, density=5e-5, seed=81),
+}
+
+
+@pytest.mark.parametrize("name", list(POH_EDGES))
+@pytest.mark.parametrize("vdt,xdt", ALL_COMBOS)
+def test_poh_spmv_edge_plans_match_twin(cuda, name, vdt, xdt):
+    a = POH_EDGES[name]().astype(np.float64 if vdt == F64 else np.float32)
+    p = ct.poh_plan(a, device=cuda).astype(vdt)
+    heavy = p.heavy_row.cpu().numpy()
+    if name == "one_row_per_panel":
+        assert heavy.tolist() == [[7, -1], [5000 - p.row_panel, -1]]
+    elif name == "cut_panels":
+        assert p.spmv_pieces.shape[0] > p.n_panels
+    else:
+        assert p.ntiles == p.n_panels
+    x = torch.from_numpy(np.random.default_rng(82).standard_normal(a.shape[1])).to(cuda).to(xdt)
+    before = poh_spmv.launches
+    y = ct.spmv(p, x)
+    torch.cuda.synchronize()
+    assert poh_spmv.launches == before + 1 and y.dtype == (F64 if vdt == F64 else F32)
+    w = _work(vdt, xdt)
+    _check_sums(y, poh_spmv_reference(p.astype(w), x.to(w)), vdt, xdt)
+
+
+def _lell_tier(case, a):
+    """(tier, groups) of a LELL edge: a grouped plan of ``a``, changed as
+    ``case`` says."""
+    if case.startswith("groups_"):
+        g = int(case[7:])
+        return ct.lell_plan(a, groups=g, device="cuda"), g
+    if case == "one_layer":
+        p = ct.lell_plan(a, max_layers=1, device="cuda")
+        assert p.layers == 1 and p.rem_data.shape[0] > 0
+        return p, p.groups
+    p = ct.lell_plan(a, device="cuda")
+    if case == "trailing_padding_layers":  # two more layers, all padding
+        pad = torch.zeros((2,) + tuple(p.vals.shape[1:]), dtype=p.vals.dtype, device="cuda")
+        return dataclasses.replace(p, vals=torch.cat([p.vals, pad]),
+                                   idx=torch.cat([p.idx, pad.int()])), p.groups
+    # s_pad not a multiple of the eight slot rows a block takes, rows past it empty
+    s = 61
+    keep = p.rem_row < s * p.groups
+    return dataclasses.replace(p, vals=p.vals[:, :s].contiguous(), idx=p.idx[:, :s].contiguous(),
+                               rem_data=p.rem_data[keep], rem_row=p.rem_row[keep],
+                               rem_col=p.rem_col[keep]), p.groups
+
+
+LELL_EDGES = ["groups_1", "groups_2", "groups_4", "groups_8", "groups_16", "groups_32",
+              "groups_64", "groups_128", "one_layer", "trailing_padding_layers", "ragged_s_pad"]
+
+
+@pytest.mark.parametrize("case", LELL_EDGES)
+@pytest.mark.parametrize("vdt,xdt", ALL_COMBOS)
+def test_lell_edge_tiers_match_twin(cuda, case, vdt, xdt):
+    a = power_law(3000, avg_degree=10, seed=6).astype(np.float32)
+    tier, g = _lell_tier(case, a)
+    if case == "ragged_s_pad":
+        assert tier.s_pad % 8 and tier.s_pad * g < a.shape[0]
+    vals = tier.vals.to(vdt)
+    x = torch.from_numpy(np.random.default_rng(83).standard_normal(a.shape[1])).to(cuda).to(xdt)
+    w = _work(vdt, xdt)
+    _check_sums(lell_lane_sums(vals, tier.idx, x, g),
+                lell_lane_sums_reference(vals.to(w), tier.idx, x.to(w), g), vdt, xdt)
+    main = dataclasses.replace(tier, vals=vals, rem_data=tier.rem_data.to(vdt))
+    before = lell_spmv.launches
+    y = main.spmv(x)
+    torch.cuda.synchronize()
+    adds = int(main.rem_data.shape[0] > 0)
+    assert y.shape == (a.shape[0],)
+    assert lell_spmv.launches - before == 1 + adds + (adds and y.dtype == F16)
+    _check_sums(y, _lell_twin(main, None, x), vdt, xdt)
+
+
+def _lell_twin(main, hub, x):
+    """The LELL product's twin with every value and x widened to the
+    kernels' working type: the sums a kernel's output rounds once."""
+    w = _work(main.vals.dtype, x.dtype)
+    main = dataclasses.replace(main, vals=main.vals.to(w), rem_data=main.rem_data.to(w))
+    if hub is not None:
+        hub = dataclasses.replace(hub, vals=hub.vals.to(w))
+    return lell_spmv_reference(main, hub, x.to(w))
+
+
+@pytest.mark.parametrize("vdt,xdt", ALL_COMBOS)
+def test_lell_hub_rows_cross_block_boundaries(cuda, vdt, xdt):
+    # row 5 with 15,000 entries owns some 30 hub slot rows, and other hub rows
+    # start and end inside a block's eight
+    a = _poh_hub_row().astype(np.float32)
+    s = to_scipy(a).tolil()
+    for r in (40, 41, 42):
+        s[r, :3000] = np.random.default_rng(r).standard_normal(3000)
+    a = from_scipy(s.tocsr())
+    h = ct.lell_plan_hyb(a.to(cuda).astype(vdt))
+    rows = h.hub.slot2row.cpu().numpy()
+    runs = np.flatnonzero(np.diff(rows)) + 1  # where a run of equal rows starts
+    assert np.diff(np.concatenate([[0], runs])).max() > 8 and (runs % 8).any()
+    x = torch.from_numpy(np.random.default_rng(84).standard_normal(a.shape[1])).to(cuda).to(xdt)
+    before = lell_spmv.launches
+    y = h.spmv(x)
+    torch.cuda.synchronize()
+    assert lell_spmv.launches - before == 2 + (y.dtype == F16)
+    _check_sums(y, _lell_twin(h.main, h.hub, x), vdt, xdt)

@@ -19,7 +19,10 @@ import cask_tpu.formats.generate as jgen
 from cask_tpu.ops.pallas import lell_kernels as jlell
 import cask_tpu_torch.formats.convert as tconv
 from cask_tpu_torch import interop
-from cask_tpu_torch.ops.kernels.lell_kernels import lell_lane_sums, lell_lane_sums_reference
+import dataclasses
+
+from cask_tpu_torch.ops.kernels.lell_kernels import (lell_lane_sums, lell_lane_sums_reference,
+                                                     lell_spmv, lell_spmv_reference)
 from cask_tpu_torch.ops.lell import lell_plan, lell_plan_hyb
 
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
@@ -165,6 +168,64 @@ class TestProducts:
         assert out.shape == (1, 2)
         assert float(out[0, 0]) == float(x[:64].sum())
         assert float(out[0, 1]) == float(x[64:100].sum())
+
+
+class TestEdgeTiers:
+    """The tiers the CUDA kernels' edges are made of, through the entry on the
+    CPU (the plain twin) against the reference and scipy."""
+
+    @pytest.mark.parametrize("groups", [2, 32, 64, 128])
+    def test_every_group_count_matches_the_reference(self, mats, groups):
+        s = mats["power_law"]
+        x = np.random.default_rng(5).standard_normal(s.shape[1])
+        j = jlell.lell_plan(jconv.from_scipy(s), groups=groups)
+        t = lell_plan(tconv.from_scipy(s), groups=groups, device=CPU)
+        _same_lell(j, t)
+        y = t.spmv(torch.from_numpy(x))
+        assert y.shape == (s.shape[0],)
+        assert _relerr(y, np.asarray(j.spmv(jnp.asarray(x)))[: s.shape[0]]) <= 1e-12
+        assert _relerr(y, s @ x) <= 1e-12
+
+    def test_one_layer_spills_the_rest_to_the_remainder(self, mats):
+        s = mats["power_law"]
+        x = np.random.default_rng(6).standard_normal(s.shape[1])
+        t = lell_plan(tconv.from_scipy(s), max_layers=1, device=CPU)
+        assert t.layers == 1 and t.rem_data.shape[0] > 0
+        _same_lell(jlell.lell_plan(jconv.from_scipy(s), max_layers=1), t)
+        assert _relerr(t.spmv(torch.from_numpy(x)), s @ x) <= 1e-12
+
+    def test_trailing_padding_layers_change_nothing(self, mats):
+        s = mats["uniform"]
+        x = torch.from_numpy(np.random.default_rng(7).standard_normal(s.shape[1]))
+        t = lell_plan(tconv.from_scipy(s), device=CPU)
+        pad = torch.zeros((2,) + tuple(t.vals.shape[1:]), dtype=t.vals.dtype)
+        padded = dataclasses.replace(t, vals=torch.cat([t.vals, pad]),
+                                     idx=torch.cat([t.idx, pad.int()]))
+        assert padded.layers == t.layers + 2
+        torch.testing.assert_close(padded.spmv(x), t.spmv(x), rtol=0, atol=0)
+
+    def test_a_cut_tier_leaves_the_rows_past_it_zero(self, mats):
+        # 61 slot rows: not a multiple of the eight a kernel block takes
+        s = mats["uniform"]
+        x = np.random.default_rng(8).standard_normal(s.shape[1])
+        t = lell_plan(tconv.from_scipy(s), device=CPU)
+        keep = t.rem_row < 61 * t.groups
+        cut = dataclasses.replace(t, vals=t.vals[:, :61], idx=t.idx[:, :61],
+                                  rem_data=t.rem_data[keep], rem_row=t.rem_row[keep],
+                                  rem_col=t.rem_col[keep])
+        y = cut.spmv(torch.from_numpy(x)).numpy()
+        rows = 61 * t.groups
+        assert y.shape == (s.shape[0],) and not y[rows:].any()
+        assert _relerr(y[:rows], (s @ x)[:rows]) <= 1e-12
+
+    def test_entry_without_a_hub_tier_is_the_grouped_product(self, mats):
+        s = mats["rectangle"]
+        x = torch.from_numpy(np.random.default_rng(9).standard_normal(s.shape[1]))
+        h = lell_plan_hyb(tconv.from_scipy(s), device=CPU)
+        torch.testing.assert_close(lell_spmv(h.main, None, x), h.main.spmv(x), rtol=0, atol=0)
+        torch.testing.assert_close(lell_spmv(h.main, h.hub, x), h.spmv(x), rtol=0, atol=0)
+        torch.testing.assert_close(lell_spmv_reference(h.main, h.hub, x), h.spmv(x), rtol=0,
+                                   atol=0)
 
 
 def test_port_runs_a_plan_wider_than_the_reference_cap():

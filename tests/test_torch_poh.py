@@ -29,8 +29,9 @@ import cask_tpu_torch as ct
 import cask_tpu_torch.formats.convert as tconv
 from cask_tpu_torch import interop
 from cask_tpu_torch.formats.generate import _diag_shift
-from cask_tpu_torch.ops.kernels.poh_kernels import (poh_spmm, poh_spmm_reference, poh_spmv,
-                                                    spmm_pieces)
+from cask_tpu_torch.ops.kernels.poh_kernels import (heavy_rows, poh_spmm, poh_spmm_reference,
+                                                    poh_spmv, poh_spmv_reference, spmm_pieces,
+                                                    spmv_pieces)
 from cask_tpu_torch.ops.poh import poh_plan, poh_to_coo, poh_transpose_plan
 from cask_tpu_torch.utils.debug import check_poh
 
@@ -235,6 +236,135 @@ class TestSpmmPieces:
             rows = slice(panel * R, (panel + 1) * R)
             Y[rows] = Y[rows] + block if cut else block
         assert _relerr(Y[: s.shape[0]].numpy(), s @ X.numpy()) <= 1e-12
+
+
+def _one_row_per_panel():
+    # every live slot of a panel holds one row: rows 7 and 5000 of two panels
+    rng = np.random.default_rng(80)
+    rows = np.repeat([7, 5000], [3000, 2500])
+    cols = np.concatenate([rng.choice(9000, 3000, replace=False),
+                           rng.choice(9000, 2500, replace=False)])
+    return sp.csr_matrix((rng.standard_normal(5500), (rows, cols)), shape=(8192, 9000))
+
+
+def _hub_row():
+    # 4 entries a row and row 5 with 15,000: its panel holds most of the tiles
+    s = jconv.to_scipy(jgen.random_uniform(20000, 20000, density=2e-4, seed=47))
+    rng = np.random.default_rng(48)
+    return (s + sp.csr_matrix((rng.standard_normal(15000), (np.full(15000, 5),
+                                                            rng.choice(20000, 15000,
+                                                                       replace=False))),
+                              shape=s.shape)).tocsr()
+
+
+SPMV_EDGES = {  # name -> scipy f64 CSR: the SpMV kernel's edge plans
+    "one_row_per_panel": _one_row_per_panel,
+    "cut_panels": _hub_row,
+    "one_tile_per_panel": lambda: jconv.to_scipy(jgen.random_uniform(12000, 6000, density=5e-5,
+                                                                     seed=81)),
+}
+
+
+def _heavy_numpy(p):
+    """Per panel: (the live-slot count of each panel-local row, numpy)."""
+    v = p.vals.float().numpy().reshape(p.ntiles, -1)
+    r = p.rloc.numpy().reshape(p.ntiles, -1)
+    counts = np.zeros((p.n_panels, p.row_panel), np.int64)
+    t, j = np.nonzero(v)
+    np.add.at(counts, (p.panel.numpy()[t], r[t, j]), 1)
+    return counts
+
+
+def _check_heavy(p):
+    counts = _heavy_numpy(p)
+    h = p.heavy_row.numpy()
+    assert p.heavy_row.dtype == torch.int32 and h.shape == (p.n_panels, 2)
+    for i in range(p.n_panels):
+        top = np.sort(counts[i])[::-1][:2]  # the two largest counts (ties: any rows)
+        for k in range(2):
+            if top[k] == 0:
+                assert h[i, k] == -1
+            else:
+                assert counts[i, h[i, k]] == top[k]
+        if (h[i] >= 0).all():
+            assert h[i, 0] != h[i, 1]
+
+
+class TestSpmvTables:
+    """The SpMV kernel's tables, built with the plan: its work pieces and
+    each panel's heaviest row."""
+
+    @pytest.mark.parametrize("name", list(SPMV_EDGES) + list(MATRICES))
+    def test_tables_equal_a_numpy_count(self, mats, name):
+        s = SPMV_EDGES[name]() if name in SPMV_EDGES else mats[name]
+        p = poh_plan(tconv.from_scipy(s), device=CPU)
+        _check_heavy(p)
+        cap = max(-(-p.ntiles // (16 * 132)), 1)
+        _check_pieces(p.panel_ptr.numpy(), p.spmv_pieces, cap)
+        torch.testing.assert_close(p.spmv_pieces, spmm_pieces(p.panel_ptr, cap), rtol=0,
+                                   atol=0)
+        if name == "one_row_per_panel":
+            assert p.heavy_row.tolist() == [[7, -1], [5000 - p.row_panel, -1]]
+        elif name == "one_tile_per_panel":
+            assert p.ntiles == p.n_panels and p.spmv_pieces.shape[0] == p.n_panels
+        elif name == "all_zero":
+            assert (p.heavy_row == -1).all()
+
+    def test_a_big_panel_is_cut_for_spmv(self):
+        # 3000 tiles: a cap of ceil(3000 / (16 · 132)) = 2 tiles cuts both big panels
+        ptr = torch.tensor([0, 1000, 1001, 3000], dtype=torch.int32)
+        pieces = spmv_pieces(ptr)
+        _check_pieces(ptr.numpy(), pieces, 2)
+        assert np.bincount(pieces.numpy()[:, 0]).tolist() == [500, 1, 1000]
+
+    def test_heavy_rows_ignore_padding_and_indices_out_of_range(self):
+        vals = torch.zeros((2, 1, 128))
+        rloc = torch.zeros((2, 1, 128), dtype=torch.int32)
+        vals[0, 0, :6] = 1.0
+        rloc[0, 0, :6] = torch.tensor([3, 3, 9, 4096, -1, 3], dtype=torch.int32)
+        rloc[1, 0, :] = 7  # padding (value 0): does not count
+        out = heavy_rows(vals, rloc, torch.tensor([0, 1], dtype=torch.int32), 2, 4096)
+        assert out.tolist() == [[3, 9], [-1, -1]]
+
+    @pytest.mark.parametrize("name", list(SPMV_EDGES))
+    def test_tables_survive_to_astype_replace_and_transpose(self, name):
+        s = SPMV_EDGES[name]()
+        p = poh_plan(tconv.from_scipy(s), device=CPU)
+        for q in (p.to(CPU), p.astype(torch.bfloat16), p.astype(np.float64),
+                  dataclasses.replace(p, vals=2 * p.vals)):
+            torch.testing.assert_close(q.spmv_pieces, p.spmv_pieces, rtol=0, atol=0)
+            torch.testing.assert_close(q.heavy_row, p.heavy_row, rtol=0, atol=0)
+        t = poh_transpose_plan(p)
+        fresh = poh_plan(tconv.from_scipy(s.T.tocsr()), device=CPU)
+        torch.testing.assert_close(t.spmv_pieces, fresh.spmv_pieces, rtol=0, atol=0)
+        _check_heavy(t)
+        assert (t.heavy_row >= 0).sum() == (fresh.heavy_row >= 0).sum()
+
+    @pytest.mark.parametrize("name", list(SPMV_EDGES))
+    def test_the_kernels_schedule_reassembles_the_product(self, name):
+        # the SpMV kernel's schedule in plain PyTorch: each piece's tiles, the
+        # heavy rows' slots summed apart from the rest, added into a zeroed y
+        s = SPMV_EDGES[name]()
+        p = poh_plan(tconv.from_scipy(s), device=CPU)
+        x = torch.from_numpy(np.random.default_rng(13).standard_normal(s.shape[1]))
+        R = p.row_panel
+        y = torch.zeros(p.n_panels * R, dtype=x.dtype)
+        heavy = p.heavy_row.tolist()
+        for panel, lo, hi, _ in p.spmv_pieces.tolist():
+            part = dataclasses.replace(p, vals=p.vals[lo:hi], cloc=p.cloc[lo:hi],
+                                       rloc=p.rloc[lo:hi], wlo=p.wlo[lo:hi], whi=p.whi[lo:hi],
+                                       panel=p.panel[lo:hi] * 0, first=p.first[lo:hi],
+                                       last=p.last[lo:hi], shape=(R, s.shape[1]))
+            on_heavy = torch.zeros_like(part.vals, dtype=torch.bool)
+            for hv in heavy[panel]:
+                if hv >= 0:
+                    on = (part.rloc == hv) & (part.vals != 0)
+                    y[panel * R + hv] += poh_spmv_reference(
+                        dataclasses.replace(part, vals=part.vals * on), x)[hv]
+                    on_heavy |= on
+            rest = poh_spmv_reference(dataclasses.replace(part, vals=part.vals * ~on_heavy), x)
+            y[panel * R: (panel + 1) * R] += rest
+        assert _relerr(y[: s.shape[0]].numpy(), s @ x.numpy()) <= 1e-12
 
 
 class TestProducts:
