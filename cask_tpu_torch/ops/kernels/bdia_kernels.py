@@ -15,7 +15,9 @@ relayout, so the solver layout is the natural one.
 dense ``X (n, k)``: the kernel of ``csrc/bdia_spmm.cu`` on CUDA tensors,
 :func:`bdia_spmm_ring_reference` on CPU tensors.  It replaces
 ``bdia_kernels.py:bdia_spmm_pallas_ring`` (B4), whose 4-bank VMEM ring of
-component strips has no counterpart: Hopper reads natural-order X rows.
+component strips has no counterpart: Hopper reads natural-order X rows,
+each once per warp's block rows and chunk of consecutive block offsets,
+into a register window.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Take apart what sets the time of the POH SpMM and SpMV, LELL and slab SpMM
-kernels.
+"""Take apart what sets the time of the POH SpMM and SpMV, LELL, slab, DIA
+and BDIA ring SpMM kernels.
 
-    python3 -m cask_tpu_torch.tune.kernel_probe [--slab | --poh-spmv | --lell | --types
-                                                 | --sass CHECKOUT]
+    python3 -m cask_tpu_torch.tune.kernel_probe [--slab | --poh-spmv | --lell | --dia-spmm
+                                                 | --ring | --types | --sass CHECKOUT]
     env PYTHONPATH=<another checkout> python3 <this checkout>/cask_tpu_torch/tune/kernel_probe.py
 
 The second form times another checkout's kernels with this script (it uses
@@ -67,6 +67,24 @@ indices, then x entries loaded before any use; for the redesigned one, the
 register bound lifted or moved (128, 48 registers), other numbers of layers
 a thread loads at once, and no x gathers.  Each variant's build prints its
 registers and spill bytes.
+
+``--dia-spmm`` takes the DIA SpMM kernel (B12-B15) apart, f32: the entry
+``dia_spmm(p, X)`` on the FEM matrix's scalar-DIA plan (29 diagonals in
+three runs of consecutive offsets) at k = 128 and 32 and on
+``stencil_2d(1024)``'s plan (5 diagonals) at k = 32 and 128, beside the
+cuSPARSE product of each, and through variants of ``csrc/dia_spmm.cu``
+(the wrapper pointed at each): with X taken as 1 (the value loads alone),
+with the values taken as 1 (the X loads alone), without the stores; for
+the windowed kernel also at most 4 diagonals a chunk, 4 rows a thread and
+other register bounds.  ``--ring`` does the same for the BDIA ring SpMM
+(B4) on the FEM matrix's BDIA plan at k = 128: without value loads,
+without X loads, the pair loops unrolled over the plan's 5 × 4 pairs, the
+values of a pair loaded ahead of its X row, both; for the windowed kernel
+chunks of 4 block offsets, fewer and more block rows a warp and no
+register bound.  Each build names the registers and spill bytes of the
+f32 kernels timed.  Both fit the source from before the window (``env
+PYTHONPATH=<parent checkout> python3 cask_tpu_torch/tune/kernel_probe.py
+--dia-spmm --ring``); a variant that does not fit a source is skipped.
 
 ``--types`` times every kernel at its headline size in each value type the
 checkout's kernels take, f32 and f64 first, then bf16 and f16 with their
@@ -245,6 +263,83 @@ LELL_VARIANTS = {
 }
 
 
+# text edits of csrc/dia_spmm.cu: the kernel that loads per row and diagonal
+# (the first of each pair) and the windowed one (the second)
+_DIA_NO_X = [[("cask::load_vec<X, VEC>(Xm + j * k + static_cast<int64_t>(c) * VEC, xv);",
+               "for (int e = 0; e < VEC; ++e) xv[e] = A(1);")],
+             [("cask::load_vec<X, VEC>(xc + j * k, xw[w]);",
+               "for (int e = 0; e < VEC; ++e) xw[w][e] = A(1);")]]
+_DIA_NO_VALS = [[("const A a = A(cask::widen(__ldg(v + static_cast<int64_t>(d) * m_pad)));",
+                  "const A a = A(1);")],
+                [("cask::load_span_shared<V, kRows>(vd + dd * kTile, v);",
+                  "for (int q = 0; q < kRows; ++q) v[q] = A(1);")]]
+# the stores dropped, every sum kept live through a test of their total
+_DIA_NO_STORE = [[("cask::store_vec<O, VEC>(Y + i * k + static_cast<int64_t>(c) * VEC, acc);",
+                   "A s_ = A(0);\n    for (int e = 0; e < VEC; ++e) s_ += acc[e];\n"
+                   "    if (s_ == A(-1234567)) Y[i] = O(s_);")],
+                 [("cask::store_vec<O, VEC>(Y + (i0 + q) * k + static_cast<int64_t>(c) * VEC, "
+                   "acc[q]);", "A s_ = A(0);\n          for (int e = 0; e < VEC; ++e) s_ += acc[q][e];"
+                   "\n          if (s_ == A(-1234567)) Y[i0 + q] = O(s_);")]]
+_BOUNDS2 = "__launch_bounds__(kThreads, 2)"
+DIA_VARIANTS = {
+    "as built": [],
+    "values only (X taken as 1)": _DIA_NO_X,
+    "X loads only (values taken as 1)": _DIA_NO_VALS,
+    "no stores": _DIA_NO_STORE,
+    "chunks of at most 4 diagonals": [[("return sizeof(A) == 8 ? 4 : 8;",
+                                        "return sizeof(A) == 8 ? 2 : 4;")]],
+    "4 rows a thread": [[("constexpr int kRows = 8;", "constexpr int kRows = 4;")]],
+    "no register bound (one block an SM)": [[(_BOUNDS2, "__launch_bounds__(kThreads)")]],
+    "at most 80 registers (three blocks an SM)": [[(_BOUNDS2, "__launch_bounds__(kThreads, 3)")]],
+}
+
+# text edits of csrc/bdia_spmm.cu: the kernel that walks the pairs one X row
+# at a time (first) and the windowed one (second)
+_RING_OLD_LOOPS = ("    for (int dp = 0; dp < ndiag; ++dp) {\n", "      for (int c = 0; c < bc; ++c) {\n")
+_RING_UNROLLED = [(_RING_OLD_LOOPS[0], "#pragma unroll\n    for (int dp = 0; dp < 5; ++dp) {\n"),
+                  (_RING_OLD_LOOPS[1], "#pragma unroll\n      for (int c = 0; c < 4; ++c) {\n")]
+_RING_HOISTED = [("""        A xv[VEC];
+        cask::load_vec<X, VEC>(Xm + col * k + static_cast<int64_t>(cv) * VEC, xv);
+        const V* vj = v + static_cast<int64_t>(dp * bc + c) * tile;
+#pragma unroll
+        for (int q = 0; q < RB; ++q) {
+          if (r0 + q < br) {
+            const A a = A(cask::widen(__ldg(vj + q * r_stride)));""",
+                  """        const V* vj = v + static_cast<int64_t>(dp * bc + c) * tile;
+        A av[RB];
+#pragma unroll
+        for (int q = 0; q < RB; ++q)
+          av[q] = r0 + q < br ? A(cask::widen(__ldg(vj + q * r_stride))) : A(0);
+        A xv[VEC];
+        cask::load_vec<X, VEC>(Xm + col * k + static_cast<int64_t>(cv) * VEC, xv);
+#pragma unroll
+        for (int q = 0; q < RB; ++q) {
+          if (r0 + q < br) {
+            const A a = av[q];""")]
+RING_VARIANTS = {
+    "as built": [],
+    "no value loads (values taken as 1)": [
+        [("const A a = A(cask::widen(__ldg(vj + q * r_stride)));", "const A a = A(1);")],
+        [("cask::load_span_shared<V, RB>(vj + r * npairs * kTile, v);",
+          "for (int q = 0; q < RB; ++q) v[q] = A(1);")]],
+    "no X loads (X taken as 1)": [
+        [("cask::load_vec<X, VEC>(Xm + col * k + static_cast<int64_t>(cv) * VEC, xv);",
+          "for (int e = 0; e < VEC; ++e) xv[e] = A(1);")],
+        [("cask::load_vec<X, VEC>(xc + col * k, xw[w]);",
+          "for (int e = 0; e < VEC; ++e) xw[w][e] = A(1);")]],
+    "dp and c loops unrolled over 5 x 4 pairs": [_RING_UNROLLED],
+    "values loaded ahead of the X row": [_RING_HOISTED],
+    "unrolled, values ahead of the X row": [_RING_UNROLLED + _RING_HOISTED],
+    "chunks of at most 4 block offsets": [[("constexpr int kChunk = 2;",
+                                            "constexpr int kChunk = 4;")]],
+    "half the register budget (fewer block rows a warp)": [[("* VEC * a > 84", "* VEC * a > 42")]],
+    "twice the budgets (more block rows a warp)": [[
+        ("r * BR > 16", "r * BR > 32"), ("* VEC * a > 84", "* VEC * a > 168"),
+        ("r * BR * static_cast<int>(sizeof(V)) > 64", "r * BR * static_cast<int>(sizeof(V)) > 128")]],
+    "no register bound (one block an SM)": [[(_BOUNDS2, "__launch_bounds__(kThreads)")]],
+}
+
+
 def _ms(fn) -> float:
     from cask_tpu_torch.tune.timing import time_cuda
 
@@ -288,9 +383,11 @@ SLAB_VARIANTS = {
 }
 
 
-def _build_variants(source: str, variants: dict) -> dict:
+def _build_variants(source: str, variants: dict, focus: str = None) -> dict:
     """{name: path of the built library} of the text-edited variants of
-    ``csrc/<source>.cu`` that fit it, all compiled at once."""
+    ``csrc/<source>.cu`` that fit it, all compiled at once; ``focus``: a
+    pattern of the kernels (mangled names) whose registers each build
+    names."""
     from cask_tpu_torch.ops.kernels import build
 
     src = (build.CSRC / f"{source}.cu").read_text()
@@ -312,7 +409,7 @@ def _build_variants(source: str, variants: dict) -> dict:
                 break
         else:
             print(f"[probe] variant '{name}' does not fit this source: skipped", flush=True)
-    return {name: _wait(so, proc, name) for name, (so, proc) in jobs.items()}
+    return {name: _wait(so, proc, name, focus) for name, (so, proc) in jobs.items()}
 
 
 def _nvcc(cu):
@@ -323,16 +420,30 @@ def _nvcc(cu):
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def _wait(so, proc, name):
+def _wait(so, proc, name, focus=None):
     log = proc.communicate()[0]
     if proc.returncode:
         raise RuntimeError(f"'{name}' failed to build:\n{log}")
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", log))
     if regs:
+        own = "" if focus is None else "; " + ", ".join(
+            f"{re.search(focus, f).group(0)} {r} registers, {sp} spill bytes"
+            for f, r, sp in _entries(log) if re.search(focus, f))
         print(f"[probe] built '{name}': {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
-              f"spill bytes {spills}", flush=True)
+              f"spill bytes {spills}{own}", flush=True)
     return so
+
+
+def _entries(log: str):
+    """(mangled kernel name, registers, spill bytes) of each entry function
+    in an ``nvcc -Xptxas -v`` log."""
+    out = []
+    for part in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", part)
+        spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", part))
+        out.append((part.split("'", 1)[0], int(regs.group(1)) if regs else 0, spills))
+    return out
 
 
 def _poh_variants():
@@ -607,6 +718,101 @@ def _lell_probe(dev, gen) -> None:
         lk._lib.cache_clear()
 
 
+def _with_variants(source: str, cached_lib, libs: dict, run) -> None:
+    """``run(variant name)`` for each built variant of ``csrc/<source>.cu``,
+    with the wrapper's library (``cached_lib``, an ``lru_cache``d loader)
+    pointed at it."""
+    from cask_tpu_torch.ops.kernels import build
+
+    load = build.load
+    try:
+        for vname, so in libs.items():
+            build.load = lambda name, so=so: ctypes.CDLL(str(so)) if name == source else load(name)
+            cached_lib.cache_clear()
+            run(vname)
+    finally:
+        build.load = load
+        cached_lib.cache_clear()
+
+
+def _runs(offsets) -> str:
+    """The plan's offsets as their runs of consecutive values."""
+    runs = []
+    for o in offsets:
+        if runs and o == runs[-1][1] + 1:
+            runs[-1][1] = o
+        else:
+            runs.append([o, o])
+    return " | ".join(f"{a}..{b}" if a != b else f"{a}" for a, b in runs)
+
+
+def _dia_spmm_probe(dev, gen) -> None:
+    """``--dia-spmm``: the DIA SpMM entry and its source variants on the FEM
+    matrix's scalar-DIA plan at k = 128 and 32 and the stencil's at 32 and
+    128, f32."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+    import cask_tpu_torch.ops.kernels.dia_kernels as dk
+    from cask_tpu_torch.formats.generate import fem_blocks, stencil_2d
+    from cask_tpu_torch.ops.bdia import bdia_scalar_dia
+
+    libs = _build_variants("dia_spmm", DIA_VARIANTS, focus=r"dia_spmm_kernelIfffLi4ELi(8|32)E")
+    fem = fem_blocks(FEM_NX, dof=4, dtype=np.float32, seed=0, return_bsr=True)
+    st = stencil_2d(1024, dtype=np.float32)
+    scalar = bdia_scalar_dia(ct.bdia_plan(fem, device=dev))
+    stencil = ct.dia_plan(st, device=dev)
+    for name, p in (("FEM scalar-DIA", scalar), ("stencil_2d(1024)", stencil)):
+        print(f"[probe] dia_spmm {name} plan: {p.shape[0]} rows, {p.ndiags} diagonals, runs "
+              f"{_runs(p.offsets)}", flush=True)
+    cases = [("FEM scalar-DIA k=128", scalar, fem, 128), ("FEM scalar-DIA k=32", scalar, fem, 32),
+             ("stencil k=32", stencil, st, 32), ("stencil k=128", stencil, st, 128)]
+    X = {k: torch.randn((scalar.shape[1], k), generator=gen, device=dev) for k in (32, 128)}
+    for label, _, a, k in cases:
+        S = _sparse_csr(a, dev)
+        print(f"[probe] dia_spmm {label}: cuSPARSE (torch.sparse_csr_tensor @ X) "
+              f"{_ms(lambda: S @ X[k]) * 1e3:.1f} us", flush=True)
+        del S
+
+    def run(vname):
+        for label, p, _, k in cases:
+            print(f"[probe] dia_spmm {label}, variant '{vname}': "
+                  f"{_ms(lambda: dk.dia_spmm(p, X[k])) * 1e3:.1f} us", flush=True)
+    _with_variants("dia_spmm", dk._lib, libs, run)
+
+
+def _ring_probe(dev, gen) -> None:
+    """``--ring``: the BDIA ring SpMM entry and its source variants on the
+    FEM matrix's BDIA plan at k = 128, f32."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+    import cask_tpu_torch.ops.kernels.bdia_kernels as bk
+    from cask_tpu_torch.formats.generate import fem_blocks
+
+    libs = _build_variants("bdia_spmm", RING_VARIANTS, focus=r"bdia_spmm_kernelIfffLi4ELi4E")
+    fem = fem_blocks(FEM_NX, dof=4, dtype=np.float32, seed=0, return_bsr=True)
+    p = ct.bdia_plan(fem, device=dev)
+    print(f"[probe] ring FEM plan: {p.nbr} block rows, blocks {p.blocksize}, block offsets "
+          f"{_runs(p.block_offsets)}, {p.npairs} pairs", flush=True)
+    X = torch.randn((p.shape[1], 128), generator=gen, device=dev)
+    S = _sparse_csr(fem, dev)
+    print(f"[probe] ring k=128: cuSPARSE (torch.sparse_csr_tensor @ X) "
+          f"{_ms(lambda: S @ X) * 1e3:.1f} us", flush=True)
+    del S
+    fits = len(p.block_offsets) == 5 and p.blocksize[1] == 4  # the unrolled variants' counts
+
+    def run(vname):
+        if "unrolled" in vname and not fits:
+            print(f"[probe] ring variant '{vname}': not this plan's pair count", flush=True)
+            return
+        print(f"[probe] ring k=128, variant '{vname}': "
+              f"{_ms(lambda: bk.bdia_spmm_ring(p, X)) * 1e3:.1f} us", flush=True)
+    _with_variants("bdia_spmm", bk._mm_lib, libs, run)
+
+
 def _time_or_refusal(name: str, tag: str, fn) -> None:
     """One ``[probe] types`` line: the call's time, or the version's refusal."""
     try:
@@ -767,11 +973,12 @@ def main() -> int:
     if "--sass" in sys.argv[1:]:
         _sass(sys.argv[sys.argv.index("--sass") + 1])
         return 0
-    if "--poh-spmv" in sys.argv[1:] or "--lell" in sys.argv[1:]:
-        if "--poh-spmv" in sys.argv[1:]:
-            _poh_spmv_probe(dev, gen)
-        if "--lell" in sys.argv[1:]:
-            _lell_probe(dev, gen)
+    chosen = {"--poh-spmv": _poh_spmv_probe, "--lell": _lell_probe,
+              "--dia-spmm": _dia_spmm_probe, "--ring": _ring_probe}
+    if any(flag in sys.argv[1:] for flag in chosen):
+        for flag, probe in chosen.items():
+            if flag in sys.argv[1:]:
+                probe(dev, gen)
         return 0
     slab_only = "--slab" in sys.argv[1:]
 

@@ -11,7 +11,9 @@ card.  Phases, one line each:
    compiler per source, all at once; the ptxas register and spill lines,
    per instantiation for the redesigned kernels (the slab's tensor-core
    kernel, POH SpMM and SpMV and the LELL kernels, their half
-   instantiations too), none of which may spill.
+   instantiations too), none of which may spill; the DIA and ring SpMM
+   kernels, which read X through a register window, summarised per source
+   and held to no spills as well.
 3. small — the BDIA kernel against its plain PyTorch twin on small FEM
    matrices (dof 2/4/8), one with a COO remainder and one with (4, 2)
    blocks, in f32 and f64.
@@ -61,8 +63,9 @@ card.  Phases, one line each:
    sides and Jacobi: the slab kernel once per iteration.
 11. dia-spmv — ``spmv(csr, x)`` on the 4,194,304-row 5-point stencil (f32).
 12. dia-cg — ``cg(solver_operator(S), b)`` with S = I + that stencil.
-13. spmm — ``spmm(csr, X)`` on the 1,048,576-row stencil and ``spmm(bsr, X)``
-   on the FEM matrix, k = 32 (f32).
+13. spmm — ``spmm(csr, X)`` on the 1,048,576-row stencil at k = 32 and 128
+   (BASELINE config 3 and its wide k) and ``spmm(bsr, X)`` on the FEM
+   matrix at k = 32 (f32).
 14. spmm-wide — the FEM matrix at k = 128: ``spmm(bsr, X)`` (the slab
    kernel), ``spmm(plan, X, method="pallas_bdia")`` (the ring),
    ``spmm(bsr, X, method="pallas_bsr")`` and ``spmm`` of the scalar-DIA
@@ -85,9 +88,9 @@ card.  Phases, one line each:
    spmm(bsr_H, X) at k = 32 (scalar DIA) and 128 (the H slab), the ring
    with f32 out and with ``accum_dtype=H`` (H X), scalar DIA at k = 128
    with f32 and H out; each against its twin and scipy f64 of the
-   H-rounded matrix.  The f16 run adds f16 x to both SpMVs (f16 y) and
-   spmm(csr_f16, X) on the phase-13 stencil at k = 32, and its CG solves
-   must stay within 2 iterations of the f32 ones.
+   H-rounded matrix, and spmm(csr_H, X) on the phase-13 stencil at k = 32.
+   The f16 run adds f16 x to both SpMVs (f16 y), and its CG solves must
+   stay within 2 iterations of the f32 ones.
 19b. half — the power law with bf16 and with f16 values: ``[poh-spmv-half]``
    spmv(poh_plan(A_h), x), ``[poh-spmm-half]`` spmm at k = 32,
    ``[lell-half]`` lell_plan_hyb(A_h).spmv(x) (two launches, three for an
@@ -99,7 +102,8 @@ card.  Phases, one line each:
    that computes the same product (a cuSPARSE product through
    ``torch.sparse_csr_tensor``; in bf16 or f16 for the half entries, or
    the refusal where torch does not take it on CUDA), with CUDA events,
-   beside the entry's bound.
+   beside the entry's bound; the DIA and ring SpMM rows also print the
+   time PERF.md records for their kernels before the window.
 
 The host-side power law (generated once, shared by phases 15-18) and its
 plans add about half a minute of host time.  Every main path (phases 8-19)
@@ -148,6 +152,29 @@ BSR_PY = "cask_tpu/ops/pallas/bsr_kernels.py"
 POH_PY = "cask_tpu/ops/pallas/poh_kernels.py"
 LELL_PY = "cask_tpu/ops/pallas/lell_kernels.py"
 
+# the times of the DIA and ring SpMM [timing] rows (B4, B12-B15) before the
+# kernels read X through a window, in us, as PERF.md §6 records them
+# (NVIDIA H100 80GB HBM3, 700 W): printed beside this run's
+BEFORE_WINDOW_US = {
+    f"dia_spmm f32 [spmm(csr, X), k={K}]": 139.3,
+    f"dia_spmm f32 [spmm(bsr, X), k={K}]": 475.9,
+    f"bdia_spmm_ring f32 [spmm(plan, X, method='pallas_bdia'), k={K_WIDE}]": 971.3,
+    f"dia_spmm f32 [spmm(scalar-DIA plan, X), k={K_WIDE}]": 1775.7,
+    f"dia_spmm f16 [spmm(csr_f16, X f32), k={K}]": 136.6,
+    **{name.format(h=h, K=K, K_WIDE=K_WIDE): us
+       for name, uss in (("dia_spmm {h} [spmm(bsr_{h}, X f32), k={K}]", (477.1, 476.7)),
+                         ("bdia_spmm_ring {h} [spmm(plan_{h}, X f32, method='pallas_bdia'), "
+                          "k={K_WIDE}]", (953.6, 955.9)),
+                         ("bdia_spmm_ring {h} [X and Y {h}: accum_dtype={h}], k={K_WIDE}",
+                          (896.5, 895.0)),
+                         ("dia_spmm {h} [spmm(scalar-DIA plan_{h}, X f32), k={K_WIDE}]",
+                          (1724.9, 1722.1)),
+                         ("dia_spmm {h} [X and Y {h}: out_dtype={h}], k={K_WIDE}",
+                          (1013.1, 966.6)))
+       for h, us in zip(("bf16", "f16"), uss)},
+}
+# the windowed kernels (mangled names), summarised per source: no spills allowed
+WINDOWED = r"b?dia_spmm_kernelI\w+?EEv"
 
 # the instantiations this version redesigned (mangled names): no spills allowed
 REDESIGNED = (r"(slab_spmm_tc_kernelI\w+?EEvPK|poh_spmm_kernelI\w+?Li\d+E"
@@ -882,6 +909,14 @@ def main() -> int:
         print(f"[build] {name}.cu ({t_build:.1f} s for all {len(libs)}, built together); "
               f"ptxas: {len(entries)} kernels, registers {regs}, spill bytes "
               f"{sum(sp for _, _, sp in entries)}", flush=True)
+        windowed = [(r, sp) for kernel, r, sp in entries if re.search(WINDOWED, kernel)]
+        if windowed:
+            spilled = sum(sp for _, sp in windowed)
+            print(f"[build]   {len(windowed)} windowed kernels (dia_spmm_kernel, "
+                  f"bdia_spmm_kernel): registers {min(r for r, _ in windowed)}-"
+                  f"{max(r for r, _ in windowed)}, {spilled} spill bytes", flush=True)
+            if spilled:
+                raise AssertionError(f"{name}.cu: the windowed kernels spill {spilled} bytes")
         for kernel, r, spilled in entries:
             short = re.search(REDESIGNED, kernel)
             if short is None:
@@ -1332,6 +1367,24 @@ def main() -> int:
           f"{launches_mm_bsr}; vs twin {err_twin:.2e} (max abs {abs_mm_bsr:.2e}), vs scipy "
           f"f64 {err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
     del Y, Y_twin, Yb, Yb_twin
+    # the same stencil at k = 128 (BASELINE config 3's wide k): B13 on its
+    # 5-diagonal plan
+    Xsw = torch.from_numpy(rng.standard_normal((mm.shape[1], K_WIDE)).astype(np.float32)).to(dev)
+    _reset()
+    Ysw = ct.spmm(mm, Xsw)
+    torch.cuda.synchronize()
+    launches_mm_csr_w = _launched("dia_spmm", f"spmm(csr, X), k={K_WIDE}")
+    Ysw_twin = mplan._spmm_reference(Xsw)
+    err_twin = _relerr(Ysw, Ysw_twin)
+    _check(f"1M spmm(csr) k={K_WIDE} kernel vs twin", err_twin, F32_TOL)
+    abs_mm_csr_w = float((Ysw - Ysw_twin).abs().max())
+    err_sp = _relerr(Ysw[:, :SCIPY_COLS], torch.from_numpy(
+        mm_sp.astype(np.float64) @ Xsw[:, :SCIPY_COLS].cpu().double().numpy()))
+    _check(f"1M spmm(csr) k={K_WIDE} kernel vs scipy f64", err_sp, F32_TOL)
+    print(f"[spmm] csr, k {K_WIDE}: launches {launches_mm_csr_w}; vs twin {err_twin:.2e} (max "
+          f"abs {abs_mm_csr_w:.2e}), vs scipy f64 on {SCIPY_COLS} columns {err_sp:.2e} (tol "
+          f"{F32_TOL:.0e})", flush=True)
+    del Ysw, Ysw_twin
 
     t_lap = _lap("spmm", t_lap)
     # -- 14. main paths at k = 128: slab, ring, BSR and scalar-DIA SpMM ---------
@@ -1754,13 +1807,13 @@ def main() -> int:
                   Xb64)
         del Xb64
         splan_h = hv["splan"] = bdia_scalar_dia(plan_h)
-        if h == f16:  # the banded CSR at k = 32: its cached f16 DIA plan (B14)
-            mm_h = mm.astype(h)
-            half_path(phase, f"spmm(csr_{ht}, X f32), k={K}", "dia_spmm",
-                      lambda: ct.spmm(mm_h, X),
-                      lambda: default_plan_cache.get(mm_h)._spmm_reference(X),
-                      torch.from_numpy(_half_matrix(mm_sp, h) @ X.cpu().double().numpy()))
-            hv["mplan"] = default_plan_cache.get(mm_h)
+        # the banded CSR at k = 32: its cached H DIA plan (B12)
+        mm_h = mm.astype(h)
+        half_path(phase, f"spmm(csr_{ht}, X f32), k={K}", "dia_spmm",
+                  lambda: ct.spmm(mm_h, X),
+                  lambda: default_plan_cache.get(mm_h)._spmm_reference(X),
+                  torch.from_numpy(_half_matrix(mm_sp, h) @ X.cpu().double().numpy()))
+        hv["mplan"] = default_plan_cache.get(mm_h)
         half_path(phase, f"spmm(bsr_{ht}, X f32), k={K_WIDE}: the {ht} slab",
                   "bdia_spmm_slab", lambda: ct.spmm(a_h, Xw),
                   lambda: bdia_spmm_slab_reference(default_plan_cache.get(plan_h, "slab"), Xw),
@@ -1901,6 +1954,11 @@ def main() -> int:
              lambda: dia_spmm(mplan, X), lambda: dia_spmm_reference(mplan, X), mm_sp, X,
              (mplan.vals.numel() + (mplan.shape[0] + mplan.shape[1]) * K) * 4,
              2 * mplan.vals.numel() * K, launches_mm_csr, abs_mm_csr),
+            (f"dia_spmm f32 [spmm(csr, X), k={K_WIDE}]", "dia_spmm",
+             f"{DIA_PY}:1023 (B13, k > 64)",
+             lambda: dia_spmm(mplan, Xsw), lambda: dia_spmm_reference(mplan, Xsw), mm_sp, Xsw,
+             (mplan.vals.numel() + (mplan.shape[0] + mplan.shape[1]) * K_WIDE) * 4,
+             2 * mplan.vals.numel() * K_WIDE, launches_mm_csr_w, abs_mm_csr_w),
             (f"dia_spmm f32 [spmm(bsr, X), k={K}]", "dia_spmm",
              f"{DIA_PY}:1148 (B14, k <= 64)",
              lambda: dia_spmm(splan, Xb), lambda: dia_spmm_reference(splan, Xb), a_sp, Xb,
@@ -1976,6 +2034,12 @@ def main() -> int:
              lambda doph=doph: dia_spmv_reference(doph.dia, bs), s_sp, bs,
              doph.dia.vals.numel() * 2 + 2 * doph.dia.shape[0] * 4,
              2 * doph.dia.vals.numel(), hv["launches_dcg"], hv["abs_dop"], h),
+            (f"dia_spmm {ht} [spmm(csr_{ht}, X f32), k={K}]", "dia_spmm",
+             f"{DIA_PY}:1148 (B14, k <= 64), :789 (B12)",
+             lambda mph=hv["mplan"]: dia_spmm(mph, X),
+             lambda mph=hv["mplan"]: dia_spmm_reference(mph, X), mm_sp, X,
+             hv["mplan"].vals.numel() * 2 + (hv["mplan"].shape[0] + hv["mplan"].shape[1]) * K * 4,
+             2 * hv["mplan"].vals.numel() * K, *runs[f"spmm(csr_{ht}, X f32), k={K}"], h),
             (f"dia_spmm {ht} [spmm(bsr_{ht}, X f32), k={K}]", "dia_spmm",
              f"{DIA_PY}:1148 (B14, k <= 64)", lambda sph=sph: dia_spmm(sph, Xb),
              lambda sph=sph: dia_spmm_reference(sph, Xb), a_sp, Xb,
@@ -2011,10 +2075,10 @@ def main() -> int:
              ph.vals.numel() * 2 + xy_h, 2 * ph.vals.numel() * K_WIDE,
              *runs[f"dia_spmm(scalar-DIA plan_{ht}, X {ht}, out_dtype={ht}), k={K_WIDE}"], h),
         ]
-    # the f16 slice's own rows: f16 values and x (f16 y), and the banded CSR at
-    # k = 32 (the bf16 phases run neither)
+    # the f16 slice's own rows: f16 values and x (f16 y; the bf16 phases run
+    # neither)
     hv = half[f16]
-    p16, dp16, mp16, x16, xs16 = hv["plan"], hv["dplan"], hv["mplan"], hv["x"], hv["xs"]
+    p16, dp16, x16, xs16 = hv["plan"], hv["dplan"], hv["x"], hv["xs"]
     rows += [
         ("bdia_spmv f16 [spmv(bsr_f16, x f16): f16 y]", "bdia_spmv",
          f"{BDIA_PY}:290 (B1; also :409, B3)", lambda: bdia_spmv(p16, x16),
@@ -2024,11 +2088,6 @@ def main() -> int:
          lambda: dia_spmv(dp16, xs16), lambda: dia_spmv_reference(dp16, xs16), st_sp, xs16,
          (dp16.vals.numel() + dp16.shape[0] + dp16.shape[1]) * 2, 2 * dp16.vals.numel(),
          *runs["spmv(csr_f16, x f16)"], f16),
-        (f"dia_spmm f16 [spmm(csr_f16, X f32), k={K}]", "dia_spmm",
-         f"{DIA_PY}:1148 (B14, k <= 64), :789 (B12)", lambda: dia_spmm(mp16, X),
-         lambda: dia_spmm_reference(mp16, X), mm_sp, X,
-         mp16.vals.numel() * 2 + (mp16.shape[0] + mp16.shape[1]) * K * 4,
-         2 * mp16.vals.numel() * K, *runs[f"spmm(csr_f16, X f32), k={K}"], f16),
     ]
     n_block_half = len(rows)
     # the half rows of B7 and B16-B18 (bytes at the values' and operands' widths)
@@ -2116,7 +2175,12 @@ def main() -> int:
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         gbs = nbytes / (ms * 1e-3) / 1e9
         lib_time = f"{library_ms * 1e3:.1f} us" if library else "no number"
-        print(f"[timing] {name}: kernel {ms * 1e3:.1f} us, plain twin {plain_ms * 1e3:.1f} us, "
+        before = BEFORE_WINDOW_US.get(name)
+        earlier = "" if source not in ("dia_spmm", "bdia_spmm") else \
+            f" (before the window: {before} us, PERF.md §6)" if before else \
+            " (no time recorded before the window)"
+        print(f"[timing] {name}: kernel {ms * 1e3:.1f} us{earlier}, plain twin "
+              f"{plain_ms * 1e3:.1f} us, "
               f"{lib_what} {lib_time}; "
               f"{nbytes / 1e6:.1f} MB moved -> {gbs:.0f} GB/s, HBM fraction "
               f"{gbs * 1e9 / bw:.3f} of {bw / 1e12:.2f} TB/s; bound {bound_ms * 1e3:.1f} us "

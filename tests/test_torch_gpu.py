@@ -10,12 +10,14 @@ that has no JAX, without the suite's conftest (which configures JAX):
 
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
-Tolerances: f64 ≤ 1e-12 normwise (the same products in the same pair or
-diagonal order as the twin), f32 ≤ 1e-5; the f32 slab kernel's 4xTF32
+Tolerances: f64 ≤ 1e-12 normwise (the same products as the twin, in its
+pair or diagonal order but for the ring's, which sums a chunk of block
+offsets component by component), f32 ≤ 1e-5; the f32 slab kernel's 4xTF32
 products ≤ 2e-6 on a case where one TF32 pass is off by more than 1e-5.
 """
 
 import dataclasses
+import functools
 import importlib
 from pathlib import Path
 
@@ -233,8 +235,27 @@ DIA_CASES = {  # scipy f64; row counts ragged against the 256-thread blocks
 }
 
 
+# the DIA SpMM kernel's window (chunks of at most 8 consecutive offsets, 4
+# for f64, over 8 rows a thread): runs longer than a chunk, chunks of one,
+# offsets far beyond a block's rows, rows near 0 and m, m != n both ways,
+# one diagonal, ndiags near the plan's 1024 cap, run after run and scattered
+DIA_SPMM_CASES = {
+    **DIA_CASES,
+    "one_diagonal": lambda: _diags(2001, 2001, [0], 20),
+    "one_far_diagonal": lambda: _diags(2001, 2001, [-1999], 21),
+    "long_runs": lambda: _diags(3001, 3001, [*range(-41, -32), -5, *range(-3, 4), 9,
+                                             *range(30, 35)], 22),
+    "scattered": lambda: _diags(2500, 2500, list(range(-181, 182, 3)), 23),
+    "tall_far": lambda: _diags(4003, 901, [-3500, -3102, -2, -1, 0, 1, 2, 850], 24),
+    "wide_far": lambda: _diags(901, 4003, [-850, -1, 0, 1, 2, 3000, 3500], 25),
+    "near_cap_run": lambda: _diags(1500, 1500, list(range(-500, 500)), 26),
+    "near_cap_scattered": lambda: _diags(3100, 3100, list(range(-1500, 1500, 3)), 27),
+}
+
+
+@functools.lru_cache(maxsize=None)  # the tests only read the matrix and the plan
 def _dia(name, dtype, device):
-    s = DIA_CASES[name]().tocsr().astype(dtype)
+    s = DIA_SPMM_CASES[name]().tocsr().astype(dtype)
     return s, ct.dia_plan(from_scipy(s), device=device)
 
 
@@ -253,9 +274,9 @@ def test_dia_spmv_matches_twin(cuda, name, dtype):
         <= TOL[dtype]
 
 
-@pytest.mark.parametrize("name", list(DIA_CASES))
+@pytest.mark.parametrize("name", list(DIA_SPMM_CASES))
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("k", [1, 3, 20, 32, 64, 100, 128])
+@pytest.mark.parametrize("k", [1, 3, 20, 32, 64, 100, 128, 200])
 def test_dia_spmm_matches_twin(cuda, name, dtype, k):
     s, p = _dia(name, dtype, cuda)
     x = torch.from_numpy(np.random.default_rng(11).standard_normal((s.shape[1], k))
@@ -269,11 +290,12 @@ def test_dia_spmm_matches_twin(cuda, name, dtype, k):
         <= TOL[dtype]
 
 
+@pytest.mark.parametrize("name", ["banded", "long_runs", "scattered", "tall_far", "wide_far"])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_dia_spmm_unaligned_x_takes_scalar_loads(cuda, dtype):
+@pytest.mark.parametrize("k", [3, 32, 64, 128])
+def test_dia_spmm_unaligned_x_takes_scalar_loads(cuda, name, dtype, k):
     # X whose rows start off the 16-byte grid: the kernel's scalar path
-    s, p = _dia("banded", dtype, cuda)
-    k = 32
+    s, p = _dia(name, dtype, cuda)
     buf = torch.from_numpy(np.random.default_rng(12).standard_normal(s.shape[1] * k + 1)
                            .astype(dtype)).to(cuda)
     x = buf[1:].view(s.shape[1], k)
@@ -410,10 +432,28 @@ WIDE_CASES = {  # name -> (dtype -> BSR); ragged, rectangular, remainder, far of
                                                   .astype(dt)), (4, 4)),
 }
 WIDE_KS = [1, 3, 32, 65, 128, 200]
+# the ring kernel's window (chunks of at most 4 consecutive block offsets, 2
+# for f64 sums, over a warp's block rows): runs longer than a chunk, chunks
+# of one, one block offset, the 80-pair cap, n not a multiple of bc
+RING_CASES = {
+    **WIDE_CASES,
+    "one_offset": lambda dt: csr_to_bsr(from_scipy(_blocks_on(100, 4, (0,), 35).astype(dt)),
+                                        (4, 4)),
+    "long_run": lambda dt: csr_to_bsr(from_scipy(_blocks_on(150, 2, tuple(range(-6, 7)), 36)
+                                                 .astype(dt)), (2, 2)),
+    "scattered": lambda dt: csr_to_bsr(from_scipy(_blocks_on(
+        200, 2, (-150, -97, -50, -21, -7, -3, 0, 2, 5, 9, 33, 77, 120, 160, 190), 37)
+        .astype(dt)), (2, 2)),
+    "pair_cap": lambda dt: csr_to_bsr(from_scipy(_blocks_on(120, 2, tuple(range(-20, 20)), 38)
+                                                 .astype(dt)), (2, 2)),
+    "rect_cols": lambda dt: csr_to_bsr(from_scipy(to_scipy(fem_blocks(12, dof=4))[:, :431]
+                                                  .tocsr().astype(dt)), (4, 4)),
+}
+RING_KS = [1, 3, 32, 64, 65, 128, 200]
 
 
 def _wide(name, dtype, k, cuda, seed=30):
-    bsr = WIDE_CASES[name](dtype)
+    bsr = RING_CASES[name](dtype)
     x = torch.from_numpy(np.random.default_rng(seed).standard_normal((bsr.shape[1], k))
                          .astype(dtype)).to(cuda)
     y_sp = torch.from_numpy(to_scipy(bsr).astype(np.float64) @ x.cpu().double().numpy())
@@ -516,9 +556,9 @@ def test_slab_kernel_is_f32_class_where_tf32_is_not(cuda, padded):
     assert _relerr(one, exact) > 1e-5
 
 
-@pytest.mark.parametrize("name", list(WIDE_CASES))
+@pytest.mark.parametrize("name", list(RING_CASES))
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("k", WIDE_KS)
+@pytest.mark.parametrize("k", RING_KS)
 def test_ring_kernel_matches_twin(cuda, name, dtype, k):
     bsr, x, y_sp = _wide(name, dtype, k, cuda, seed=31)
     p = ct.bdia_plan(bsr, device=cuda)
@@ -566,6 +606,35 @@ def test_wide_kernels_take_a_misaligned_x(cuda, dtype):
     assert _relerr(bdia_spmm_ring(p, x), bdia_spmm_ring_reference(p, x)) <= TOL[dtype]
     q = BsrSpmmKernel.plan(bsr, k, device=cuda)
     assert _relerr(q(x), bsr_spmm_reference(q, x)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("name", ["fem4", "fem3_ragged", "long_run", "scattered", "rect_cols"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [3, 32, 64, 128])
+def test_ring_kernel_takes_a_misaligned_x(cuda, name, dtype, k):
+    # X rows off the 16-byte grid: the window's scalar loads
+    bsr = RING_CASES[name](dtype)
+    n = bsr.shape[1]
+    buf = torch.from_numpy(np.random.default_rng(39).standard_normal(n * k + 1)
+                           .astype(dtype)).to(cuda)
+    x = buf[1:].view(n, k)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    p = ct.bdia_plan(bsr, device=cuda)
+    assert _relerr(bdia_spmm_ring(p, x), bdia_spmm_ring_reference(p, x)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("name", list(RING_CASES))
+@pytest.mark.parametrize("k", [1, 3, 64, 128])
+def test_ring_kernel_sums_f32_in_f64(cuda, name, k):
+    # accum_dtype=float64: f32 values and X, f64 sums and output
+    bsr, x, y_sp = _wide(name, np.float32, k, cuda, seed=40)
+    p = ct.bdia_plan(bsr, device=cuda)
+    if p.npairs > MAX_PAIRS:
+        return
+    y = bdia_spmm_ring(p, x, out_dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float64
+    assert _relerr(y, bdia_spmm_ring_reference(p, x, out_dtype=torch.float64)) <= TOL[np.float64]
 
 
 def test_wide_kernels_write_every_row(cuda):
@@ -1021,7 +1090,7 @@ def test_half_dia_spmv_matches_twin(cuda, name, vdt, xdt):
     _check_half(yk, dia_spmv_reference(p.astype(F32), x.float()), _spmv_out(vdt, xdt))
 
 
-@pytest.mark.parametrize("name", list(DIA_CASES))
+@pytest.mark.parametrize("name", list(DIA_SPMM_CASES))
 @pytest.mark.parametrize("vdt,xdt", HALF_COMBOS)
 @pytest.mark.parametrize("k", [1, 12, 65, 128])  # 12, 65: half rows off the 16-byte vector
 @pytest.mark.parametrize("out", OUTS)
@@ -1038,12 +1107,13 @@ def test_half_dia_spmm_matches_twin(cuda, name, vdt, xdt, k, out):
 
 
 @pytest.mark.parametrize("name", ["fem4", "fem2", "fem3_ragged", "remainder", "rect_matrix",
-                                  "eight_far"])
+                                  "eight_far", "one_offset", "long_run", "scattered", "pair_cap",
+                                  "rect_cols"])
 @pytest.mark.parametrize("vdt,xdt", HALF_COMBOS)
 @pytest.mark.parametrize("k", [1, 12, 65, 128])
 @pytest.mark.parametrize("out", OUTS)
 def test_half_ring_matches_twin(cuda, name, vdt, xdt, k, out):
-    bsr = WIDE_CASES[name](np.float32)
+    bsr = RING_CASES[name](np.float32)
     p = ct.bdia_plan(bsr, device=cuda).astype(vdt)
     x = _operand((bsr.shape[1], k), xdt, 53, cuda)
     out = _out(vdt, xdt, out)
