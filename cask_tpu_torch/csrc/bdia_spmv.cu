@@ -15,7 +15,7 @@
 // flops per value, far below the card's FLOP/byte balance, so the kernel is
 // HBM-bandwidth bound.
 //
-// What the design does about it:
+// What the design does about it (PERF.md §5.11 takes it apart):
 // - One thread per block row i computes all of that row's br outputs in
 //   registers.  For fixed (r, t, j), vals is contiguous in l, so the 32
 //   threads of a warp (consecutive i) read 128 contiguous bytes: the value
@@ -23,6 +23,16 @@
 //   since each is read once, so they do not push x out of L2.
 // - The TPU kernel de-interleaves x into per-component segments with exact
 //   MXU permutation matmuls; here a thread reads x[(i+d)·bc + c] directly.
+//   Where bc is 1, 2, 4 or 8, n a multiple of bc and x aligned for a vector
+//   of bc, each block of x lies wholly inside [0, n) or wholly outside, and
+//   a thread takes it in one vector load or as zero, with no branch to a
+//   scalar path (a kernel that kept one measured 18 % slower in f32);
+//   otherwise one scalar load a component.  One scalar x load a pair held
+//   the value stream back, in half values most (PERF.md §5.11): a block's
+//   vector takes the FEM plan from 39.2 to 33.5 µs in f32 and from 29.9 to
+//   23.0 µs for bf16 values.  Staging a block's values in shared memory
+//   with 16-byte cp.async copies, as the SpMM kernels do, measured within
+//   2 µs of that either way for half values and slower for f32.
 //   Neighbouring threads read neighbouring blocks of x, which the L1/L2
 //   caches serve; x is read from HBM about once.
 // - The block offsets ride in a by-value kernel parameter (constant bank),
@@ -60,9 +70,35 @@ struct DiagOffsets {
 __device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
 
+// N consecutive elements of global memory into working-type registers
+// through the read-only path, in vector loads of up to 16 bytes (p aligned
+// to min(16, N·sizeof(X)) bytes)
+template <typename X, int N, typename A>
+__device__ __forceinline__ void load_block(const X* p, A (&out)[N]) {
+  constexpr int kBytes = N * sizeof(X) < 16 ? N * static_cast<int>(sizeof(X)) : 16;
+  constexpr int kPer = kBytes / static_cast<int>(sizeof(X));  // elements a load
+#pragma unroll
+  for (int s = 0; s < N; s += kPer) {
+    alignas(16) X buf[kPer];
+    if constexpr (kBytes == 16) {
+      *reinterpret_cast<uint4*>(buf) = __ldg(reinterpret_cast<const uint4*>(p + s));
+    } else if constexpr (kBytes == 8) {
+      *reinterpret_cast<uint2*>(buf) = __ldg(reinterpret_cast<const uint2*>(p + s));
+    } else if constexpr (kBytes == 4) {
+      *reinterpret_cast<unsigned*>(buf) = __ldg(reinterpret_cast<const unsigned*>(p + s));
+    } else {
+      *reinterpret_cast<unsigned short*>(buf) =
+          __ldg(reinterpret_cast<const unsigned short*>(p + s));
+    }
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) out[s + e] = A(cask::widen(buf[e]));
+  }
+}
+
 // V: value type; X: x type; O: output type, summed in its working type A
-// (float, or double for f64)
-template <typename V, typename X, typename O, int RB>
+// (float, or double for f64); BC: the plan's bc where a block of x is one
+// vector (see above), else 0
+template <typename V, typename X, typename O, int RB, int BC>
 __global__ void __launch_bounds__(kThreads)
 bdia_spmv_kernel(const V* __restrict__ vals, const X* __restrict__ x,
                  O* __restrict__ y, const DiagOffsets offs, int ndiag, int br,
@@ -85,13 +121,31 @@ bdia_spmv_kernel(const V* __restrict__ vals, const X* __restrict__ x,
 
   for (int dp = 0; dp < ndiag; ++dp) {
     const int64_t col0 = (i + offs.d[dp]) * bc;
-    for (int c = 0; c < bc; ++c) {
-      const int64_t col = col0 + c;
-      const A xv = (col >= 0 && col < n) ? A(cask::widen(__ldg(x + col))) : A(0);
-      const V* vj = v + static_cast<int64_t>(dp * bc + c) * tile;
+    if constexpr (BC > 0) {
+      A xb[BC];
+      if (col0 >= 0 && col0 < n) {
+        load_block<X, BC>(x + col0, xb);
+      } else {
 #pragma unroll
-      for (int k = 0; k < RB; ++k) {
-        if (r0 + k < br) acc[k] = fma_t(A(cask::widen(__ldcs(vj + k * r_stride))), xv, acc[k]);
+        for (int c = 0; c < BC; ++c) xb[c] = A(0);
+      }
+#pragma unroll
+      for (int c = 0; c < BC; ++c) {
+        const V* vj = v + static_cast<int64_t>(dp * bc + c) * tile;
+#pragma unroll
+        for (int k = 0; k < RB; ++k) {
+          if (r0 + k < br) acc[k] = fma_t(A(cask::widen(__ldcs(vj + k * r_stride))), xb[c], acc[k]);
+        }
+      }
+    } else {
+      for (int c = 0; c < bc; ++c) {
+        const int64_t col = col0 + c;
+        const A xv = (col >= 0 && col < n) ? A(cask::widen(__ldg(x + col))) : A(0);
+        const V* vj = v + static_cast<int64_t>(dp * bc + c) * tile;
+#pragma unroll
+        for (int k = 0; k < RB; ++k) {
+          if (r0 + k < br) acc[k] = fma_t(A(cask::widen(__ldcs(vj + k * r_stride))), xv, acc[k]);
+        }
       }
     }
   }
@@ -103,15 +157,30 @@ bdia_spmv_kernel(const V* __restrict__ vals, const X* __restrict__ x,
   }
 }
 
-template <typename V, typename X, typename O, int RB>
+template <typename V, typename X, typename O, int RB, int BC>
 int launch(const V* vals, const X* x, O* y, const DiagOffsets& offs, int ndiag,
            int br, int bc, int64_t m, int64_t n, int64_t nbr, int n_tiles,
            int tile, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((nbr + kThreads - 1) / kThreads),
                   static_cast<unsigned>((br + RB - 1) / RB));
-  bdia_spmv_kernel<V, X, O, RB><<<grid, kThreads, 0, stream>>>(
+  bdia_spmv_kernel<V, X, O, RB, BC><<<grid, kThreads, 0, stream>>>(
       vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile);
   return static_cast<int>(cudaGetLastError());
+}
+
+// a block of x as one vector where it lies wholly inside [0, n) or wholly
+// outside (n a multiple of bc) and x is aligned for it
+template <typename V, typename X, typename O, int RB>
+int launch_bc(const V* vals, const X* x, O* y, const DiagOffsets& offs, int ndiag, int br,
+              int bc, int64_t m, int64_t n, int64_t nbr, int n_tiles, int tile,
+              cudaStream_t s) {
+  const size_t align = bc * sizeof(X) < 16 ? bc * sizeof(X) : 16;
+  const bool whole = n % bc == 0 && reinterpret_cast<uintptr_t>(x) % align == 0;
+  if (whole && bc == 1) return launch<V, X, O, RB, 1>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  if (whole && bc == 2) return launch<V, X, O, RB, 2>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  if (whole && bc == 4) return launch<V, X, O, RB, 4>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  if (whole && bc == 8) return launch<V, X, O, RB, 8>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  return launch<V, X, O, RB, 0>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
 }
 
 template <typename V, typename X, typename O>
@@ -125,10 +194,10 @@ int dispatch(const V* vals, const X* x, O* y, const int* offsets, int ndiag,
   DiagOffsets offs = {};
   for (int k = 0; k < ndiag; ++k) offs.d[k] = offsets[k];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (br <= 1) return launch<V, X, O, 1>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
-  if (br <= 2) return launch<V, X, O, 2>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
-  if (br <= 4) return launch<V, X, O, 4>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
-  return launch<V, X, O, 8>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  if (br <= 1) return launch_bc<V, X, O, 1>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  if (br <= 2) return launch_bc<V, X, O, 2>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  if (br <= 4) return launch_bc<V, X, O, 4>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
+  return launch_bc<V, X, O, 8>(vals, x, y, offs, ndiag, br, bc, m, n, nbr, n_tiles, tile, s);
 }
 
 }  // namespace

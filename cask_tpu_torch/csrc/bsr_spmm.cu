@@ -19,7 +19,30 @@
 // 1M-row FEM matrix that is about 1.2 GB against 5.4 GFLOP, far below the
 // card's FP32 balance.
 //
-// What the design does about it:
+// What the design does about it (PERF.md §5.11 takes it apart): a kernel
+// that gives each block row a warp and loads each value with a scalar
+// broadcast load (80 a block row on the 4×4 FEM plan) and each X row once
+// per slot and component, one at a time, is held by its loads' latency,
+// the value loads and the X loads about equally.  The staged kernel
+// (bsr_spmm_staged_kernel), for X rows in 16-byte vectors and a bc of 1, 2,
+// 4 or 8:
+// - A block of 256 threads (64 for a half X) takes kTeams·turns
+//   consecutive block rows and first stages their values (a block row's
+//   br × K·bc values are contiguous in the pack) and their cols in shared
+//   memory, the values with 16-byte cp.async copies (band_window.cuh).  A
+//   row's bc values of a slot then come in one shared-memory vector read, a
+//   broadcast to the team.
+// - A team of lanes takes every kTeams-th of the block's rows in turn, so
+//   at each turn the teams work on kTeams consecutive block rows, which
+//   share the X rows of their near block columns in L1 (the probe measured
+//   this faster than consecutive block rows a team).  Its lanes run over k,
+//   16 bytes of an X row each: 4 f32 or 2 f64 columns, and 8 half columns,
+//   so that a half X row is a 16-lane team's 128 columns, two block rows a
+//   warp, in half the load instructions of an f32 row.
+// - bc is a compile-time constant: the X rows of a slot's bc components
+//   are loaded together, then used for every output row.
+// A plan whose block rows do not fit kStageBytes, an X whose rows are not
+// whole 16-byte vectors or a bc outside 1, 2, 4 and 8 take bsr_spmm_kernel:
 // - One CTA per group of G block rows (G·32 threads); warp g takes block row
 //   t·G + g and its lanes run over k, with 16-byte vector loads and stores
 //   when k and the pointers allow, scalar ones otherwise.
@@ -38,21 +61,37 @@
 // Half values or X (bf16 or f16, with the other the same half type or f32):
 // each widens exactly to f32 as it loads, the sums are f32, and Y takes the
 // values' type as in the reference (bsr_kernels.py:161): a half Y, even
-// beside an f32 X, is each f32 sum rounded once at the store.  A half X
-// moves 4 columns a lane in each 8-byte load, so a warp spans 128 columns:
-// with 16-byte loads of 8, half of each warp would idle at k = 128.
+// beside an f32 X, is each f32 sum rounded once at the store.  In
+// bsr_spmm_kernel a half X moves 4 columns a lane in each 8-byte load, so a
+// warp spans 128 columns.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "band_window.cuh"
 #include "value_types.cuh"
 
 namespace {
 
 constexpr int kWarp = 32;
+constexpr int kStageBytes = 48 * 1024;  // the most a staged block holds
+constexpr int kMaxTurns = 4;  // block rows a team takes in turn, at most
 
 __device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
+
+// the staged kernel's layout for an X type: 16 bytes of a row a lane, a
+// team of lanes that spans 128 columns (a warp for an f64 X), and a block
+// of 256 threads, 64 for a half X (the probe measured 64 fastest there and
+// 256 for an f32 X); at most 128 registers a thread
+template <typename X>
+struct Team {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(X));
+  static constexpr int kLanes = 128 / kVec < kWarp ? 128 / kVec : kWarp;
+  static constexpr int kThreads = sizeof(X) == 2 ? 64 : 256;
+  static constexpr int kMinBlocks = 512 / kThreads;
+  static constexpr int kTeams = kThreads / kLanes;
+};
 
 // V: value type, X: X type, O: output type (the values' type); sums in
 // O's working type
@@ -108,6 +147,135 @@ bsr_spmm_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
   }
 }
 
+// V: value type, X: X type, O: output type (the values' type), summed in
+// its working type A; BR: output rows of a block a thread sums (a block
+// size above BR spreads its rows over gridDim.y); BC: the plan's bc.  The
+// block takes kTeams·turns block rows from b0 on; team g those at
+// b0 + u·kTeams + g, u < turns.  Shared memory holds their values,
+// [block row][r < nr][slot·BC + c], then their cols, [block row][slot].
+template <typename V, typename X, typename O, int BR, int BC>
+__global__ void __launch_bounds__(Team<X>::kThreads, Team<X>::kMinBlocks)
+bsr_spmm_staged_kernel(const V* __restrict__ vals, const int* __restrict__ cols,
+                       const X* __restrict__ Xm, O* __restrict__ Y, int K, int br,
+                       int64_t m, int64_t n, int64_t nbr, int64_t packed, int k, int turns,
+                       bool vals_vec) {
+  using A = typename cask::Work<O>::type;
+  constexpr int VEC = Team<X>::kVec;
+  constexpr int kThreads = Team<X>::kThreads;
+  constexpr int kA = static_cast<int>(sizeof(A) / 4);
+  // X rows held at once: a slot's bc, CB components at a time (at most 32
+  // registers)
+  constexpr int CB = BC * VEC * kA <= 32 ? BC : 32 / (VEC * kA);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int r0 = blockIdx.y * BR;
+  const int nr = br - r0 < BR ? br - r0 : BR;  // rows of a block this block sums
+  const int64_t kb = static_cast<int64_t>(K) * BC;
+  const int len = nr * static_cast<int>(kb);  // staged values of a block row
+  const int rows = Team<X>::kTeams * turns;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * rows;
+  const int n_rows = packed - b0 < rows ? static_cast<int>(packed - b0) : rows;
+  V* vs = reinterpret_cast<V*>(smem);
+  int* cs = reinterpret_cast<int*>(smem + (static_cast<size_t>(rows) * len * sizeof(V) + 15) / 16 * 16);
+  cask::stage_spans<kThreads>(
+      vs, [&](int s) { return vals + ((b0 + s) * br + r0) * kb; }, n_rows, len, len, vals_vec,
+      threadIdx.x);
+  for (int q = threadIdx.x; q < n_rows * K; q += kThreads) cs[q] = __ldg(cols + b0 * K + q);
+  cask::cp_async_wait_all();
+  __syncthreads();
+
+  const int team = threadIdx.x / Team<X>::kLanes;
+  const int lane = threadIdx.x % Team<X>::kLanes;
+  const int nvec = k / VEC;
+  for (int u = 0; u < turns; ++u) {
+    const int tb = u * Team<X>::kTeams + team;  // the block row, within the block
+    const int64_t bi = b0 + tb;
+    if (bi >= nbr) break;
+    const V* vb = vs + tb * len;
+    const int* cb = cs + tb * K;
+    for (int cv = lane; cv < nvec; cv += Team<X>::kLanes) {
+      const X* xc = Xm + static_cast<int64_t>(cv) * VEC;
+      A acc[BR][VEC];
+#pragma unroll
+      for (int r = 0; r < BR; ++r)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[r][e] = A(0);
+      for (int s = 0; s < K; ++s) {
+#pragma unroll
+        for (int c0 = 0; c0 < BC; c0 += CB) {
+          // X rows cols[s]·BC + c0 + c; the zero pad rows n <= row < n_pad as 0
+          const int64_t xrow0 = static_cast<int64_t>(cb[s]) * BC + c0;
+          A xv[CB][VEC];
+#pragma unroll
+          for (int c = 0; c < CB; ++c) {
+            if (xrow0 + c < n) {
+              cask::load_vec<X, VEC>(xc + (xrow0 + c) * k, xv[c]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) xv[c][e] = A(0);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < BR; ++r) {
+            if (r < nr) {
+              A a[CB];
+              cask::load_span_shared<V, CB>(vb + r * kb + s * BC + c0, a);
+#pragma unroll
+              for (int c = 0; c < CB; ++c)
+#pragma unroll
+                for (int e = 0; e < VEC; ++e) acc[r][e] = fma_t(a[c], xv[c][e], acc[r][e]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < BR; ++r) {
+        const int64_t row = bi * br + r0 + r;
+        if (r < nr && row < m) {
+          cask::store_vec<O, VEC>(Y + row * k + static_cast<int64_t>(cv) * VEC, acc[r]);
+        }
+      }
+    }
+  }
+}
+
+// the staged kernel, if the plan's block rows fit kStageBytes (the most
+// block rows a team takes in turn that fit, up to kMaxTurns); returns -1
+// where they do not
+template <typename V, typename X, typename O, int BR, int BC>
+int launch_staged(const V* vals, const int* cols, const X* Xm, O* Y, int64_t packed, int K,
+                  int br, int64_t m, int64_t n, int64_t nbr, int k, cudaStream_t s) {
+  const int nr = br < BR ? br : BR;
+  const size_t row_bytes = static_cast<size_t>(nr) * K * BC * sizeof(V);
+  int turns = kMaxTurns;
+  auto bytes = [&](int t) {
+    const size_t rows = static_cast<size_t>(Team<X>::kTeams) * t;
+    return (rows * row_bytes + 15) / 16 * 16 + rows * K * sizeof(int);
+  };
+  while (turns > 1 && bytes(turns) > kStageBytes) turns /= 2;
+  if (bytes(turns) > kStageBytes) return -1;
+  const int64_t rows = static_cast<int64_t>(Team<X>::kTeams) * turns;
+  const int64_t blocks = (nbr + rows - 1) / rows;
+  if (blocks > 0x7fffffff) return -1;
+  // every block row's span starts 16-byte aligned and is whole 16-byte pieces
+  const size_t kb_bytes = static_cast<size_t>(K) * BC * sizeof(V);
+  const bool vals_vec = reinterpret_cast<uintptr_t>(vals) % 16 == 0 && (br * kb_bytes) % 16 == 0 &&
+                        (br <= BR || kb_bytes % 16 == 0);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>((br + BR - 1) / BR));
+  bsr_spmm_staged_kernel<V, X, O, BR, BC><<<grid, Team<X>::kThreads, bytes(turns), s>>>(
+      vals, cols, Xm, Y, K, br, m, n, nbr, packed, k, turns, vals_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename V, typename X, typename O, int BR>
+int launch_staged_bc(const V* vals, const int* cols, const X* Xm, O* Y, int64_t packed, int K,
+                     int br, int bc, int64_t m, int64_t n, int64_t nbr, int k, cudaStream_t s) {
+  if (bc == 1) return launch_staged<V, X, O, BR, 1>(vals, cols, Xm, Y, packed, K, br, m, n, nbr, k, s);
+  if (bc == 2) return launch_staged<V, X, O, BR, 2>(vals, cols, Xm, Y, packed, K, br, m, n, nbr, k, s);
+  if (bc == 4) return launch_staged<V, X, O, BR, 4>(vals, cols, Xm, Y, packed, K, br, m, n, nbr, k, s);
+  if (bc == 8) return launch_staged<V, X, O, BR, 8>(vals, cols, Xm, Y, packed, K, br, m, n, nbr, k, s);
+  return -1;
+}
+
 template <typename V, typename X, typename O, int VEC, int RB>
 int launch_rb(const V* vals, const int* cols, const X* Xm, O* Y, int64_t T_groups, int G,
               int K, int br, int bc, int64_t m, int64_t n, int64_t nbr, int k,
@@ -144,6 +312,15 @@ int dispatch(const void* vals_p, const int* cols, const void* X_p, void* Y_p,
   const X* Xm = static_cast<const X*>(X_p);
   V* Y = static_cast<V*>(Y_p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec && k % Team<X>::kVec == 0) {
+    const int64_t packed = T_groups * G;  // block rows in the pack
+    int err = -1;
+    if (br <= 1) err = launch_staged_bc<V, X, V, 1>(vals, cols, Xm, Y, packed, K, br, bc, m, n, nbr, k, s);
+    else if (br <= 2) err = launch_staged_bc<V, X, V, 2>(vals, cols, Xm, Y, packed, K, br, bc, m, n, nbr, k, s);
+    else if (br <= 4) err = launch_staged_bc<V, X, V, 4>(vals, cols, Xm, Y, packed, K, br, bc, m, n, nbr, k, s);
+    else err = launch_staged_bc<V, X, V, 8>(vals, cols, Xm, Y, packed, K, br, bc, m, n, nbr, k, s);
+    if (err >= 0) return err;
+  }
   if (vec) return launch_vec<V, X, V, kVec>(vals, cols, Xm, Y, T_groups, G, K, br, bc, m, n, nbr, k, s);
   return launch_vec<V, X, V, 1>(vals, cols, Xm, Y, T_groups, G, K, br, bc, m, n, nbr, k, s);
 }

@@ -6,7 +6,8 @@ launches the kernel of ``csrc/bsr_spmm.cu`` or raises; on a CPU tensor it
 runs :func:`bsr_spmm_reference`, the same product in plain PyTorch.  It
 replaces ``cask_tpu/ops/pallas/bsr_kernels.py:BsrSpmmKernel`` (B7), whose
 double-buffered VMEM panel of DMA'd X block rows has no counterpart: the
-Hopper kernel gathers X rows by ``cols`` straight into registers.
+Hopper kernel stages a block's values and ``cols`` in shared memory and
+gathers X rows by ``cols`` straight into registers.
 
 Types: f32 or f64 values and X of one type, or the half path (bf16 or f16
 values or X, with the other of the same half type or f32), which sums in

@@ -1,8 +1,9 @@
 """Take apart what sets the time of the POH SpMM and SpMV, LELL, slab, DIA
-and BDIA ring SpMM kernels.
+and BDIA ring SpMM, BSR SpMM and BDIA SpMV kernels.
 
     python3 -m cask_tpu_torch.tune.kernel_probe [--slab | --poh-spmv | --lell | --dia-spmm
-                                                 | --ring | --types | --sass CHECKOUT]
+                                                 | --ring | --bsr-spmm | --bdia-spmv
+                                                 | --types | --sass CHECKOUT]
     env PYTHONPATH=<another checkout> python3 <this checkout>/cask_tpu_torch/tune/kernel_probe.py
 
 The second form times another checkout's kernels with this script (it uses
@@ -85,6 +86,22 @@ register bound.  Each build names the registers and spill bytes of the
 f32 kernels timed.  Both fit the source from before the window (``env
 PYTHONPATH=<parent checkout> python3 cask_tpu_torch/tune/kernel_probe.py
 --dia-spmm --ring``); a variant that does not fit a source is skipped.
+
+``--bsr-spmm`` takes BSR SpMM (B7) apart on the FEM matrix's plan at
+k = 128, f32, bf16 values and X, and bf16 values with an f32 X, beside the
+cuSPARSE product in f32 and bf16 and a plain copy of X (the floor of the X
+and Y streams): the entry as built and through variants of
+``csrc/bsr_spmm.cu`` without value loads, without X loads, with the values
+loaded as vectors (the kernel of scalar broadcast loads), other block row
+counts a team, consecutive block rows a team, other block sizes and no
+register bound.  ``--bdia-spmv`` does the same for BDIA SpMV (B1-B3) on the
+FEM plan, f32, bf16 values with f32 x and f16 values and x (f16 y), beside
+a plain ``copy_`` of the values: without value loads, without x loads, a
+block's x components as one vector (the kernel of scalar loads), one
+scalar x load a pair, a branch to scalar loads for blocks partly outside,
+plain loads for x and 128-thread blocks.  Each build names the registers
+and spill bytes of the kernels timed; both fit the sources from before
+their redesign too (``env PYTHONPATH=<parent checkout>``).
 
 ``--types`` times every kernel at its headline size in each value type the
 checkout's kernels take, f32 and f64 first, then bf16 and f16 with their
@@ -340,6 +357,102 @@ RING_VARIANTS = {
 }
 
 
+def _both(first, second):
+    """A variant's alternatives: both edits where the source holds both
+    kernels, else the first alone (the source from before the second)."""
+    return [[first, second], [first]]
+
+
+# text edits of csrc/bsr_spmm.cu: the kernel of scalar broadcast value loads
+# (the fallback since the staged kernel) and the staged one.  Every sum
+# stays live: a value or X element taken as a constant differs by output
+# row or column.
+_BSR_BLOCK = "static constexpr int kThreads = sizeof(X) == 2 ? 64 : 256;"
+BSR_VARIANTS = {
+    "as built": [],
+    "no value loads (values taken as row + 1)": _both(
+        ("const T a = T(cask::widen(__ldg(vw + static_cast<int64_t>(q) * kb)));",
+         "const T a = T(q + 1);"),
+        ("cask::load_span_shared<V, CB>(vb + r * kb + s * BC + c0, a);",
+         "for (int c = 0; c < CB; ++c) a[c] = A(r + c + 1);")),
+    "no X loads (X taken as column + 1)": _both(
+        ("cask::load_vec<X, VEC>(Xm + xr * k + static_cast<int64_t>(cv) * VEC, xv);",
+         "for (int e = 0; e < VEC; ++e) xv[e] = T(e + 1);"),
+        ("cask::load_vec<X, VEC>(xc + (xrow0 + c) * k, xv[c]);",
+         "for (int e = 0; e < VEC; ++e) xv[c][e] = A(e + 1);")),
+    # a row's bc = 4 values of a slot as one vector (the FEM plan's blocks),
+    # in the kernel of scalar value loads as it was before the staged one
+    # (the first edit matches a comment of that source only)
+    "values loaded as vectors (bc taken as 4)": [[
+        ("half of each warp would idle at k = 128.", "half of each warp would idle at k = 128."),
+        ('#include "value_types.cuh"', '#include "band_window.cuh"\n#include "value_types.cuh"'),
+        ("      for (int c = 0; c < bc; ++c) {\n        const int64_t xr = xrow0 + c;",
+         "      T av[RB][4] = {};\n#pragma unroll\n      for (int q = 0; q < RB; ++q)\n"
+         "        if (r0 + q < br) cask::load_span_shared<V, 4>(v + static_cast<int64_t>(q) * kb + s * 4,"
+         " av[q]);\n#pragma unroll\n      for (int c = 0; c < 4; ++c) {\n"
+         "        const int64_t xr = xrow0 + c;"),
+        ("const T a = T(cask::widen(__ldg(vw + static_cast<int64_t>(q) * kb)));",
+         "const T a = av[q][c];")]],
+    "one block row a team": [[("constexpr int kMaxTurns = 4;", "constexpr int kMaxTurns = 1;")]],
+    "8 block rows a team": [[("constexpr int kMaxTurns = 4;", "constexpr int kMaxTurns = 8;")]],
+    "consecutive block rows a team": [[
+        ("const int tb = u * Team<X>::kTeams + team;", "const int tb = team * turns + u;")]],
+    "256-thread blocks for every X": [[(_BSR_BLOCK, _BSR_BLOCK.replace("64 : 256", "256 : 256"))]],
+    "128-thread blocks for every X": [[(_BSR_BLOCK, _BSR_BLOCK.replace("64 : 256", "128 : 128"))]],
+    "64-thread blocks for every X": [[(_BSR_BLOCK, _BSR_BLOCK.replace("64 : 256", "64 : 64"))]],
+    "no register bound": [[("__launch_bounds__(Team<X>::kThreads, Team<X>::kMinBlocks)",
+                            "__launch_bounds__(Team<X>::kThreads)")]],
+}
+
+# text edits of csrc/bdia_spmv.cu: the path of one scalar x load a pair
+# (the whole kernel before the vector x, its BC = 0 path since) and the
+# path that takes a block of x in one vector
+_SPMV_VEC_LOOP = """      } else {
+#pragma unroll
+        for (int c = 0; c < BC; ++c) xb[c] = A(0);
+      }"""
+BDIA_SPMV_VARIANTS = {
+    "as built": [],
+    "no value loads (values taken as row + 1)": _both(
+        ("acc[k] = fma_t(A(cask::widen(__ldcs(vj + k * r_stride))), xv, acc[k]);",
+         "acc[k] = fma_t(A(k + 1), xv, acc[k]);"),
+        ("acc[k] = fma_t(A(cask::widen(__ldcs(vj + k * r_stride))), xb[c], acc[k]);",
+         "acc[k] = fma_t(A(k + 1), xb[c], acc[k]);")),
+    "no x loads (x taken as component + 1)": _both(
+        ("const A xv = (col >= 0 && col < n) ? A(cask::widen(__ldg(x + col))) : A(0);",
+         "const A xv = (col >= 0 && col < n) ? A(c + 1) : A(0);"),
+        ("load_block<X, BC>(x + col0, xb);", "for (int c = 0; c < BC; ++c) xb[c] = A(c + 1);")),
+    # a block's bc = 4 x components as one vector load (the FEM plan's
+    # blocks), in the kernel of scalar loads, blocks partly outside [0, n) as 0
+    "x as one vector per block (bc taken as 4)": [[
+        ('#include "value_types.cuh"', '#include "band_window.cuh"\n#include "value_types.cuh"'),
+        ("""    for (int c = 0; c < bc; ++c) {
+      const int64_t col = col0 + c;
+      const A xv = (col >= 0 && col < n) ? A(cask::widen(__ldg(x + col))) : A(0);""",
+         """    A xb[4];
+    if (col0 >= 0 && col0 + 4 <= n) {
+      cask::load_span_shared<X, 4>(x + col0, xb);
+    } else {
+      for (int c = 0; c < 4; ++c) xb[c] = A(0);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const A xv = xb[c];""")]],
+    "one scalar x load a pair (as before the vector)": [[
+        ("const bool whole = n % bc == 0 &&", "const bool whole = false &&")]],
+    "a block of x partly outside [0, n) by scalar loads (a branch)": [[
+        ("      if (col0 >= 0 && col0 < n) {\n        load_block<X, BC>(x + col0, xb);",
+         "      if (col0 >= 0 && col0 + BC <= n) {\n        load_block<X, BC>(x + col0, xb);"),
+        (_SPMV_VEC_LOOP, _SPMV_VEC_LOOP.replace(
+            "xb[c] = A(0);",
+            "xb[c] = col0 + c >= 0 && col0 + c < n ? A(cask::widen(__ldg(x + col0 + c))) : A(0);"))]],
+    "x blocks by plain loads (not the read-only path)": [[
+        (f"__ldg(reinterpret_cast<const {t}*>(p + s))", f"*reinterpret_cast<const {t}*>(p + s)")
+        for t in ("uint4", "uint2", "unsigned", "unsigned short")]],
+    "128-thread blocks": [[("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")]],
+}
+
+
 def _ms(fn) -> float:
     from cask_tpu_torch.tune.timing import time_cuda
 
@@ -506,8 +619,9 @@ extern "C" int run(float* out, int blocks, int iters, void* stream) {
 """
 
 
-def _sparse_csr(a, dev):
-    """The BSR or CSR matrix as an f32 torch sparse CSR tensor on ``dev``."""
+def _sparse_csr(a, dev, dtype=None):
+    """The BSR or CSR matrix as a torch sparse CSR tensor on ``dev``, f32
+    unless ``dtype`` names another type."""
     import numpy as np
     import torch
 
@@ -516,7 +630,8 @@ def _sparse_csr(a, dev):
     s = to_scipy(a).tocsr()
     return torch.sparse_csr_tensor(torch.from_numpy(s.indptr.astype(np.int32)),
                                    torch.from_numpy(s.indices.astype(np.int32)),
-                                   torch.from_numpy(s.data.astype(np.float32)),
+                                   torch.from_numpy(s.data.astype(np.float32)).to(
+                                       dtype or torch.float32),
                                    size=s.shape).to(dev)
 
 
@@ -813,6 +928,87 @@ def _ring_probe(dev, gen) -> None:
     _with_variants("bdia_spmm", bk._mm_lib, libs, run)
 
 
+def _bsr_spmm_probe(dev, gen) -> None:
+    """``--bsr-spmm``: the BSR SpMM entry and its source variants on the FEM
+    matrix at k = 128: f32, bf16 values and X, bf16 values with f32 X."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch.ops.kernels.bsr_kernels as bk
+    from cask_tpu_torch.formats.generate import fem_blocks
+    from cask_tpu_torch.ops.bsr_spmm import BsrSpmmKernel
+
+    libs = _build_variants("bsr_spmm", BSR_VARIANTS, 
+                          focus=r"(?<=\d)bsr_spmm_\w*?kernelI(fff|13__nv_bfloat16S1_S1_"
+                                r"|13__nv_bfloat16fS1_)Li4E")
+    fem = fem_blocks(FEM_NX, dof=4, dtype=np.float32, seed=0, return_bsr=True)
+    p = BsrSpmmKernel.plan(fem, 128, device=dev)
+    ph = dataclasses.replace(p, vals=p.vals.to(torch.bfloat16))
+    print(f"[probe] bsr_spmm FEM plan: {p.n_block_rows} block rows, blocks {p.blocksize}, "
+          f"G {p.G}, K {p.K}", flush=True)
+    X = torch.randn((p.shape[1], 128), generator=gen, device=dev)
+    Xh = X.to(torch.bfloat16)
+    for dt, x in ((torch.float32, X), (torch.bfloat16, Xh)):
+        S = _sparse_csr(fem, dev, dt)
+        print(f"[probe] bsr_spmm k=128: cuSPARSE (torch.sparse_csr_tensor {str(dt)[6:]} @ X "
+              f"{str(dt)[6:]}) {_ms(lambda: S @ x) * 1e3:.1f} us", flush=True)
+        del S
+    for x in (X, Xh):  # the floor of the X and Y streams: a plain copy of X's bytes
+        y = torch.empty_like(x)
+        nbytes = x.numel() * x.element_size()
+        ms = _ms(lambda: y.copy_(x))
+        print(f"[probe] bsr_spmm k=128: plain copy_ of X {str(x.dtype)[6:]} ({nbytes / 1e6:.1f} "
+              f"MB read and written) {ms * 1e3:.1f} us, {2 * nbytes / ms / 1e6:.0f} GB/s",
+              flush=True)
+        del y
+    cases = (("f32", p, X), ("bf16 . bf16", ph, Xh), ("bf16 values, f32 X", ph, X))
+
+    def run(vname):
+        for label, q, x in cases:
+            print(f"[probe] bsr_spmm k=128 {label}, variant '{vname}': "
+                  f"{_ms(lambda: bk.bsr_spmm(q, x)) * 1e3:.1f} us", flush=True)
+    _with_variants("bsr_spmm", bk._lib, libs, run)
+
+
+def _bdia_spmv_probe(dev, gen) -> None:
+    """``--bdia-spmv``: the BDIA SpMV entry and its source variants on the
+    FEM matrix's BDIA plan: f32, bf16 values with f32 x, f16 values and x
+    (f16 y); beside each, a plain ``copy_`` of the value bytes."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+    import cask_tpu_torch.ops.kernels.bdia_kernels as bk
+    from cask_tpu_torch.formats.generate import fem_blocks
+
+    libs = _build_variants("bdia_spmv", BDIA_SPMV_VARIANTS, 
+                          focus=r"(?<=\d)bdia_spmv_\w*?kernelI(fff|13__nv_bfloat16ff"
+                                r"|6__halfS1_S1_)Li4E")
+    fem = fem_blocks(FEM_NX, dof=4, dtype=np.float32, seed=0, return_bsr=True)
+    p = ct.bdia_plan(fem, device=dev)
+    print(f"[probe] bdia_spmv FEM plan: {p.nbr} block rows, blocks {p.blocksize}, block "
+          f"offsets {_runs(p.block_offsets)}, {p.npairs} pairs, tile {p.ts * 128}", flush=True)
+    x = torch.randn(p.shape[1], generator=gen, device=dev)
+    cases = (("f32", p, x), ("bf16 values, f32 x", p.astype(torch.bfloat16), x),
+             ("f16 . f16, f16 y", p.astype(torch.float16), x.half()))
+    for label, q, _ in cases:
+        dst = torch.empty_like(q.vals)
+        nbytes = q.vals.numel() * q.vals.element_size()
+        ms = _ms(lambda: dst.copy_(q.vals))
+        print(f"[probe] bdia_spmv {label}: plain copy_ of the values ({nbytes / 1e6:.1f} MB "
+              f"read and written) {ms * 1e3:.1f} us, {2 * nbytes / ms / 1e6:.0f} GB/s",
+              flush=True)
+        del dst
+
+    def run(vname):
+        for label, q, v in cases:
+            print(f"[probe] bdia_spmv {label}, variant '{vname}': "
+                  f"{_ms(lambda: bk.bdia_spmv(q, v)) * 1e3:.1f} us", flush=True)
+    _with_variants("bdia_spmv", bk._lib, libs, run)
+
+
 def _time_or_refusal(name: str, tag: str, fn) -> None:
     """One ``[probe] types`` line: the call's time, or the version's refusal."""
     try:
@@ -974,7 +1170,8 @@ def main() -> int:
         _sass(sys.argv[sys.argv.index("--sass") + 1])
         return 0
     chosen = {"--poh-spmv": _poh_spmv_probe, "--lell": _lell_probe,
-              "--dia-spmm": _dia_spmm_probe, "--ring": _ring_probe}
+              "--dia-spmm": _dia_spmm_probe, "--ring": _ring_probe,
+              "--bsr-spmm": _bsr_spmm_probe, "--bdia-spmv": _bdia_spmv_probe}
     if any(flag in sys.argv[1:] for flag in chosen):
         for flag, probe in chosen.items():
             if flag in sys.argv[1:]:

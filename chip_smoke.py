@@ -12,8 +12,9 @@ card.  Phases, one line each:
    per instantiation for the redesigned kernels (the slab's tensor-core
    kernel, POH SpMM and SpMV and the LELL kernels, their half
    instantiations too), none of which may spill; the DIA and ring SpMM
-   kernels, which read X through a register window, summarised per source
-   and held to no spills as well.
+   kernels, which read X through a register window, the BSR SpMM kernel
+   that stages its values in shared memory and the BDIA SpMV kernel,
+   summarised per source and held to no spills as well.
 3. small — the BDIA kernel against its plain PyTorch twin on small FEM
    matrices (dof 2/4/8), one with a COO remainder and one with (4, 2)
    blocks, in f32 and f64.
@@ -103,7 +104,8 @@ card.  Phases, one line each:
    ``torch.sparse_csr_tensor``; in bf16 or f16 for the half entries, or
    the refusal where torch does not take it on CUDA), with CUDA events,
    beside the entry's bound; the DIA and ring SpMM rows also print the
-   time PERF.md records for their kernels before the window.
+   time PERF.md records for their kernels before the window, the BSR SpMM
+   and BDIA SpMV rows theirs before their redesign.
 
 The host-side power law (generated once, shared by phases 15-18) and its
 plans add about half a minute of host time.  Every main path (phases 8-19)
@@ -173,8 +175,27 @@ BEFORE_WINDOW_US = {
                           (1013.1, 966.6)))
        for h, us in zip(("bf16", "f16"), uss)},
 }
+# the times of the BSR SpMM and BDIA SpMV [timing] rows (B7, B1/B2) before
+# their redesign (values staged, a block of x in one vector), in us, as
+# PERF.md §6 records them (NVIDIA H100 80GB HBM3, 700 W): printed beside
+# this run's
+BEFORE_REDESIGN_US = {
+    "bdia_spmv f32 [spmv(bsr, x)]": 39.4,
+    "bdia_spmv f32 [BdiaOperator in cg]": 38.8,
+    "bdia_spmv f16 [spmv(bsr_f16, x f16): f16 y]": 30.0,
+    f"bsr_spmm f32 [spmm(bsr, X, method='pallas_bsr'), k={K_WIDE}]": 679.0,
+    **{f"bdia_spmv {h} [spmv(bsr_{h}, x f32)]": us for h, us in (("bf16", 28.9), ("f16", 29.0))},
+    **{f"bdia_spmv {h} [BdiaOperator({h} plan) in cg]": 29.0 for h in ("bf16", "f16")},
+    **{f"bsr_spmm {h} [spmm(bsr_{h}, X {x}, method='pallas_bsr'), k={K_WIDE}]": us
+       for h, x, us in (("bf16", "bf16", 687.4), ("f16", "f16", 675.4),
+                        ("bf16", "f32", 697.2), ("f16", "f32", 691.4))},
+}
 # the windowed kernels (mangled names), summarised per source: no spills allowed
 WINDOWED = r"b?dia_spmm_kernelI\w+?EEv"
+# the BSR SpMM kernel that stages its values in shared memory and the BDIA
+# SpMV kernel (a block of x in one vector), mangled names, summarised per
+# source: no spills allowed
+REDESIGNED_SUMMED = r"(bsr_spmm_staged|bdia_spmv)_kernelI\w+?EEv"
 
 # the instantiations this version redesigned (mangled names): no spills allowed
 REDESIGNED = (r"(slab_spmm_tc_kernelI\w+?EEvPK|poh_spmm_kernelI\w+?Li\d+E"
@@ -909,14 +930,15 @@ def main() -> int:
         print(f"[build] {name}.cu ({t_build:.1f} s for all {len(libs)}, built together); "
               f"ptxas: {len(entries)} kernels, registers {regs}, spill bytes "
               f"{sum(sp for _, _, sp in entries)}", flush=True)
-        windowed = [(r, sp) for kernel, r, sp in entries if re.search(WINDOWED, kernel)]
-        if windowed:
-            spilled = sum(sp for _, sp in windowed)
-            print(f"[build]   {len(windowed)} windowed kernels (dia_spmm_kernel, "
-                  f"bdia_spmm_kernel): registers {min(r for r, _ in windowed)}-"
-                  f"{max(r for r, _ in windowed)}, {spilled} spill bytes", flush=True)
-            if spilled:
-                raise AssertionError(f"{name}.cu: the windowed kernels spill {spilled} bytes")
+        for what, pattern in (("windowed", WINDOWED), ("redesigned", REDESIGNED_SUMMED)):
+            group = [(r, sp) for kernel, r, sp in entries if re.search(pattern, kernel)]
+            if group:
+                spilled = sum(sp for _, sp in group)
+                print(f"[build]   {len(group)} {what} kernels: registers "
+                      f"{min(r for r, _ in group)}-{max(r for r, _ in group)}, {spilled} spill "
+                      f"bytes", flush=True)
+                if spilled:
+                    raise AssertionError(f"{name}.cu: the {what} kernels spill {spilled} bytes")
         for kernel, r, spilled in entries:
             short = re.search(REDESIGNED, kernel)
             if short is None:
@@ -2179,6 +2201,8 @@ def main() -> int:
         earlier = "" if source not in ("dia_spmm", "bdia_spmm") else \
             f" (before the window: {before} us, PERF.md §6)" if before else \
             " (no time recorded before the window)"
+        if name in BEFORE_REDESIGN_US:
+            earlier = f" (before the redesign: {BEFORE_REDESIGN_US[name]} us, PERF.md §6)"
         print(f"[timing] {name}: kernel {ms * 1e3:.1f} us{earlier}, plain twin "
               f"{plain_ms * 1e3:.1f} us, "
               f"{lib_what} {lib_time}; "

@@ -79,6 +79,19 @@ def _remainder_matrix(dtype):
     return csr_to_bsr(from_scipy(s.tocsr().astype(dtype)), (4, 4))
 
 
+def _blocks_on(nb, b, offsets, seed):
+    """Random b×b blocks on the given block offsets, as scipy f64."""
+    rng = np.random.default_rng(seed)
+    s = sp.lil_matrix((nb * b, nb * b))
+    for i in range(nb):
+        for d in offsets:
+            if 0 <= i + d < nb:
+                s[i * b : (i + 1) * b, (i + d) * b : (i + d + 1) * b] = rng.standard_normal((b, b))
+    return s.tocsr()
+
+
+EIGHT_FAR = (-70, -49, -33, -17, -1, 0, 1, 17, 33, 49, 70)  # W = 584 at g = 16
+
 CASES = {
     "fem2": lambda dt: fem_blocks(7, dof=2, dtype=dt, return_bsr=True),
     "fem4": lambda dt: fem_blocks(7, dof=4, dtype=dt, return_bsr=True),
@@ -89,6 +102,19 @@ CASES = {
     "rect4x2": lambda dt: csr_to_bsr(fem_blocks(6, dof=4, dtype=dt), (4, 2)),
     "band_as_blocks": lambda dt: csr_to_bsr(banded(257, 3, seed=5, dtype=dt), (4, 4)),
     "ragged": lambda dt: csr_to_bsr(stencil_2d(11, dtype=dt), (4, 4)),
+    # the vector x blocks' edges: one block row, block rows ragged against
+    # the 256-thread blocks over several of them, one block offset, eight
+    # far ones, bc = 1, and the 80-pair cap
+    "one_block_row": lambda dt: csr_to_bsr(from_scipy(_blocks_on(1, 4, (0,), 39).astype(dt)),
+                                           (4, 4)),
+    "fem4_multi": lambda dt: fem_blocks(23, dof=4, dtype=dt, return_bsr=True),
+    "one_offset": lambda dt: csr_to_bsr(from_scipy(_blocks_on(300, 4, (0,), 40).astype(dt)),
+                                        (4, 4)),
+    "eight_far": lambda dt: csr_to_bsr(from_scipy(_blocks_on(160, 4, EIGHT_FAR, 34)
+                                                  .astype(dt)), (4, 4)),
+    "rect4x1": lambda dt: csr_to_bsr(fem_blocks(6, dof=4, dtype=dt), (4, 1)),
+    "pair_cap": lambda dt: csr_to_bsr(from_scipy(_blocks_on(300, 2, tuple(range(-20, 20)), 41)
+                                                 .astype(dt)), (2, 2)),
 }
 
 
@@ -405,19 +431,6 @@ def test_solver_operator_cg_on_card_matches_cpu(cuda):
 # -- wide-k block SpMM kernels: slab, BDIA ring, BSR ---------------------------
 
 
-def _blocks_on(nb, b, offsets, seed):
-    """Random b×b blocks on the given block offsets, as scipy f64."""
-    rng = np.random.default_rng(seed)
-    s = sp.lil_matrix((nb * b, nb * b))
-    for i in range(nb):
-        for d in offsets:
-            if 0 <= i + d < nb:
-                s[i * b : (i + 1) * b, (i + d) * b : (i + d + 1) * b] = rng.standard_normal((b, b))
-    return s.tocsr()
-
-
-EIGHT_FAR = (-70, -49, -33, -17, -1, 0, 1, 17, 33, 49, 70)  # W = 584 at g = 16
-
 WIDE_CASES = {  # name -> (dtype -> BSR); ragged, rectangular, remainder, far offsets
     "fem4": lambda dt: fem_blocks(16, dof=4, dtype=dt, return_bsr=True),
     "fem2": lambda dt: fem_blocks(16, dof=2, dtype=dt, return_bsr=True),
@@ -432,6 +445,22 @@ WIDE_CASES = {  # name -> (dtype -> BSR); ragged, rectangular, remainder, far of
                                                   .astype(dt)), (4, 4)),
 }
 WIDE_KS = [1, 3, 32, 65, 128, 200]
+# the BSR kernel's edges beside WIDE_CASES: block rows ragged against the
+# staged kernel's 32 a block (16 for a half X) and a single one, K = 1, bc
+# of 1, 8 and 16 (the last past the staged kernel's bc and beyond a block's
+# 8 rows), and one block row of K = 120 (past what a staged block holds)
+BSR_CASES = {
+    **WIDE_CASES,
+    "one_block_row": lambda dt: csr_to_bsr(from_scipy(_blocks_on(1, 4, (0,), 39).astype(dt)),
+                                           (4, 4)),
+    "fem4_ragged": lambda dt: fem_blocks(13, dof=4, dtype=dt, return_bsr=True),
+    "k_one": lambda dt: csr_to_bsr(from_scipy(_blocks_on(50, 4, (0,), 42).astype(dt)), (4, 4)),
+    "blocks2x1": lambda dt: csr_to_bsr(fem_blocks(8, dof=2, dtype=dt), (2, 1)),
+    "fem8": lambda dt: fem_blocks(6, dof=8, dtype=dt, return_bsr=True),
+    "fem16": lambda dt: fem_blocks(3, dof=16, dtype=dt, return_bsr=True),
+    "wide_row": lambda dt: csr_to_bsr(from_scipy(_wide_row().astype(dt)), (4, 4)),
+}
+BSR_KS = [*WIDE_KS, 8, 256]
 # the ring kernel's window (chunks of at most 4 consecutive block offsets, 2
 # for f64 sums, over a warp's block rows): runs longer than a chunk, chunks
 # of one, one block offset, the 80-pair cap, n not a multiple of bc
@@ -452,8 +481,18 @@ RING_CASES = {
 RING_KS = [1, 3, 32, 64, 65, 128, 200]
 
 
+def _wide_row():
+    """Block diagonal 4×4 blocks on 130 block rows, and block row 3 holding
+    120 blocks: K = 120, as scipy f64."""
+    s = _blocks_on(130, 4, (0,), 43).tolil()
+    rng = np.random.default_rng(44)
+    for j in range(120):
+        s[12:16, j * 4 : j * 4 + 4] = rng.standard_normal((4, 4))
+    return s.tocsr()
+
+
 def _wide(name, dtype, k, cuda, seed=30):
-    bsr = RING_CASES[name](dtype)
+    bsr = {**RING_CASES, **BSR_CASES}[name](dtype)
     x = torch.from_numpy(np.random.default_rng(seed).standard_normal((bsr.shape[1], k))
                          .astype(dtype)).to(cuda)
     y_sp = torch.from_numpy(to_scipy(bsr).astype(np.float64) @ x.cpu().double().numpy())
@@ -577,9 +616,9 @@ def test_ring_kernel_matches_twin(cuda, name, dtype, k):
     assert _relerr(y.double().cpu() + y_rem, y_sp) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("name", list(WIDE_CASES))
+@pytest.mark.parametrize("name", list(BSR_CASES))
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("k", WIDE_KS)
+@pytest.mark.parametrize("k", BSR_KS)
 def test_bsr_kernel_matches_twin(cuda, name, dtype, k):
     bsr, x, y_sp = _wide(name, dtype, k, cuda, seed=32)
     p = BsrSpmmKernel.plan(bsr, k, device=cuda)
@@ -993,7 +1032,7 @@ def test_lell_kernel_raises_on_what_it_does_not_take(cuda):
 
 # -- half values of the block and banded kernels (B1-B6, B8-B15): bf16 and f16 ---
 
-BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
+BF16, F16, F32, F64 = torch.bfloat16, torch.float16, torch.float32, torch.float64
 # values and operand: each H or f32, at least one H, for H in bf16 and f16
 HALF_COMBOS = [(h, h) for h in (BF16, F16)] + [(h, F32) for h in (BF16, F16)] \
     + [(F32, h) for h in (BF16, F16)]
@@ -1054,7 +1093,8 @@ def _spmv_out(vdt, xdt):
 
 
 @pytest.mark.parametrize("name", ["fem2", "fem4", "fem8", "fem3_br3", "fem16", "remainder",
-                                  "rect4x2", "ragged"])
+                                  "rect4x2", "ragged", "one_block_row", "fem4_multi",
+                                  "one_offset", "eight_far", "rect4x1", "pair_cap"])
 @pytest.mark.parametrize("vdt,xdt", HALF_COMBOS)
 def test_half_bdia_spmv_matches_twin(cuda, name, vdt, xdt):
     bsr = CASES[name](np.float32)
@@ -1350,9 +1390,13 @@ def test_half_lell_hyb_launches_both_tiers(cuda, name, vdt, xdt):
     _check_half(y, _lell_twin(h.main, h.hub, x), _spmv_out(vdt, xdt))
 
 
-@pytest.mark.parametrize("name", ["fem4", "fem2", "fem3_br3", "fem16", "rect4x2", "ragged"])
+@pytest.mark.parametrize("name", ["fem4", "fem2", "fem3_br3", "fem16", "rect4x2", "ragged",
+                                  "fem8", "remainder", "band_as_blocks", "one_block_row",
+                                  "one_offset", "eight_far", "rect4x1"])
 @pytest.mark.parametrize("vdt,xdt", HALF_COMBOS)
-@pytest.mark.parametrize("k", [1, 12, 65, 128])  # 12, 65: half rows off the 16-byte vectors
+# 12, 65: half rows off the 16-byte vectors; 8: one 16-byte vector a half
+# row; 256: two passes of a half X's 16-lane team
+@pytest.mark.parametrize("k", [1, 8, 12, 65, 128, 256])
 def test_half_bsr_kernel_matches_twin(cuda, name, vdt, xdt, k):
     bsr = CASES[name](np.float32)
     p32 = BsrSpmmKernel.plan(bsr, k, device=cuda)
@@ -1369,6 +1413,50 @@ def test_half_bsr_kernel_matches_twin(cuda, name, vdt, xdt, k):
     else:
         assert _relerr(y, twin32) <= HALF_TOL
     assert bsr_spmm_reference(p, x).dtype == vdt
+
+
+def _misaligned(shape, dt, seed, cuda):
+    """A contiguous operand of ``shape`` whose data starts one element past
+    a 16-byte boundary (off every vector load's alignment)."""
+    n = int(np.prod(shape))
+    buf = _operand(n + 1, dt, seed, cuda)
+    x = buf[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    return x
+
+
+@pytest.mark.parametrize("name", ["fem4", "fem2", "fem8", "rect4x1"])
+@pytest.mark.parametrize("vdt,xdt", [(F32, F32), (F64, F64), *HALF_COMBOS])
+def test_bdia_spmv_takes_a_misaligned_x(cuda, name, vdt, xdt):
+    # x off its vector loads' alignment: a block's components one at a time
+    p = ct.bdia_plan(CASES[name](np.float32 if vdt != F64 else np.float64),
+                     device=cuda).astype(vdt)
+    x = _misaligned((p.shape[1],), xdt, 68, cuda)
+    y = bdia_spmv(p, x)
+    torch.cuda.synchronize()
+    if vdt in (F32, F64):
+        assert _relerr(y, bdia_spmv_reference(p, x)) <= TOL[np.float32 if vdt == F32
+                                                             else np.float64]
+    else:
+        _check_half(y, bdia_spmv_reference(p.astype(F32), x.float()), _spmv_out(vdt, xdt))
+
+
+@pytest.mark.parametrize("name", ["fem4", "fem2", "fem8", "rect4x1"])
+@pytest.mark.parametrize("vdt,xdt", HALF_COMBOS)
+@pytest.mark.parametrize("k", [8, 128])
+def test_half_bsr_kernel_takes_a_misaligned_x(cuda, name, vdt, xdt, k):
+    # X rows off the 16-byte grid: the scalar loads of the fallback kernel
+    bsr = CASES[name](np.float32)
+    p32 = BsrSpmmKernel.plan(bsr, k, device=cuda)
+    p = dataclasses.replace(p32, vals=p32.vals.to(vdt))
+    x = _misaligned((bsr.shape[1], k), xdt, 69, cuda)
+    y = bsr_spmm(p, x)
+    torch.cuda.synchronize()
+    twin32 = bsr_spmm_reference(dataclasses.replace(p, vals=p.vals.float()), x.float())
+    if vdt in (BF16, F16):
+        assert _half_close(y, twin32)
+    else:
+        assert _relerr(y, twin32) <= HALF_TOL
 
 
 def test_half_entry_points_launch_their_kernels(cuda):
@@ -1421,7 +1509,6 @@ def test_cg_over_a_bf16_poh_plan_on_card_matches_cpu(cuda):
 
 # -- the redesigned POH SpMV and LELL kernels (B16, B18): edge plans, every type --
 
-F64 = torch.float64
 ALL_COMBOS = [(F32, F32), (F64, F64)] + HALF_COMBOS
 
 
