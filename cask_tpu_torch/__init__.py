@@ -18,7 +18,14 @@ over a :class:`BdiaOperator` or a :class:`DiaOperator`
 unstructured-matrix path: Matrix Market input (:func:`read_mtx`,
 :func:`write_mtx`), the panel one-hot plan (:func:`poh_plan`) with its CUDA
 SpMV and SpMM kernels, under ``spmv``, ``spmm``, ``transposed`` and CG, and
-the lane-bucketed ELL plans (:func:`lell_plan_hyb`) with their CUDA kernel.
+the lane-bucketed ELL plans (:func:`lell_plan_hyb`) with their CUDA kernel;
+SpGEMM (:func:`spgemm`: a host symbolic plan and a device numeric phase, the
+POH SpMV kernel with A's values bound, or the native core's Gustavson),
+sparse add (:func:`sp_add`, :func:`shift_identity`), the level-scheduled
+and Jacobi triangular solves (:func:`trisolve`), ILU(0) on the native core
+(:func:`ilu0`) and Chow–Patel on the device, and the IC(0) and SSOR
+preconditioners, all over the port's own copy of the native C++
+preprocessing core (:mod:`cask_tpu_torch.native`).
 """
 
 __version__ = "0.1.0"
@@ -35,7 +42,7 @@ from cask_tpu_torch.formats.convert import (  # noqa: F401
 )
 from cask_tpu_torch.formats import generate  # noqa: F401
 from cask_tpu_torch.formats.mtx import read_mtx, write_mtx  # noqa: F401
-from cask_tpu_torch.ops import spmm, spmv  # noqa: F401
+from cask_tpu_torch.ops import ilu0, shift_identity, sp_add, spgemm, spmm, spmv, trisolve  # noqa: F401
 from cask_tpu_torch.ops.spmv import PlanCache, transposed  # noqa: F401
 from cask_tpu_torch.ops.bdia import BdiaMatrix, BdiaOperator, bdia_plan  # noqa: F401
 from cask_tpu_torch.ops.dia import DiaMatrix, DiaOperator, dia_plan, solver_operator  # noqa: F401

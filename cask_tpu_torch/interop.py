@@ -17,7 +17,11 @@ from cask_tpu_torch.ops.bdia_slab import BdiaSlabs
 from cask_tpu_torch.ops.bsr_spmm import BsrSpmmKernel
 from cask_tpu_torch.ops.dia import DiaMatrix
 from cask_tpu_torch.ops.lell import ChunkedLell, HybLell, LellMatrix
+from cask_tpu_torch.ops.add import AddPlan
+from cask_tpu_torch.ops.ilu import ILU0Factors, ilu0_factors
 from cask_tpu_torch.ops.poh import PohMatrix
+from cask_tpu_torch.ops.spgemm import SpGEMMPlan
+from cask_tpu_torch.ops.trisolve import TriSolvePlan
 
 
 def _index(x, name: str) -> np.ndarray:
@@ -195,3 +199,56 @@ def hyb_from_arrays(vals, idx, rem_data, rem_row, rem_col, hub_vals, hub_idx, sl
     hub = ChunkedLell(vals=to_device(hub_vals, device), idx=to_device(hub_idx, device),
                       slot2row=to_device(slot2row, device), shape=main.shape)
     return HybLell(main=main, hub=hub)
+
+
+def spgemm_plan_from_arrays(src_a, src_b, out_id, c_indices, c_indptr, *,
+                            shape: Tuple[int, int], device) -> SpGEMMPlan:
+    """A reference ``SpGEMMPlan``'s five arrays and shape."""
+    src_a, src_b, out_id = (_index(x, name) for x, name in
+                            ((src_a, "src_a"), (src_b, "src_b"), (out_id, "out_id")))
+    c_indices, c_indptr = _index(c_indices, "c_indices"), _index(c_indptr, "c_indptr")
+    m, p = (int(s) for s in shape)
+    if not src_a.shape == src_b.shape == out_id.shape or c_indptr.shape != (m + 1,):
+        raise ValueError("SpGEMM plan arrays disagree with each other or with the shape")
+    return SpGEMMPlan(shape=(m, p), src_a=src_a, src_b=src_b, out_id=out_id,
+                      c_indices=c_indices, c_indptr=c_indptr, device=device)
+
+
+def add_plan_from_arrays(c_indices, c_indptr, a_dst, b_dst, *, shape: Tuple[int, int],
+                         device) -> AddPlan:
+    """A reference ``AddPlan``'s union structure and source maps."""
+    m, n = (int(s) for s in shape)
+    c_indptr = _index(c_indptr, "c_indptr")
+    if c_indptr.shape != (m + 1,):
+        raise ValueError(f"c_indptr must have length {m + 1}")
+    return AddPlan(shape=(m, n), c_indices=_index(c_indices, "c_indices"), c_indptr=c_indptr,
+                   a_dst=_index(a_dst, "a_dst"), b_dst=_index(b_dst, "b_dst"), device=device)
+
+
+def trisolve_plan_from_arrays(lvl_rows, lvl_diag_idx, lvl_ent_local, lvl_ent_col, lvl_ent_idx,
+                              lvl_ent_valid, *, n: int, lower: bool, unit_diag: bool,
+                              device) -> TriSolvePlan:
+    """A reference ``TriSolvePlan``'s ``lvl_*`` arrays and flags (``nlevels``,
+    ``max_rows`` and ``max_ents`` follow from the arrays' shapes)."""
+    rows, diag = (np.asarray(x).astype(np.int32) for x in (lvl_rows, lvl_diag_idx))
+    local, col, idx = (np.asarray(x).astype(np.int32)
+                       for x in (lvl_ent_local, lvl_ent_col, lvl_ent_idx))
+    valid = np.asarray(lvl_ent_valid, dtype=bool)
+    if rows.ndim != 2 or diag.shape != rows.shape or local.ndim != 2 \
+            or not local.shape == col.shape == idx.shape == valid.shape \
+            or local.shape[0] != rows.shape[0]:
+        raise ValueError("level arrays must be (nlevels, max_rows) and (nlevels, max_ents)")
+    return TriSolvePlan(n=int(n), lower=bool(lower), unit_diag=bool(unit_diag),
+                        nlevels=rows.shape[0], max_rows=rows.shape[1], max_ents=local.shape[1],
+                        lvl_rows=rows, lvl_diag_idx=diag, lvl_ent_local=local, lvl_ent_col=col,
+                        lvl_ent_idx=idx, lvl_ent_valid=valid, device=device)
+
+
+def ilu0_factors_from_arrays(data, indices, indptr, shape: Tuple[int, int], *,
+                             device) -> ILU0Factors:
+    """A reference ``ILU0Factors``' combined LU values on A's pattern (its
+    ``lu`` CSR's arrays); the solve plans are planned from the pattern, as
+    the reference plans them."""
+    return ilu0_factors(CSR(data=np.asarray(data), indices=_index(indices, "indices"),
+                            indptr=_index(indptr, "indptr"),
+                            shape=(int(shape[0]), int(shape[1]))), device=device)

@@ -99,16 +99,40 @@ card.  Phases, one line each:
    spmm(bsr_h, X, method="pallas_bsr") on the FEM matrix at k = 128; each
    with its operand in the half type and in f32, against its twin and
    scipy f64 of the rounded inputs.
+19c. trisolve — the level-scheduled solve (``trisolve``, exact: f64 against
+   scipy's ``spsolve_triangular``) and five Jacobi sweeps (five ``dia_spmv``
+   launches; five ``dia_spmm`` on an (n, 32) block) on the lower and upper
+   triangles of the 4,194,304-row stencil, each held to its twin's sweeps
+   and to the same sweeps in scipy f64.
+19d. ilu-cg — the slice's main path: ``cg(solver_operator(S), b, M=...)`` on
+   S = I + that stencil in f64 and f32, with ``ilu0(S)`` (the native core)
+   applied exactly (``apply``) and by five Jacobi sweeps a triangle
+   (``jacobi_applier(5)``: ten ``dia_spmv`` launches an apply), ``ic0(S)``
+   and ``ssor(S, 1.0)``, and no preconditioner; the operator's kernel once
+   an iteration, each true residual in f64 on the host, the f32 solves
+   within 2 iterations of the f64 ones.
+19e. ilu-device — Chow–Patel ``ilu0_device(S, sweeps=8)`` at full size: its
+   fixed-point residual and its distance to the host factors.
+19f. spgemm — ``spgemm`` of the 1,048,576-row stencil by itself and by
+   ``random_uniform(1_048_576, density=5e-6)`` (auto: the plan path, C on
+   the card) and of ``power_law(10_000, avg_degree=8)`` by itself (auto: the
+   native core, above 30 M products), f32 and f64 against scipy; each plan's
+   gather numeric and its POH numeric (``bind_poh``: one ``poh_spmv``
+   launch); ``sp_add`` and ``shift_identity``.  The port's native core is
+   built with g++ beside the kernels in phase 2 (``[native]``).
 20. timing — each kernel entry, its plain twin and the one PyTorch call
    that computes the same product (a cuSPARSE product through
    ``torch.sparse_csr_tensor``; in bf16 or f16 for the half entries, or
    the refusal where torch does not take it on CUDA), with CUDA events,
    beside the entry's bound; the DIA and ring SpMM rows also print the
    time PERF.md records for their kernels before the window, the BSR SpMM
-   and BDIA SpMV rows theirs before their redesign.
+   and BDIA SpMV rows theirs before their redesign.  Then the slice's paths
+   that are no kernel of their own: the exact ILU(0) apply (beside two
+   ``torch.triangular_solve`` calls on the sparse factors), its Jacobi
+   apply and SpGEMM's gather numeric (beside a cuSPARSE sparse product).
 
 The host-side power law (generated once, shared by phases 15-18) and its
-plans add about half a minute of host time.  Every main path (phases 8-19)
+plans add about half a minute of host time.  Every main path (phases 8-19f)
 runs with all launch counts set to 0 just before it and read just after,
 and must launch its kernel; its result must match the twin and scipy
 (f64, host).  It needs one CUDA device and exits
@@ -136,6 +160,10 @@ K_WIDE = 128  # BASELINE config 3's wide k; above 64 the BDIA plan's wide-k chai
 PL_N = 1_000_000  # power-law rows and columns for the unstructured path
 PL_DEGREE = 12
 PL_SEED = 3
+GRID_SPGEMM = 1024  # stencil side for A·A and A·B on the SpGEMM plan path: 26.2 M products
+SPGEMM_B_DENSITY = 5e-6  # B = random_uniform(1_048_576, density=5e-6, seed=1)
+PL_SMALL_N = 10_000  # power_law(10_000, avg_degree=8, seed=3): A·A, 39.3 M products (native)
+JACOBI_SWEEPS = 5  # Jacobi-Richardson sweeps a triangle
 SCIPY_COLS = 8  # columns of a k = 128 product also held against scipy f64 on the host
 SEED = 0
 F32_TOL = 1e-5  # normwise relative; f32 sums of a few dozen products, same order
@@ -871,6 +899,477 @@ def small_half(rng, dev) -> None:
           + f"; tol {BF16_TOL:.0e}, half out 1 ulp of the twin's f32 sum", flush=True)
 
 
+def _build_native():
+    """Build the port's copy of the native core with g++ (started beside the
+    nvcc builds): (library path, seconds, whether this run built it)."""
+    from cask_tpu_torch.native import binding
+    from cask_tpu_torch.native import build as native_build
+
+    fresh = not native_build.library_path().exists()
+    t0 = time.perf_counter()
+    path = native_build.lib_path()
+    secs = time.perf_counter() - t0
+    if path is None or not binding.available():
+        raise AssertionError("the native core did not build (g++ on native/src/preprocess.cpp)")
+    return path, secs, fresh
+
+
+def _csr_of(s):
+    """A canonical scipy CSR as the port's host CSR, without a re-sort."""
+    import numpy as np
+
+    from cask_tpu_torch.formats.matrix import CSR
+
+    s = s.tocsr()
+    s.sum_duplicates()  # canonical: sorted indices, no duplicates
+    return CSR(data=s.data, indices=s.indices.astype(np.int32),
+               indptr=s.indptr.astype(np.int32), shape=s.shape)
+
+
+def _sync_seconds(fn):
+    """(result, host seconds) of ``fn()`` up to a device synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _jacobi_sweeps_f64(s64, b, lower, sweeps):
+    """The Jacobi-Richardson sweeps of a triangle in scipy f64 on the host."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    d = s64.diagonal()
+    strict = (sp.tril(s64, k=-1) if lower else sp.triu(s64, k=1)).tocsr()
+    scale = (1.0 / d) if b.ndim == 1 else (1.0 / d)[:, None]
+    x = b * scale
+    for _ in range(sweeps):
+        x = (b - strict @ x) * scale
+    return np.asarray(x)
+
+
+def _all_launches() -> int:
+    return sum(fn.launches for fn in _counters().values())
+
+
+def trisolve_phase(dev, st_sp, rng):
+    """[trisolve]: the level-scheduled and the Jacobi solve on the lower and
+    upper triangles of the 4M-row stencil, on a vector and an (n, K) block.
+    Returns the timing rows of the Jacobi sweeps' kernels and the lower
+    triangle's plans."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    import cask_tpu_torch as ct
+    from cask_tpu_torch.ops.kernels.dia_kernels import (dia_spmm, dia_spmm_reference,
+                                                        dia_spmv, dia_spmv_reference)
+    from cask_tpu_torch.ops.trisolve import jacobi_trisolve_plan, trisolve_plan
+
+    n = st_sp.shape[0]
+    rows = []
+    b = rng.standard_normal(n)
+    B = rng.standard_normal((n, K)).astype(np.float32)
+    for side, lower in (("lower", True), ("upper", False)):
+        s64 = (sp.tril(st_sp) if lower else sp.triu(st_sp)).tocsr().astype(np.float64)
+        a64 = _csr_of(s64)
+        plan, t_plan = _sync_seconds(lambda: trisolve_plan(a64, lower=lower, device=dev))
+        b_dev = torch.from_numpy(b).to(dev)
+        _reset()
+        ct.trisolve(a64, b_dev, lower=lower, plan=plan)  # warm
+        x, t_lev = _sync_seconds(lambda: ct.trisolve(a64, b_dev, lower=lower, plan=plan))
+        if _all_launches():
+            raise AssertionError("the level sweep launched a kernel of the port")
+        x_sp = spla.spsolve_triangular(s64, b, lower=lower)
+        err_lev = _relerr(x, torch.from_numpy(x_sp))
+        _check(f"4M {side} trisolve levels f64 vs scipy", err_lev, F64_TOL)
+        Xb = ct.trisolve(_csr_of(s64.astype(np.float32)), torch.from_numpy(B).to(dev),
+                         lower=lower, plan=plan)
+        torch.cuda.synchronize()
+        X_sp = spla.spsolve_triangular(s64, B[:, :SCIPY_COLS].astype(np.float64), lower=lower)
+        err_blk = _relerr(Xb[:, :SCIPY_COLS], torch.from_numpy(X_sp))
+        _check(f"4M {side} trisolve levels f32 (n, {K}) vs scipy f64", err_blk, F32_TOL)
+        # Jacobi, f32: five sweeps, each one DIA kernel launch (B8; B12-B15 on the block)
+        a32 = _csr_of(s64.astype(np.float32))
+        jplan, t_jplan = _sync_seconds(lambda: jacobi_trisolve_plan(a32, lower=lower,
+                                                                    device=dev))
+        if not isinstance(jplan.strict, ct.DiaMatrix) or jplan.strict.rem_data.numel():
+            raise AssertionError(f"the {side} triangle's strict part is not a pure DIA plan")
+        b32 = b_dev.float()
+        _reset()
+        xj, t_jac = _sync_seconds(lambda: ct.trisolve(a32, b32, lower=lower,
+                                                      method="jacobi", plan=jplan))
+        launches_v = _launched("dia_spmv", f"trisolve({side}, method='jacobi')")
+        xj_twin = _jacobi_twin(jplan, b32, dia_spmv_reference)
+        err_jt = _relerr(xj, xj_twin)
+        _check(f"4M {side} jacobi kernel vs twin", err_jt, F32_TOL)
+        x_ref = _jacobi_sweeps_f64(s64, b32.cpu().double().numpy(), lower, JACOBI_SWEEPS)
+        err_js = _relerr(xj, torch.from_numpy(x_ref))
+        _check(f"4M {side} jacobi vs scipy f64 sweeps", err_js, F32_TOL)
+        B_dev = torch.from_numpy(B).to(dev)
+        _reset()
+        Xj, t_jblk = _sync_seconds(lambda: jplan.solve(B_dev, sweeps=JACOBI_SWEEPS))
+        launches_m = _launched("dia_spmm", f"trisolve({side}, (n, {K}), method='jacobi')")
+        if (launches_v, launches_m) != (JACOBI_SWEEPS, JACOBI_SWEEPS):
+            raise AssertionError(f"{side} jacobi: dia_spmv {launches_v}, dia_spmm {launches_m} "
+                                 f"launches, not {JACOBI_SWEEPS} each")
+        err_bt = _relerr(Xj, _jacobi_twin(jplan, B_dev, dia_spmm_reference))
+        _check(f"4M {side} jacobi (n, {K}) kernel vs twin", err_bt, F32_TOL)
+        X_ref = _jacobi_sweeps_f64(s64, B[:, :SCIPY_COLS].astype(np.float64), lower,
+                                   JACOBI_SWEEPS)
+        _check(f"4M {side} jacobi (n, {K}) vs scipy f64 sweeps",
+               _relerr(Xj[:, :SCIPY_COLS], torch.from_numpy(X_ref)), F32_TOL)
+        print(f"[trisolve] {side} triangle of stencil_2d({GRID_SPMV}): {n} rows, "
+              f"{s64.nnz} entries, {plan.nlevels} levels of at most {plan.max_rows} rows "
+              f"({plan.max_ents} entries); plan {t_plan:.1f} s; levels solve f64 {t_lev:.3f} s "
+              f"(host clock, a warm call), vs scipy f64 {err_lev:.2e} (tol {F64_TOL:.0e}); "
+              f"(n, {K}) f32 vs scipy f64 {err_blk:.2e} on {SCIPY_COLS} columns; jacobi f32, "
+              f"{JACOBI_SWEEPS} sweeps (strict part: DIA plan, offsets "
+              f"{jplan.strict.offsets}; plan {t_jplan:.1f} s): {t_jac * 1e3:.2f} ms (host "
+              f"clock, with its first launch), dia_spmv launches {launches_v}, vs twin "
+              f"{err_jt:.2e}, vs scipy f64 sweeps {err_js:.2e} (tol {F32_TOL:.0e}), vs the "
+              f"exact solve {_relerr(xj, torch.from_numpy(x_sp)):.2e}; (n, {K}): "
+              f"{t_jblk * 1e3:.2f} ms, dia_spmm launches {launches_m}, vs twin {err_bt:.2e}",
+              flush=True)
+        if lower:
+            strict_sp = sp.tril(s64, k=-1).tocsr().astype(np.float32)
+            d = jplan.strict
+            m_rows = d.shape[0]
+            rows += [
+                (f"dia_spmv f32 [trisolve(L, b, method='jacobi'): one of {JACOBI_SWEEPS} "
+                 f"sweeps, stencil_2d({GRID_SPMV})]", "dia_spmv", f"{DIA_PY}:176 (B8)",
+                 lambda d=d, x=b32: dia_spmv(d, x), lambda d=d, x=b32: dia_spmv_reference(d, x),
+                 strict_sp, b32, (d.vals.numel() + 2 * m_rows) * 4, 2 * d.vals.numel(),
+                 launches_v, float((xj - xj_twin).abs().max()), torch.float32),
+                (f"dia_spmm f32 [trisolve(L, B, method='jacobi'), B (n, {K}): one of "
+                 f"{JACOBI_SWEEPS} sweeps]", "dia_spmm",
+                 f"{DIA_PY}:1148 (B14, k <= 64), :789 (B12)",
+                 lambda d=d, X=B_dev: dia_spmm(d, X),
+                 lambda d=d, X=B_dev: dia_spmm_reference(d, X), strict_sp, B_dev,
+                 (d.vals.numel() + 2 * m_rows * K) * 4, 2 * d.vals.numel() * K, launches_m,
+                 float((Xj - _jacobi_twin(jplan, B_dev, dia_spmm_reference)).abs().max()),
+                 torch.float32)]
+        del plan, Xb, Xj, B_dev
+    return rows
+
+
+def _jacobi_twin(jplan, b, twin):
+    """The plan's sweeps with the DIA kernel's plain twin in its place."""
+    scale = jplan.dinv if b.ndim == 1 else jplan.dinv[:, None]
+    x = b * scale
+    for _ in range(JACOBI_SWEEPS):
+        x = (b - twin(jplan.strict, x)) * scale
+    return x
+
+
+def ilu_cg_phase(dev, s_sp, card):
+    """[ilu-cg]: cg(S, b) on S = I + stencil_2d(GRID_SPMV) with ILU(0) (the
+    exact level apply and five Jacobi sweeps a triangle), IC(0), SSOR and no
+    preconditioner as M, in f64 and f32.  Returns the host factors and
+    timing rows."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import cask_tpu_torch as ct
+    from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmv, dia_spmv_reference
+
+    s64 = s_sp.astype(np.float64)
+    b_host = np.random.default_rng(SEED + 1).standard_normal(s_sp.shape[0])
+    out = {"rows": [], "extra": []}
+    iters = {}
+    for dt, np_dt in ((torch.float64, np.float64), (torch.float32, np.float32)):
+        ty = _short(dt)
+        S = _csr_of(s64.astype(np_dt))
+        op = ct.solver_operator(S)
+        f, t_ilu = _sync_seconds(lambda: ct.ilu0(S, use_native=True))
+        f.jacobi_applier(JACOBI_SWEEPS)  # the Jacobi plans, built once
+        ic, t_ic = _sync_seconds(lambda: ct.solvers.ic0(S))
+        ss, t_ss = _sync_seconds(lambda: ct.solvers.ssor(S, 1.0))
+        print(f"[ilu-cg] {ty}: S = I + stencil_2d({GRID_SPMV}), {S.shape[0]} rows, nnz {S.nnz}: "
+              f"ilu0(S, use_native=True) {t_ilu:.1f} s (host: the native core, then the two "
+              f"level plans: L {f._lower_plan.nlevels} levels of at most "
+              f"{f._lower_plan.max_rows} rows, U {f._upper_plan.nlevels}); ic0 {t_ic:.1f} s, "
+              f"ssor {t_ss:.1f} s", flush=True)
+        b = torch.from_numpy(b_host.astype(np_dt)).to(dev)
+        precs = (("ilu0 levels", f.apply, 0), ("ilu0 jacobi(5)",
+                                               f.jacobi_applier(JACOBI_SWEEPS),
+                                               2 * JACOBI_SWEEPS),
+                 ("ic0 levels", ic.apply, 0), ("ssor(1.0) levels", ss, 0), ("none", None, 0))
+        for name, M, per_apply in precs:
+            _reset()
+            res, t_cg = _sync_seconds(lambda: ct.solvers.cg(op, b, tol=1e-6, maxiter=500, M=M))
+            launches = _launched("dia_spmv", f"cg with {name}")
+            want = (res.iterations + 1) * (1 + per_apply)
+            if launches != want:
+                raise AssertionError(f"{ty} cg with {name}: dia_spmv launched {launches} times, "
+                                     f"want {want} (the operator once an iteration, "
+                                     f"{per_apply} a preconditioner apply)")
+            if not res.converged:
+                raise AssertionError(f"{ty} cg with {name} did not converge: {res.iterations} "
+                                     f"iterations, residual {res.residual_norm:.3e}")
+            x64 = res.x.cpu().double().numpy()
+            bb = b.cpu().double().numpy()
+            true_rel = float(np.linalg.norm(bb - s64 @ x64) / np.linalg.norm(bb))
+            if not true_rel <= 1e-5:
+                raise AssertionError(f"{ty} cg with {name}: true relative residual "
+                                     f"{true_rel:.3e} > 1e-5")
+            iters[(ty, name)] = res.iterations
+            share = ""
+            if M is not None:  # the apply's share of the solve: one apply, timed alone
+                _, t_m = _sync_seconds(lambda: M(b))
+                share = (f", one apply {t_m * 1e3:.1f} ms, applies "
+                         f"{min(t_m * (res.iterations + 1) / t_cg, 1.0):.2f} of the solve")
+            print(f"[ilu-cg] {ty} cg(S, b, M={name}), tol 1e-6: {res.iterations} iterations, "
+                  f"{t_cg * 1e3:.1f} ms = {t_cg / max(res.iterations, 1) * 1e3:.2f} ms per "
+                  f"iteration (host clock){share}; dia_spmv launches {launches}; true "
+                  f"relative residual {true_rel:.2e} (f64 host, tol 1e-5)", flush=True)
+            if ty == "f32" and name == "ilu0 levels":
+                out["rows"].append(
+                    ("dia_spmv f32 [solver_operator in cg(S, b, M=ilu0(S).apply)]", "dia_spmv",
+                     f"{DIA_PY}:336 (B9), :511 (B10), :650 (B11)",
+                     lambda d=op.dia, v=b: dia_spmv(d, v),
+                     lambda d=op.dia, v=b: dia_spmv_reference(d, v), s_sp, b,
+                     (op.dia.vals.numel() + 2 * op.dia.shape[0]) * 4,
+                     2 * op.dia.vals.numel(), launches,
+                     float((op(b) - op.dia._spmv_reference(b)).abs().max()), torch.float32))
+            if ty == "f32" and name == "ilu0 jacobi(5)":
+                lp, _ = f._jacobi_plans()
+                strict_sp = sp.tril(ct.to_scipy(f.lu), k=-1).tocsr()
+                out["rows"].append(
+                    (f"dia_spmv f32 [cg(S, b, M=ilu0(S).jacobi_applier({JACOBI_SWEEPS})): "
+                     f"a sweep of L]", "dia_spmv", f"{DIA_PY}:176 (B8)",
+                     lambda d=lp.strict, v=b: dia_spmv(d, v),
+                     lambda d=lp.strict, v=b: dia_spmv_reference(d, v), strict_sp, b,
+                     (lp.strict.vals.numel() + 2 * lp.strict.shape[0]) * 4,
+                     2 * lp.strict.vals.numel(), launches - (res.iterations + 1),
+                     float((dia_spmv(lp.strict, b) - dia_spmv_reference(lp.strict, b))
+                           .abs().max()), torch.float32))
+        if ty == "f32":
+            lib = _lib_ilu_apply(f, dev, b)
+            out["extra"] += [
+                ("trisolve levels f32 [ilu0(S).apply(r): L then U, "
+                 f"{f._lower_plan.nlevels} + {f._upper_plan.nlevels} levels]",
+                 lambda f=f, v=b: f.apply(v), lib),
+                (f"trisolve jacobi f32 [ilu0(S).apply(r, method='jacobi'), {JACOBI_SWEEPS} "
+                 f"sweeps a triangle: {2 * JACOBI_SWEEPS} dia_spmv launches]",
+                 lambda f=f, v=b: f.apply(v, method="jacobi", sweeps=JACOBI_SWEEPS), None)]
+            out["f32"] = f
+        else:
+            out["f64"], out["S64"] = f, S
+        del ic, ss
+    for name in ("ilu0 levels", "ilu0 jacobi(5)", "ic0 levels", "ssor(1.0) levels", "none"):
+        if abs(iters[("f32", name)] - iters[("f64", name)]) > 2:
+            raise AssertionError(f"cg with {name}: {iters[('f32', name)]} iterations in f32 "
+                                 f"against {iters[('f64', name)]} in f64")
+    print(f"[ilu-cg] iterations f64 / f32: " + ", ".join(
+        f"{name} {iters[('f64', name)]} / {iters[('f32', name)]}"
+        for name in ("ilu0 levels", "ilu0 jacobi(5)", "ic0 levels", "ssor(1.0) levels",
+                     "none")) + " (f32 within 2 of f64); card " + card, flush=True)
+    return out
+
+
+def _lib_ilu_apply(f, dev, r):
+    """The exact ILU(0) apply through two cuSPARSE triangular solves
+    (``torch.triangular_solve`` on the sparse L and U), or the refusal: the
+    yardstick beside the level sweep.  (label, callable or None)."""
+    import torch
+
+    from cask_tpu_torch.formats.convert import to_scipy
+
+    low, up = f.split()
+    L, U = (_sparse_csr(to_scipy(m), dev, torch.float32) for m in (low, up))
+
+    def two_solves(r):
+        y = torch.triangular_solve(r[:, None], L, upper=False, unitriangular=True).solution
+        return torch.triangular_solve(y, U, upper=True).solution[:, 0]
+
+    try:
+        err = _relerr(two_solves(r), f.apply(r))
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return (f"two torch.triangular_solve on sparse CSR refused: "
+                f"{str(e).splitlines()[0][:160]}", None)
+    return (f"two torch.triangular_solve on sparse CSR (cuSPARSE), {err:.1e} from the level "
+            f"sweep", lambda: two_solves(r))
+
+
+def ilu_device_phase(dev, S64, f64):
+    """[ilu-device]: Chow–Patel ILU(0) at full size against the host factors."""
+    import numpy as np
+    import torch
+
+    from cask_tpu_torch.ops.ilu import ILU0DeviceFactors, ilu0_device_plan
+
+    plan, t_plan = _sync_seconds(lambda: ilu0_device_plan(S64))
+    vals, t_fac = _sync_seconds(lambda: plan.factorize(sweeps=8))
+    res = float(plan.residual(vals))
+    host = torch.from_numpy(f64.lu.data)
+    dist = _relerr(vals, host)
+    if not (res <= 1e-4 and dist <= 1e-4):
+        raise AssertionError(f"Chow–Patel, 8 sweeps: residual {res:.2e}, distance to the host "
+                             f"factors {dist:.2e} (tol 1e-4 each)")
+    r = torch.from_numpy(np.random.default_rng(SEED + 2).standard_normal(S64.shape[0])).to(dev)
+    z = ILU0DeviceFactors(plan=plan, vals=vals).apply(r)
+    z_host = f64.apply(r)
+    err = _relerr(z, z_host)
+    _check("Chow–Patel apply vs the host factors' apply", err, 1e-3)
+    print(f"[ilu-device] ilu0_device(S, sweeps=8) at full size ({S64.shape[0]} rows: the pair "
+          f"enumeration is vectorized, its arrays equal the reference's in "
+          f"tests/test_torch_trisolve.py): plan {t_plan:.1f} s (host, {plan.pair_out.numel()} "
+          f"pairs), 8 sweeps {t_fac * 1e3:.1f} ms (host clock); residual {res:.2e}, distance "
+          f"to the host factors {dist:.2e} (tol 1e-4 each); apply vs the host factors' "
+          f"{err:.2e} (tol 1e-3)", flush=True)
+    del plan, vals
+
+
+def _rel_sparse(c, ref) -> float:
+    """Normwise relative distance of a port CSR (device or host) to a scipy
+    matrix, in f64 on the host."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from cask_tpu_torch.formats.convert import to_scipy
+
+    d = to_scipy(c).astype(np.float64) - ref
+    return float(sp.linalg.norm(d) / sp.linalg.norm(ref))
+
+
+def spgemm_phase(dev, rng, card):
+    """[spgemm]: A·A of the 1M-row stencil and A·B with a random B through
+    ``spgemm`` (auto: the plan path), A·A of a power law on the plan path and
+    through auto (the native core); each product's POH numeric (A bound, one
+    ``poh_spmv`` launch) against the gather numeric; sp_add and
+    shift_identity; f32 and f64 against scipy f64.  Returns the timing
+    rows."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import cask_tpu_torch as ct
+    from cask_tpu_torch.formats.generate import power_law, random_uniform, stencil_2d
+    from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmv, poh_spmv_reference
+    from cask_tpu_torch.ops.spgemm import _NATIVE_THRESHOLD, expansion_size, spgemm_plan
+
+    st = stencil_2d(GRID_SPGEMM)
+    n = st.shape[0]
+    rand_b = random_uniform(n, density=SPGEMM_B_DENSITY, seed=1)
+    pl = power_law(PL_SMALL_N, avg_degree=8, seed=3)
+    cases = (("A·A, A = stencil_2d", st, st, "plan"), ("A·B, B = random_uniform", st, rand_b,
+                                                       "plan"),
+             ("A·A, A = power_law", pl, pl, "native"))
+    rows, extra = [], []
+    for what, a64, b64, auto_route in cases:
+        e = expansion_size(a64, b64)
+        if (e > _NATIVE_THRESHOLD) != (auto_route == "native"):
+            raise AssertionError(f"{what}: expansion {e} against the threshold "
+                                 f"{_NATIVE_THRESHOLD} does not give the {auto_route} route")
+        ref = (ct.to_scipy(a64) @ ct.to_scipy(b64)).tocsr()
+        # the symbolic phase depends on the patterns only: one plan for both types
+        plan, t_plan = _sync_seconds(lambda: spgemm_plan(a64, b64))
+        for np_dt, tol in ((np.float32, F32_TOL), (np.float64, F64_TOL)):
+            ty = _short(torch.float32 if np_dt == np.float32 else torch.float64)
+            a, b = a64.astype(np_dt), b64.astype(np_dt)
+            c_auto, t_auto = _sync_seconds(lambda: ct.spgemm(a, b))
+            # the plan path leaves C on the card, the native core gives a host CSR
+            route = "plan" if isinstance(c_auto.data, torch.Tensor) else "native"
+            if route != auto_route or (route == "plan" and c_auto.data.device.type != dev.type):
+                raise AssertionError(f"{what} {ty}: spgemm(a, b) took the {route} route, "
+                                     f"not the {auto_route} route onto {dev}")
+            a_d, b_d = torch.from_numpy(a.data).to(dev), torch.from_numpy(b.data).to(dev)
+            c, t_num = _sync_seconds(lambda: plan.numeric(a_d, b_d))
+            err_num = _rel_sparse(c, ref)
+            _check(f"{what} {ty} gather numeric vs scipy", err_num, tol)
+            # the plan route's C is the numeric's on the same structure (on the
+            # card, summed in another order); the native core's is a host CSR
+            err_auto = (_relerr(c_auto.data, c.data) if route == "plan"
+                        else _rel_sparse(c_auto, ref))
+            _check(f"{what} {ty} spgemm auto vs {'the numeric' if route == 'plan' else 'scipy'}",
+                   err_auto, tol)
+            del c_auto
+            bound, t_bind = _sync_seconds(lambda: plan.bind_poh(a.data, nnz_b=b.nnz))
+            _reset()
+            cp, t_poh = _sync_seconds(lambda: bound(b_d))
+            launches = _launched("poh_spmv", f"{what} {ty} PohNumeric")
+            if launches != 1:
+                raise AssertionError(f"{what} {ty} PohNumeric launched poh_spmv {launches} "
+                                     f"times, not 1")
+            err_poh = _relerr(cp.data, c.data)
+            _check(f"{what} {ty} POH numeric vs gather numeric", err_poh, tol)
+            line = (f"[spgemm] {what} {ty}: expansion {plan.expansion}, C {plan.shape} nnz "
+                    f"{plan.nnz}; spgemm(a, b) {t_auto:.2f} s (route {auto_route}), vs "
+                    f"{'the numeric' if route == 'plan' else 'scipy f64'} {err_auto:.2e}; "
+                    f"plan {t_plan:.2f} s (host, once for both types), "
+                    f"numeric {t_num * 1e3:.1f} ms, vs scipy {err_num:.2e}; bind_poh "
+                    f"{t_bind:.2f} s ({bound._poh.ntiles} tiles), POH numeric "
+                    f"{t_poh * 1e3:.1f} ms (launches {launches}), vs the gather numeric "
+                    f"{err_poh:.2e} (tol {tol:.0e})")
+            if auto_route == "native":
+                c_nat, t_nat = _sync_seconds(lambda: ct.spgemm(a, b, backend="native"))
+                if not isinstance(c_nat.data, np.ndarray):
+                    raise AssertionError("backend='native' did not give a host CSR")
+                line += f"; backend='native' {t_nat:.2f} s (host)"
+            print(line + f"; card {card}", flush=True)
+            if ty == "f32" and what.startswith("A·A, A = stencil"):
+                m_sp = sp.csr_matrix((a.data[plan.src_a], plan.src_b,
+                                      np.concatenate([[0], np.cumsum(np.bincount(
+                                          plan.out_id, minlength=plan.nnz))])),
+                                     shape=(plan.nnz, b.nnz))
+                p = bound._poh
+                rows.append((f"poh_spmv f32 [PohNumeric: A·A of stencil_2d({GRID_SPGEMM}), A "
+                             f"bound]", "poh_spmv", f"{POH_PY}:388 (B16)",
+                             lambda p=p, v=b_d: poh_spmv(p, v),
+                             lambda p=p, v=b_d: poh_spmv_reference(p, v), m_sp, b_d,
+                             _pack_bytes(p.vals, 8) + p.ntiles * 4 + (b.nnz + plan.nnz) * 4,
+                             2 * plan.expansion, launches,
+                             float((cp.data - poh_spmv_reference(p, b_d)).abs().max()),
+                             torch.float32))
+                A_lib = _sparse_csr(ct.to_scipy(a), dev, torch.float32)
+                extra.append((f"spgemm gather numeric f32 [plan.numeric: A·A of "
+                              f"stencil_2d({GRID_SPGEMM}), {plan.expansion} products]",
+                              lambda plan=plan, x=a_d, y=b_d: plan.numeric(x, y),
+                              _lib_spgemm(A_lib, c)))
+            del bound, c, cp
+        del plan
+    # sp_add and shift_identity on the stencil
+    for np_dt, tol in ((np.float32, F32_TOL), (np.float64, F64_TOL)):
+        a = st.astype(np_dt)
+        s_ref = ct.to_scipy(st)
+        c_add, t_add = _sync_seconds(lambda: ct.sp_add(a, a, alpha=2.0, beta=-0.5))
+        err_add = _rel_sparse(c_add, 1.5 * s_ref)
+        _check(f"sp_add {np_dt.__name__} vs scipy", err_add, tol)
+        c_sh, t_sh = _sync_seconds(lambda: ct.shift_identity(a, -2.5))
+        err_sh = _rel_sparse(c_sh, s_ref - 2.5 * sp.identity(n, format="csr"))
+        _check(f"shift_identity {np_dt.__name__} vs scipy", err_sh, tol)
+        if c_add.data.device.type != dev.type or c_sh.data.device.type != dev.type:
+            raise AssertionError(f"sp_add / shift_identity did not put C on {dev}")
+        print(f"[spgemm] {np_dt.__name__}: sp_add(A, A, 2, -0.5) {t_add:.2f} s (plan + numeric), "
+              f"vs scipy f64 {err_add:.2e}; shift_identity(A, -2.5) {t_sh:.2f} s, vs scipy "
+              f"{err_sh:.2e} (tol {tol:.0e})", flush=True)
+    return rows, extra
+
+
+def _lib_spgemm(A, c):
+    """``A @ A`` of a torch sparse CSR on the card (cuSPARSE SpGEMM), the
+    yardstick beside the gather numeric, or the refusal: (label, callable
+    or None)."""
+    import torch
+
+    try:
+        C = A @ A
+        torch.cuda.synchronize()
+        err = abs(float(C.values().double().sum()) - float(c.data.double().sum()))
+    except (RuntimeError, NotImplementedError) as e:
+        return (f"torch.sparse_csr_tensor @ torch.sparse_csr_tensor refused: "
+                f"{str(e).splitlines()[0][:160]}", None)
+    return (f"torch.sparse_csr_tensor @ torch.sparse_csr_tensor (cuSPARSE SpGEMM; sum of C "
+            f"{err:.1e} from the numeric's)", lambda: A @ A)
+
+
 def main() -> int:
     import torch
 
@@ -878,6 +1377,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this check runs on a GPU",
               file=sys.stderr)
         return 1
+
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
     import scipy.sparse as sp
@@ -922,7 +1423,10 @@ def main() -> int:
     t_lap = _lap("device", t_lap)
     # -- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
-    libs = build.build_all(KERNELS)
+    with ThreadPoolExecutor(max_workers=1) as pool:  # g++ for the native core beside them
+        native = pool.submit(_build_native)
+        libs = build.build_all(KERNELS)
+        native_path, t_native, native_fresh = native.result()
     t_build = time.perf_counter() - t0
     for name, lib in libs.items():
         entries = _ptxas(lib.with_suffix(".log").read_text())
@@ -948,6 +1452,10 @@ def main() -> int:
             print(f"[build]   {short.group(0)}: {r} registers, {spilled} spill bytes", flush=True)
             if spilled:
                 raise AssertionError(f"{short.group(0)} spills {spilled} bytes")
+
+    print(f"[native] {native_path.rsplit('/', 1)[-1]}: g++ -O3 -march=native of the port's "
+          f"native/src/preprocess.cpp, {'built' if native_fresh else 'found built'} in "
+          f"{t_native:.1f} s (beside the nvcc builds); available", flush=True)
 
     t_lap = _lap("build", t_lap)
     # -- 3. BDIA kernel vs plain twin, small ---------------------------------
@@ -1937,6 +2445,15 @@ def main() -> int:
             del X_in, X64
         del a_h
     t_lap = _lap("spmm-wide-half", t_lap)
+    # -- 19c-19f. the triangular solves, ILU(0) and its siblings, SpGEMM and add -
+    tri_rows = trisolve_phase(dev, st_sp, rng)
+    t_lap = _lap("trisolve", t_lap)
+    ilu = ilu_cg_phase(dev, s_sp, card)
+    t_lap = _lap("ilu-cg", t_lap)
+    ilu_device_phase(dev, ilu.pop("S64"), ilu.pop("f64"))
+    t_lap = _lap("ilu-device", t_lap)
+    gem_rows, gem_extra = spgemm_phase(dev, rng, card)
+    t_lap = _lap("spgemm", t_lap)
     # -- 20. timing: kernel vs plain twin vs library call, every entry ---------
     bw, bw_known = hbm_bandwidth()
     if not bw_known:
@@ -2144,6 +2661,7 @@ def main() -> int:
                  bq.vals.numel() * 2 + bq.cols.numel() * 4 + n * K_WIDE * xb
                  + m * K_WIDE * 2, 2 * bq.vals.numel() * K_WIDE,
                  *runs[f"spmm(bsr_{ht}, X {xt}, method='pallas_bsr'), k={K_WIDE}"], h)]
+    rows += tri_rows + ilu["rows"] + gem_rows  # the slice's kernel entries (f32)
     lib_mats = {}  # (id of the scipy matrix, dtype) -> its torch sparse CSR on the card
 
     def lib_csr(s, dtype):
@@ -2215,6 +2733,18 @@ def main() -> int:
                         "launches": launches, "max_abs_err": max_abs, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": library_ms})
+
+    # the slice's paths that are no kernel of their own, beside the one PyTorch
+    # call that computes the same function where there is one
+    for name, fn, lib in ilu["extra"] + gem_extra:
+        lib_what, library = lib or ("no single PyTorch call computes it", None)
+        fns = (fn, library, library, fn) if library else (fn, fn)
+        runs = [time_cuda(f, warmup=1, runs=3, reps=1) for f in fns]
+        ms = float(np.median(runs[0].samples_ms + runs[-1].samples_ms))
+        lib_time = (f"{float(np.median(runs[1].samples_ms + runs[2].samples_ms)) * 1e3:.1f} us"
+                    if library else "")
+        print(f"[timing] {name}: {ms * 1e3:.1f} us; {lib_what} {lib_time}; card {card}; median "
+              f"of 2x3 samples of 1 call (CUDA events)", flush=True)
 
     _lap("timing", t_lap)
     print(f"[done] {time.perf_counter() - t_start:.1f} s (host clock, by phase: "

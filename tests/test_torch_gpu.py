@@ -2,7 +2,11 @@
 
 Kernels: BDIA SpMV, DIA SpMV and SpMM, the wide-k block SpMM kernels
 (slab in both frames, BDIA ring, ELL-packed BSR), and the unstructured-matrix
-kernels (POH SpMV and SpMM, LELL group sums and the whole LELL product).
+kernels (POH SpMV and SpMM, LELL group sums and the whole LELL product);
+and the paths built on them: the level-scheduled triangular solve
+on the card against the CPU, Jacobi sweeps (one DIA SpMV or SpMM launch
+each), CG preconditioned by ILU(0), the Chow–Patel factorization and the
+SpGEMM numerics (the POH numeric one POH SpMV launch).
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -1645,3 +1649,121 @@ def test_lell_hub_rows_cross_block_boundaries(cuda, vdt, xdt):
     torch.cuda.synchronize()
     assert lell_spmv.launches - before == 2 + (y.dtype == F16)
     _check_sums(y, _lell_twin(h.main, h.hub, x), vdt, xdt)
+
+
+# -- the level sweep, Jacobi sweeps, Chow-Patel and the SpGEMM numerics -------
+
+
+def _tri(n, density, lower, seed, unit=False):
+    rs = np.random.RandomState(seed)
+    s = sp.random(n, n, density=density, format="csr", random_state=rs)
+    s = sp.tril(s, k=-1) if lower else sp.triu(s, k=1)
+    s = (s + sp.diags(np.ones(n) if unit else rs.rand(n) + 1.0)).tocsr()
+    s.sum_duplicates()
+    return s
+
+
+TRI_CASES = {  # padded levels (the stencil's anti-diagonals), ragged ones, a chain
+    "stencil lower": lambda: (sp.tril(to_scipy(stencil_2d(23))).tocsr(), True, False),
+    "stencil upper": lambda: (sp.triu(to_scipy(stencil_2d(23))).tocsr(), False, False),
+    "random lower": lambda: (_tri(700, 0.01, True, 1), True, False),
+    "random upper, unit": lambda: (_tri(700, 0.01, False, 2, unit=True), False, True),
+    "chain": lambda: ((_tri(300, 0.0, True, 3) + sp.diags(np.ones(299), -1)).tocsr(), True,
+                      False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TRI_CASES))
+@pytest.mark.parametrize("k", [None, 5])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_level_sweep_on_card_matches_cpu(cuda, name, k, dtype):
+    s, lower, unit = TRI_CASES[name]()
+    a = from_scipy(s.astype(dtype))
+    trisolve_mod = importlib.import_module("cask_tpu_torch.ops.trisolve")
+    plan = trisolve_mod.trisolve_plan(a, lower=lower, unit_diag=unit, device=cuda)
+    plan_cpu = trisolve_mod.trisolve_plan(a, lower=lower, unit_diag=unit, device="cpu")
+    b = np.random.default_rng(5).standard_normal(s.shape[0] if k is None else (s.shape[0], k))
+    bt = torch.from_numpy(b.astype(dtype))
+    x = plan.solve(a.data, bt.to(cuda))
+    xe = trisolve_mod._level_sweep(torch.from_numpy(a.data).to(cuda), bt.to(cuda),
+                                   plan.dev["rows"], plan.dev["diag"], plan.dev["ent_local"],
+                                   plan.dev["ent_col"], plan.dev["ent_idx"],
+                                   plan.dev["ent_valid"], n=plan.n, max_rows=plan.max_rows,
+                                   unit_diag=unit)
+    torch.cuda.synchronize()
+    assert x.is_cuda and x.shape == bt.shape and bool((xe[plan.n] == 0).all())
+    assert _relerr(x, plan_cpu.solve(a.data, bt)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("k", [None, 32])
+def test_jacobi_sweeps_launch_the_dia_kernels(cuda, lower, k):
+    s = to_scipy(stencil_2d(40))
+    s = (sp.tril(s) if lower else sp.triu(s)).tocsr().astype(np.float32)
+    trisolve_mod = importlib.import_module("cask_tpu_torch.ops.trisolve")
+    plan = trisolve_mod.jacobi_trisolve_plan(from_scipy(s), lower=lower, device=cuda)
+    plan_cpu = trisolve_mod.jacobi_trisolve_plan(from_scipy(s), lower=lower, device="cpu")
+    assert isinstance(plan.strict, ct.DiaMatrix)
+    b = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        1600 if k is None else (1600, k)).astype(np.float32))
+    counter = dia_spmv if k is None else dia_spmm
+    before = counter.launches
+    x = plan.solve(b.to(cuda), sweeps=5)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 5
+    assert _relerr(x, plan_cpu.solve(b, sweeps=5)) <= TOL[np.float32]
+
+
+def test_ilu_cg_on_card_matches_cpu(cuda):
+    s = (sp.identity(1600) + to_scipy(stencil_2d(40))).tocsr()
+    b = np.random.default_rng(7).standard_normal(1600)
+    op = ct.solver_operator(from_scipy(s), device=cuda)
+    for method in ("levels", "jacobi"):
+        f, f_cpu = ct.ilu0(from_scipy(s), device=cuda), ct.ilu0(from_scipy(s), device="cpu")
+        M = f.apply if method == "levels" else f.jacobi_applier(5)
+        M_cpu = f_cpu.apply if method == "levels" else f_cpu.jacobi_applier(5)
+        before = dia_spmv.launches
+        res = ct.solvers.cg(op, torch.from_numpy(b).to(cuda), tol=1e-10, M=M)
+        torch.cuda.synchronize()
+        per_apply = 0 if method == "levels" else 10
+        assert dia_spmv.launches - before == (res.iterations + 1) * (1 + per_apply)
+        ref = ct.solvers.cg(from_scipy(s), torch.from_numpy(b), tol=1e-10, M=M_cpu)
+        assert res.converged and abs(res.iterations - ref.iterations) <= 1
+        assert _relerr(res.x, ref.x) <= 1e-9
+
+
+def test_chow_patel_factorize_on_card_matches_cpu(cuda):
+    ilu_mod = importlib.import_module("cask_tpu_torch.ops.ilu")
+    a = stencil_2d(30)
+    plan = ilu_mod.ilu0_device_plan(a, device=cuda)
+    plan_cpu = ilu_mod.ilu0_device_plan(a, device="cpu")
+    v = plan.factorize(sweeps=25)
+    torch.cuda.synchronize()
+    assert v.is_cuda and _relerr(v, plan_cpu.factorize(sweeps=25)) <= 1e-12
+    assert float(plan.residual(v)) < 1e-9
+    assert _relerr(v, torch.from_numpy(ct.ilu0(a, device="cpu").lu.data)) <= 1e-9
+    b = torch.from_numpy(np.random.default_rng(8).standard_normal(900))
+    assert _relerr(plan.apply(v, b.to(cuda)), plan_cpu.apply(plan_cpu.factorize(sweeps=25),
+                                                             b)) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_spgemm_numerics_on_card(cuda, dtype):
+    spgemm_mod = importlib.import_module("cask_tpu_torch.ops.spgemm")
+    a = power_law(2000, avg_degree=6, seed=9, dtype=dtype)
+    ref = to_scipy(a).astype(np.float64) @ to_scipy(a).astype(np.float64)
+    plan = spgemm_mod.spgemm_plan(a, a, device=cuda)
+    c = ct.spgemm(a, plan=plan)
+    torch.cuda.synchronize()
+    assert c.data.is_cuda
+    tol = TOL[dtype] * 10
+    assert float(abs(to_scipy(c) - ref).max()) <= tol * abs(ref).max()
+    bound = plan.bind_poh(a.data)
+    before = poh_spmv.launches
+    cp = bound(torch.from_numpy(a.data).to(cuda))
+    torch.cuda.synchronize()
+    assert poh_spmv.launches == before + 1 and cp.data.is_cuda
+    assert _relerr(cp.data, c.data) <= tol
+    ca = ct.sp_add(a, a, alpha=2.0, beta=-1.0)
+    torch.cuda.synchronize()
+    assert ca.data.is_cuda and _relerr(ca.data, torch.from_numpy(a.data)) <= TOL[dtype]
