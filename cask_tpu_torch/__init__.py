@@ -25,7 +25,10 @@ sparse add (:func:`sp_add`, :func:`shift_identity`), the level-scheduled
 and Jacobi triangular solves (:func:`trisolve`), ILU(0) on the native core
 (:func:`ilu0`) and Chow–Patel on the device, and the IC(0) and SSOR
 preconditioners, all over the port's own copy of the native C++
-preprocessing core (:mod:`cask_tpu_torch.native`).
+preprocessing core (:mod:`cask_tpu_torch.native`); the per-matrix autotuner
+(:func:`tune`: sparsity signatures, RCM reordering (:func:`reorder_rcm`),
+the tuner cache and the POH calibration) and the bench harness over it
+(:mod:`cask_tpu_torch.bench`).
 """
 
 __version__ = "0.1.0"
@@ -42,10 +45,12 @@ from cask_tpu_torch.formats.convert import (  # noqa: F401
 )
 from cask_tpu_torch.formats import generate  # noqa: F401
 from cask_tpu_torch.formats.mtx import read_mtx, write_mtx  # noqa: F401
+from cask_tpu_torch.formats.reorder import bandwidth, reorder_rcm  # noqa: F401
 from cask_tpu_torch.ops import ilu0, shift_identity, sp_add, spgemm, spmm, spmv, trisolve  # noqa: F401
 from cask_tpu_torch.ops.spmv import PlanCache, transposed  # noqa: F401
 from cask_tpu_torch.ops.bdia import BdiaMatrix, BdiaOperator, bdia_plan  # noqa: F401
 from cask_tpu_torch.ops.dia import DiaMatrix, DiaOperator, dia_plan, solver_operator  # noqa: F401
 from cask_tpu_torch.ops.lell import HybLell, LellMatrix, lell_plan, lell_plan_hyb  # noqa: F401
 from cask_tpu_torch.ops.poh import PohMatrix, poh_plan  # noqa: F401
+from cask_tpu_torch.tune import TunedSpmv, tune  # noqa: F401
 from cask_tpu_torch import solvers  # noqa: F401

@@ -314,3 +314,43 @@ def transpose_plan(a: BdiaMatrix, *, min_density: float = 0.10,
     br, bc = a.blocksize
     return bdia_plan(coo_to_csr(coo_t), (bc, br), min_density=min_density,
                      max_block_diags=max_block_diags, device=a.device).astype(a.dtype)
+
+
+def estimate_bdia_traffic(a: CSR, b: int) -> Optional[Tuple[float, float]]:
+    """Analytic tuner prefilter: (streamed entries, block fill fraction)
+    under a (b, b) BDIA split, or None when clearly unprofitable.
+
+    O(nnz) numpy; mirrors :func:`cask_tpu_torch.ops.dia.estimate_dia_traffic`
+    but at block granularity (block presence deduplicated per block).  The
+    entries per block are counted over runs of one block first (a CSR row's
+    sorted columns), which gives the reference's counts from a smaller
+    sort."""
+    m, n = a.shape
+    nbr, nbc = -(-m // b), -(-n // b)
+    indptr = host(a.indptr).astype(np.int64)
+    indices = host(a.indices).astype(np.int64)
+    rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(indptr))
+    keys = (rows // b) * nbc + (indices // b)
+    starts = np.flatnonzero(np.concatenate(([True], keys[1:] != keys[:-1]))) if keys.size \
+        else np.zeros(0, np.int64)
+    run_len = np.diff(np.append(starts, keys.size))
+    ukeys, inv = np.unique(keys[starts], return_inverse=True)
+    kcounts = np.bincount(inv.ravel(), weights=run_len, minlength=ukeys.size)
+    d = (ukeys % nbc) - (ukeys // nbc)
+    uniq, idx = np.unique(d, return_inverse=True)
+    counts = np.bincount(idx)  # blocks per block diagonal
+    scalar_per_diag = np.bincount(idx, weights=kcounts)  # true entries
+    diag_len = np.minimum(np.minimum(nbr, nbc - uniq), np.minimum(nbc, nbr + uniq))
+    density = counts / np.maximum(diag_len, 1)
+    keep = density >= 0.10
+    if keep.sum() > 64:
+        keep &= counts >= np.sort(counts[keep])[-64]
+    covered = scalar_per_diag[keep].sum() / max(a.nnz, 1)
+    if covered < 0.5 or not keep.any():
+        return None
+    streamed = float(keep.sum()) * b * b * nbr
+    rem = float(scalar_per_diag[~keep].sum())
+    fill = scalar_per_diag[keep].sum() / max(streamed, 1.0)
+    if fill < 0.25:  # block diagonals exist but blocks are mostly empty
+        return None
+    return streamed + rem * 3.0, float(fill)

@@ -129,7 +129,27 @@ card.  Phases, one line each:
    and BDIA SpMV rows theirs before their redesign.  Then the slice's paths
    that are no kernel of their own: the exact ILU(0) apply (beside two
    ``torch.triangular_solve`` calls on the sparse factors), its Jacobi
-   apply and SpGEMM's gather numeric (beside a cuSPARSE sparse product).
+   apply and SpGEMM's gather numeric (beside a cuSPARSE sparse product),
+   and the tuned FEM SpMV's winner.
+19g. tune — ``tune`` at full width, each with a fresh cache, every
+   enumerated variant timed (or refused by a kernel's gate) and each timed
+   kernel variant's kernel launched: the FEM matrix at SpMV (the headline:
+   its winner must be a kernel variant, its ``roofline_frac`` printed beside
+   ``spmv(bsr, x)`` and cuSPARSE), k = 32 and k = 128, ``stencil_2d(2048)``,
+   the 1M power law, ``stencil_2d(1024)`` at k = 32, and the 1M stencil and
+   ``banded(1_048_576, 4)`` under a random symmetric permutation (RCM;
+   ``TunedSpmv.reordered()``); each winner against its twin and scipy f64;
+   a second ``tune`` of the FEM matrix on the same cache times nothing; the
+   tuner's host steps (signature, traffic estimates, RCM) timed on the three
+   largest matrices.
+19h. tune-medium — ``suite("medium")`` (BASELINE config 2, about 100k rows,
+   operands under the 50 MB L2): each variant's reading, floor and
+   plausibility; a 16 MB ``copy_`` for the L2's rate.
+19i. calibrate — ``calibrate_poh(force=True)``: the equivalent bytes per
+   slot, the probe's pack bytes, the measured :8192/:2048 ratio beside the
+   model's.
+19j. bench-harness — ``bench_matrix`` on the FEM matrix and
+   ``bench_suite("small")``: JSON lines with their roofline shares.
 
 The host-side power law (generated once, shared by phases 15-18) and its
 plans add about half a minute of host time.  Every main path (phases 8-19f)
@@ -149,6 +169,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 NX = 512  # FEM grid side: 512² nodes × dof 4 = 1,048,576 rows
@@ -160,6 +181,7 @@ K_WIDE = 128  # BASELINE config 3's wide k; above 64 the BDIA plan's wide-k chai
 PL_N = 1_000_000  # power-law rows and columns for the unstructured path
 PL_DEGREE = 12
 PL_SEED = 3
+BAND_N, BAND_W = 1_048_576, 4  # banded(BAND_N, BAND_W): the RCM variants' band, permuted
 GRID_SPGEMM = 1024  # stencil side for A·A and A·B on the SpGEMM plan path: 26.2 M products
 SPGEMM_B_DENSITY = 5e-6  # B = random_uniform(1_048_576, density=5e-6, seed=1)
 PL_SMALL_N = 10_000  # power_law(10_000, avg_degree=8, seed=3): A·A, 39.3 M products (native)
@@ -1370,6 +1392,399 @@ def _lib_spgemm(A, c):
             f"{err:.1e} from the numeric's)", lambda: A @ A)
 
 
+L2_BYTES = 50 * 2**20  # the H100's L2: a working set under it is read from cache when warm
+HBM_BW = 3.35e12  # bytes/s: the H100 SXM5's published HBM bandwidth, the roofline's denominator
+HOST_SLOW_S = 30.0  # a host step of the tuner above this many seconds is flagged
+
+
+def _family(name: str, k):
+    """The launch counters that a kernel variant's callable advances (none for
+    a gather variant)."""
+    base = name[4:] if name.startswith("rcm:") else name
+    if "_xla" in base:
+        return ()
+    if base == "dia_pallas":
+        return ("dia_spmv",) if k is None else ("dia_spmm",)
+    if base.startswith("poh_mm"):
+        return ("poh_spmm",)
+    if base.startswith("poh"):
+        return ("poh_spmv",)
+    if base.startswith("bsr_pallas"):  # at k > 64 the wide-k chain, or the ELL kernel
+        if k is None:
+            return ("bdia_spmv",)
+        return ("bsr_spmm",) if k <= 64 else ("bsr_spmm", "bdia_spmm_slab",
+                                              "bdia_spmm_slab_padded", "bdia_spmm_ring",
+                                              "dia_spmm")
+    raise AssertionError(f"no kernel family for the variant {name}")
+
+
+def _plain(m, k, x):
+    """The plain PyTorch product of a tuned plan (its kernel's twin)."""
+    from cask_tpu_torch.formats.matrix import BSR, CSR
+    from cask_tpu_torch.ops.bdia import BdiaMatrix, bdia_scalar_dia
+    from cask_tpu_torch.ops.bsr_spmm import BsrSpmmKernel
+    from cask_tpu_torch.ops.dia import DiaMatrix
+    from cask_tpu_torch.ops.kernels.bsr_kernels import bsr_spmm_reference
+    from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmm_reference, poh_spmv_reference
+    from cask_tpu_torch.ops.poh import PohMatrix
+    from cask_tpu_torch.ops.spmm import spmm
+    from cask_tpu_torch.ops.spmv import spmv
+
+    if isinstance(m, BdiaMatrix):  # at k > 64 the scalar-DIA plan's plain product
+        return m._spmv_reference(x) if k is None else bdia_scalar_dia(m)._spmm_reference(x)
+    if isinstance(m, DiaMatrix):
+        return m._spmv_reference(x) if k is None else m._spmm_reference(x)
+    if isinstance(m, PohMatrix):
+        return poh_spmv_reference(m, x) if k is None else poh_spmm_reference(m, x)
+    if isinstance(m, BsrSpmmKernel):
+        return bsr_spmm_reference(m, x)
+    if isinstance(m, (CSR, BSR)):  # a gather variant is plain PyTorch itself
+        return spmv(m, x, method="xla") if k is None else spmm(m, x, method="xla")
+    raise AssertionError(f"no plain twin for {type(m)}")
+
+
+def _tuned_twin(t, k, x):
+    """The twin of a tuned callable on ``x``, in the reordered space and
+    back for an ``rcm:`` winner."""
+    import numpy as np
+    import torch
+
+    if t.perm is None:
+        return _plain(t.matrix, k, x)
+    perm = torch.as_tensor(t.perm.astype(np.int64), device=x.device)
+    return _plain(t.matrix, k, x[perm])[torch.argsort(perm)]
+
+
+def _tune_case(phase, label, a, s32, k, dev, tmp, rng, *, kernel_winner=False):
+    """One ``tune`` of the host CSR ``a`` at ``k``: a fresh cache, force=True,
+    every enumerated variant timed (time_budget = their count), the launch
+    counts set to 0 just before each variant is timed and read just after.
+    Checks that each enumerated variant was timed (or took the reading of
+    the variant whose callable it builds) or refused by its gate, that each
+    timed kernel variant launched its own kernel and each gather variant
+    none, and the tuned callable against its twin and scipy f64 (``s32``,
+    the matrix in scipy), and prints the winner's roofline share by
+    ``spmv_traffic`` beside cuSPARSE's time for the same product.  Returns
+    (TunedSpmv, cache, cache entry, x)."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from cask_tpu_torch.bench.roofline import spmv_traffic
+    from cask_tpu_torch.formats.signature import signature
+    from cask_tpu_torch.ops.bsr_spmm import BsrSpmmKernel
+    from cask_tpu_torch.tune import TunerCache, tune
+    from cask_tpu_torch.tune.calibrate import poh_equiv_bytes
+    from cask_tpu_torch.tune.timing import time_cuda
+    from cask_tpu_torch.tune.tuner import Variant, enumerate_variants
+
+    tuner_mod = importlib.import_module("cask_tpu_torch.tune.tuner")  # ct.tune is the function
+    what = f"{label}, k {k}" if k else f"{label}, SpMV"
+    cache = TunerCache(path=f"{tmp}/{phase}-{label}-k{k or 0}.json")
+    t0 = time.perf_counter()
+    variants = sorted(enumerate_variants(a, signature(a), k, calib=poh_equiv_bytes(cache, dev)),
+                      key=lambda v: v.est_bytes)
+    t_enum = time.perf_counter() - t0
+    print(f"[{phase}] {what}: {len(variants)} variants, model bytes (signature and "
+          f"enumeration {t_enum:.1f} s, host): "
+          + ", ".join(f"{v.name} {v.est_bytes / 1e6:.1f} MB" for v in variants), flush=True)
+    # each variant's launches while it is timed: the counts at 0 just before
+    # each reading, added up just after, by the variant that built the callable
+    built, per_var = {}, {}
+    build_full, measure = Variant.build_full, tuner_mod.measure
+
+    def tracked_build(self, *args, **kw):
+        dev_v, fn, info = build_full(self, *args, **kw)
+        built[id(fn)] = self.name
+        return dev_v, fn, info
+
+    def counted_measure(fn, x0, **kw):
+        _reset()
+        meas = measure(fn, x0, **kw)
+        got = per_var.setdefault(built[id(fn)], {})
+        for name, f in _counters().items():
+            got[name] = got.get(name, 0) + f.launches
+        return meas
+
+    Variant.build_full, tuner_mod.measure = tracked_build, counted_measure
+    try:
+        t0 = time.perf_counter()
+        t = tune(a, k=k, cache=cache, force=True, time_budget=len(variants), device=dev)
+        torch.cuda.synchronize()
+        t_tune = time.perf_counter() - t0
+    finally:
+        Variant.build_full, tuner_mod.measure = build_full, measure
+    entry = cache.get(t.signature_key)
+    timings = entry["timings"]
+    missing = [v.name for v in variants if v.name not in timings]
+    if missing:
+        raise AssertionError(f"{what}: variants neither timed nor refused: {missing}")
+    for v in variants:
+        rec = timings[v.name]
+        if "refused" in rec:
+            print(f"[{phase}]   {v.name}: refused by its gate ({rec['refused']})", flush=True)
+            continue
+        if rec.get("non_finite"):
+            raise AssertionError(f"{what}: {v.name} gave a non-finite product")
+        timed_as = rec.get("same_as", v.name)
+        got = per_var.get(timed_as, {})
+        fam = _family(v.name, k)
+        if fam and not any(got.get(f) for f in fam):
+            raise AssertionError(f"{what}: {v.name} was timed but launched none of {fam} "
+                                 f"({got})")
+        if not fam and any(got.values()):
+            raise AssertionError(f"{what}: the gather variant {v.name} launched {got}")
+        ran = ", ".join(f"{n} {c}" for n, c in got.items() if c) or "no kernel"
+        same = f" (the callable of {timed_as}: its reading)" if timed_as != v.name else ""
+        print(f"[{phase}]   {v.name}: {rec['seconds_per_op'] * 1e6:.1f} us (CUDA events)"
+              f"{same}, floor {rec['floor_seconds'] * 1e6:.1f} us, reliable {rec['reliable']}, "
+              f"plausible {rec['plausible']}; launches while timed: {ran}; model "
+              f"{v.est_bytes / 1e6:.1f} MB"
+              + (" (under the 50 MB L2)" if v.est_bytes < L2_BYTES else ""), flush=True)
+    if kernel_winner and not _family(t.variant, k):
+        raise AssertionError(f"{what}: the winner {t.variant} is no kernel variant")
+    shape = (a.shape[1], k) if k else (a.shape[1],)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    y = t(x)
+    err_twin = _relerr(y, _tuned_twin(t, k, x))
+    _check(f"{what}: tuned {t.variant} vs its twin", err_twin, F32_TOL)
+    cols = (slice(None),) if k is None else (slice(None), slice(0, SCIPY_COLS))
+    ref = s32.astype(np.float64) @ x[cols].cpu().double().numpy()
+    err_sp = _relerr(y[cols], torch.from_numpy(ref))
+    _check(f"{what}: tuned {t.variant} vs scipy f64", err_sp, F32_TOL)
+    # the winner's share of the card's bandwidth by the bench's traffic model
+    # (the BSR SpMM kernel's plan by its CSR's), beside cuSPARSE's product
+    traffic = spmv_traffic(a if isinstance(t.matrix, BsrSpmmKernel) else t.matrix, t.variant,
+                           k or 1)
+    frac = traffic.record(t.seconds_per_op, bandwidth=HBM_BW)["roofline_frac"]
+    S = _sparse_csr(s32, dev, torch.float32)
+    lib_us = time_cuda(lambda: S @ x).ms * 1e3
+    del S
+    print(f"[{phase}] {what}: winner {t.variant} at {t.seconds_per_op * 1e6:.1f} us, "
+          f"roofline_frac {frac:.3f} of 3.35 TB/s ({traffic.bytes_per_op / 1e6:.1f} MB by "
+          f"spmv_traffic), cuSPARSE (torch.sparse_csr_tensor @) {lib_us:.1f} us; tune "
+          f"{t_tune:.1f} s (host); vs twin {err_twin:.2e}, vs scipy f64 {err_sp:.2e} "
+          f"(tol {F32_TOL:.0e})", flush=True)
+    return t, cache, entry, x
+
+
+def _host_steps(phase, label, a) -> None:
+    """The tuner's host steps at SpMV on a full-size matrix, each timed as
+    the tuner runs it: the signature, the BDIA estimate for each block size
+    whose fill passes, the DIA estimate, and RCM where there is no DIA
+    split."""
+    from cask_tpu_torch.formats.reorder import reorder_rcm
+    from cask_tpu_torch.formats.signature import signature
+    from cask_tpu_torch.ops.bdia import estimate_bdia_traffic
+    from cask_tpu_torch.ops.dia import estimate_dia_traffic
+
+    out = []
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        sec = time.perf_counter() - t0
+        out.append(f"{name} {sec:.2f} s" + (" (over 30 s)" if sec > HOST_SLOW_S else ""))
+        return r
+
+    sig = timed("signature", lambda: signature(a))
+    for b, fill in zip(sig.BLOCK_PROBE, sig.block_fill):
+        if fill >= 30:
+            timed(f"estimate_bdia_traffic b={b}", lambda b=b: estimate_bdia_traffic(a, b))
+    if timed("estimate_dia_traffic", lambda: estimate_dia_traffic(a)) is None:
+        timed("reorder_rcm + estimate_dia_traffic",
+              lambda: estimate_dia_traffic(reorder_rcm(a)[0]))
+    print(f"[{phase}] host steps on {label} ({a.shape[0]} rows, nnz {a.nnz}, block fill "
+          f"{sig.block_fill} % at b = {sig.BLOCK_PROBE}): " + ", ".join(out), flush=True)
+
+
+def tune_phase(dev, card, rng, a, x, a_host, a_sp, st_host, st_sp, mm_host, mm_sp, pl_host,
+               pl_sp, tmp):
+    """[tune]: ``tune`` at full width on the FEM matrix (SpMV, the headline,
+    then k = 32 and 128), the 4M-row stencil, the 1M power law, the 1M
+    stencil at k = 32, and the 1M stencil and a 1M band under a random
+    symmetric permutation (the RCM variants); the FEM SpMV again on the same
+    cache (a hit: nothing timed, nothing launched).  Returns the timing row of the
+    FEM SpMV's tuned winner."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import importlib
+
+    import cask_tpu_torch as ct
+    from cask_tpu_torch.bench.roofline import spmv_traffic
+    from cask_tpu_torch.formats.convert import bsr_to_csr, from_scipy, to_scipy
+    from cask_tpu_torch.formats.generate import banded
+    from cask_tpu_torch.ops.dia import estimate_dia_traffic
+    from cask_tpu_torch.tune import tune
+    from cask_tpu_torch.tune.timing import time_cuda
+    from cask_tpu_torch.tune.tuner import Variant
+
+    tuner_mod = importlib.import_module("cask_tpu_torch.tune.tuner")  # ct.tune is the function
+    fem = bsr_to_csr(a_host)
+    for label, m in (("fem_blocks(512, dof=4)", fem), (f"stencil_2d({GRID_SPMV})", st_host),
+                     (f"power_law({PL_N}, avg_degree={PL_DEGREE})", pl_host)):
+        _host_steps("tune", label, m)
+    t, cache, entry, _ = _tune_case("tune", "fem_blocks(512, dof=4)", fem, a_sp, None, dev, tmp,
+                                    rng, kernel_winner=True)
+    # the headline: the tuned BSR SpMV against B1 through spmv(bsr, x) and cuSPARSE
+    traffic = spmv_traffic(t.matrix, t.variant)
+    frac = traffic.record(t.seconds_per_op, bandwidth=HBM_BW)["roofline_frac"]
+    S = _sparse_csr(a_sp, dev, torch.float32)
+    us = {what: time_cuda(fn).ms * 1e3 for what, fn in (
+        ("tuned", lambda: t(x)), ("B1", lambda: ct.spmv(a, x)), ("cusparse", lambda: S @ x))}
+    print(f"[tune] headline: tuned {t.variant} on fem_blocks(512, dof=4) f32 "
+          f"{t.seconds_per_op * 1e6:.1f} us in tune ({us['tuned']:.1f} us timed again), "
+          f"{traffic.bytes_per_op / 1e6:.1f} MB by spmv_traffic -> roofline_frac {frac:.3f} of "
+          f"3.35 TB/s; spmv(bsr, x) (B1) {us['B1']:.1f} us, cuSPARSE (torch.sparse_csr_tensor @) "
+          f"{us['cusparse']:.1f} us; card {card} (CUDA events)", flush=True)
+    fam = _family(t.variant, None)
+    source, replaces = {"bdia_spmv": ("bdia_spmv", f"{BDIA_PY}:290 (B1)"),
+                        "dia_spmv": ("dia_spmv", f"{DIA_PY}:176 (B8)"),
+                        "poh_spmv": ("poh_spmv", f"{POH_PY}:388 (B16)")}[fam[0]]
+    _reset()  # the tuned product alone: one launch of its kernel
+    y = t(x)
+    n_tuned = _launched(fam[0], f"tuned {t.variant}")
+    if n_tuned != 1 or _all_launches() != 1:
+        raise AssertionError(f"tuned {t.variant}(x): {fam[0]} launched {n_tuned} times, "
+                             f"{_all_launches()} launches in all; want 1")
+    abs_err = float((y - _tuned_twin(t, None, x)).abs().max())
+    row = (f"{source} f32 [tune(fem_blocks(512, dof=4))(x): {t.variant}]", source, replaces,
+           lambda: t(x), lambda: _tuned_twin(t, None, x), a_sp, x, traffic.bytes_per_op,
+           traffic.flops_per_op, n_tuned, abs_err, torch.float32)
+    # a second tune on the same cache: a hit
+    timed = []
+    measure = tuner_mod.measure
+    tuner_mod.measure = lambda *args, **kw: timed.append(1) or measure(*args, **kw)
+    try:
+        _reset()
+        t0 = time.perf_counter()
+        hit = tune(fem, cache=cache, device=dev)
+        torch.cuda.synchronize()
+        t_hit = time.perf_counter() - t0
+    finally:
+        tuner_mod.measure = measure
+    if hit.variant != t.variant or timed or _all_launches():
+        raise AssertionError(f"cache hit: variant {hit.variant} (tuned {t.variant}), "
+                             f"{len(timed)} timed, {_all_launches()} launches")
+    print(f"[tune] cache hit: tune(fem) again on the same cache -> {hit.variant}, nothing "
+          f"timed, no launch; {t_hit:.1f} s (host: the signature and the plan build)",
+          flush=True)
+    del hit
+    for k in (K, K_WIDE):
+        _tune_case("tune", "fem_blocks(512, dof=4)", fem, a_sp, k, dev, tmp, rng)
+    _tune_case("tune", f"stencil_2d({GRID_SPMV})", st_host, st_sp, None, dev, tmp, rng)
+    _tune_case("tune", f"power_law({PL_N}, avg_degree={PL_DEGREE})", pl_host, pl_sp, None, dev,
+               tmp, rng)
+    _tune_case("tune", f"stencil_2d({GRID_SPMM})", mm_host, mm_sp, K, dev, tmp, rng)
+    # a random symmetric permutation of the 1M stencil and of a 1M band: no
+    # DIA split either way, so the tuner reorders by RCM.  RCM narrows the
+    # stencil's band to its side but spreads its entries over changing
+    # offsets (its level sets run along the grid's anti-diagonals), so no DIA
+    # split comes back and no rcm: variant is enumerated, in the JAX package
+    # as here; the band's diagonals come back whole.
+    for label, s64 in ((f"stencil_2d({GRID_SPMM}) permuted", mm_sp),
+                       (f"banded({BAND_N}, {BAND_W}) permuted",
+                        to_scipy(banded(BAND_N, BAND_W, seed=SEED, dtype=np.float32)))):
+        p = np.random.default_rng(SEED).permutation(s64.shape[0])
+        perm_sp = s64[p][:, p].tocsr()
+        perm_sp.sort_indices()
+        pa = from_scipy(sp.csr_matrix(perm_sp))
+        reordered = ct.reorder_rcm(pa)[0]
+        est_r = estimate_dia_traffic(reordered)
+        print(f"[tune] {label}: bandwidth {ct.bandwidth(pa)}, {ct.bandwidth(reordered)} after "
+              f"RCM; DIA split after RCM {'none' if est_r is None else f'{est_r:.0f} entries'}",
+              flush=True)
+        tp, _, entry_p, xq = _tune_case("tune", label, pa, perm_sp, None, dev, tmp, rng)
+        if (est_r is not None) != ("rcm:dia_pallas" in entry_p["timings"]):
+            raise AssertionError(f"{label}: rcm:dia_pallas enumerated against the DIA split")
+    if tp.perm is None:  # the reordered-space API on the rcm kernel variant all the same
+        dev_r, fn_r, info = Variant("rcm:dia_pallas", 0.0).build_full(pa, None, dev)
+        tp = tuner_mod.TunedSpmv("rcm:dia_pallas", dev_r, fn_r, "-", perm=info["perm"],
+                                 _inner_fn=info["inner_fn"])
+    fn, perm = tp.reordered()
+    pt = torch.as_tensor(perm.astype(np.int64), device=dev)
+    err = _relerr(fn(xq[pt]), tp(xq)[pt])
+    _check("permuted band: reordered() vs the tuned product, reordered", err, F32_TOL)
+    print(f"[tune] permuted band: {tp.variant}.reordered() gives the tuned product in the "
+          f"reordered space ({err:.1e})", flush=True)
+    return row
+
+
+def tune_medium_phase(dev, rng, tmp) -> None:
+    """[tune-medium]: ``tune`` on ``suite("medium")`` in f32 (BASELINE config
+    2, about 100k rows each): the winner and each variant's reading, floor
+    and plausibility; the operands fit the H100's 50 MB L2.  Prints an L2
+    rate: a copy_ of 16 MB."""
+    import numpy as np
+    import torch
+
+    from cask_tpu_torch.formats.convert import to_scipy
+    from cask_tpu_torch.formats.generate import suite
+    from cask_tpu_torch.tune.timing import time_cuda
+
+    src = torch.empty(4 * 2**20, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+    ms = time_cuda(lambda: dst.copy_(src)).ms
+    print(f"[tune-medium] L2: copy_ of a 16 MB f32 tensor {ms * 1e3:.2f} us -> "
+          f"{2 * src.numel() * 4 / (ms * 1e-3) / 1e12:.2f} TB/s read + written (CUDA events)",
+          flush=True)
+    del src, dst
+    for name, a in suite("medium").items():
+        a32 = a.astype(np.float32)
+        t, _, entry, _ = _tune_case("tune-medium", name, a32, to_scipy(a32), None, dev, tmp, rng)
+        flags = {n: r.get("plausible", "refused") for n, r in entry["timings"].items()}
+        print(f"[tune-medium] {name}: winner {t.variant}; plausible {flags}", flush=True)
+
+
+def calibrate_phase(dev, tmp) -> None:
+    """[calibrate]: ``calibrate_poh(force=True)`` on the card at its default
+    probe; the equivalent bytes per slot, the probe's pack bytes, and the
+    measured :8192/:2048 ratio beside the model's (C8192/C2048)^alpha."""
+    from cask_tpu_torch.tune import TunerCache
+    from cask_tpu_torch.tune.calibrate import POH_ALPHA, _key, calibrate_poh, poh_auto_window
+
+    cache = TunerCache(path=f"{tmp}/calibrate.json")
+    t0 = time.perf_counter()
+    eb = calibrate_poh(cache, force=True, device=dev)
+    t_cal = time.perf_counter() - t0
+    rec = cache.get(_key(dev))
+    n, nnz = rec["n"], rec["nnz"]
+    c2, c8 = (poh_auto_window(n, n, nnz, ts) for ts in (2048, 8192))
+    print(f"[calibrate] {_key(dev)}: power_law({n}, avg_degree={rec['avg_degree']}, seed=0) f32, "
+          f"nnz {nnz}, k {rec['k']}; packs "
+          + ", ".join(f"T={ts} {b / 1e6:.1f} MB" for ts, b in rec["pack_bytes"].items())
+          + f"; equivalent bytes per slot {rec['equiv_bytes']}; {t_cal:.1f} s (host)",
+          flush=True)
+    print(f"[calibrate] poh:8192 / poh:2048 measured {eb['poh:8192'] / eb['poh:2048']:.3f}; "
+          f"model (C8192/C2048)^alpha = ({c8}/{c2})^{POH_ALPHA} = "
+          f"{(c8 / c2) ** POH_ALPHA:.3f}", flush=True)
+
+
+def bench_harness_phase(dev, a_host) -> None:
+    """[bench-harness]: ``bench_matrix`` on the FEM matrix and
+    ``bench_suite("small")``: JSON lines, each with its roofline share of
+    the card's bandwidth (or a gate's refusal), none with an error or a
+    non-finite product."""
+    import io
+
+    from cask_tpu_torch.bench import bench_matrix, bench_suite
+    from cask_tpu_torch.formats.convert import bsr_to_csr
+
+    buf = io.StringIO()
+    recs = bench_matrix("fem_dof4_512x512", bsr_to_csr(a_host), out=buf, device=dev)
+    recs += bench_suite("small", out=buf, device=dev)
+    for line in buf.getvalue().splitlines():
+        print(f"[bench-harness] {line}", flush=True)
+    bad = [r for r in recs if "error" in r or r.get("non_finite")
+           or ("roofline_frac" not in r and "refused" not in r)]
+    if bad:
+        raise AssertionError(f"bench records with an error, a non-finite product or no "
+                             f"roofline share: {bad}")
+
+
 def main() -> int:
     import torch
 
@@ -2454,6 +2869,17 @@ def main() -> int:
     t_lap = _lap("ilu-device", t_lap)
     gem_rows, gem_extra = spgemm_phase(dev, rng, card)
     t_lap = _lap("spgemm", t_lap)
+    # -- 19g-19j. the tuner, its calibration and the bench harness --------------
+    with tempfile.TemporaryDirectory() as tmp:  # the tuner caches of this run
+        tune_row = tune_phase(dev, card, rng, a, x, a_host, a_sp, st_host, st_sp, mm_host,
+                              mm_sp, pl_host, pl_sp, tmp)
+        t_lap = _lap("tune", t_lap)
+        tune_medium_phase(dev, rng, tmp)
+        t_lap = _lap("tune-medium", t_lap)
+        calibrate_phase(dev, tmp)
+        t_lap = _lap("calibrate", t_lap)
+    bench_harness_phase(dev, a_host)
+    t_lap = _lap("bench-harness", t_lap)
     # -- 20. timing: kernel vs plain twin vs library call, every entry ---------
     bw, bw_known = hbm_bandwidth()
     if not bw_known:
@@ -2661,7 +3087,7 @@ def main() -> int:
                  bq.vals.numel() * 2 + bq.cols.numel() * 4 + n * K_WIDE * xb
                  + m * K_WIDE * 2, 2 * bq.vals.numel() * K_WIDE,
                  *runs[f"spmm(bsr_{ht}, X {xt}, method='pallas_bsr'), k={K_WIDE}"], h)]
-    rows += tri_rows + ilu["rows"] + gem_rows  # the slice's kernel entries (f32)
+    rows += tri_rows + ilu["rows"] + gem_rows + [tune_row]  # the slices' kernel entries (f32)
     lib_mats = {}  # (id of the scipy matrix, dtype) -> its torch sparse CSR on the card
 
     def lib_csr(s, dtype):

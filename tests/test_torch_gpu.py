@@ -1767,3 +1767,81 @@ def test_spgemm_numerics_on_card(cuda, dtype):
     ca = ct.sp_add(a, a, alpha=2.0, beta=-1.0)
     torch.cuda.synchronize()
     assert ca.data.is_cuda and _relerr(ca.data, torch.from_numpy(a.data)) <= TOL[dtype]
+
+
+# -- the tuner on the card ------------------------------------------------------
+
+
+def _tuner_cache(tmp_path):
+    from cask_tpu_torch.tune import TunerCache
+
+    return TunerCache(path=str(tmp_path / "tuner.json"))
+
+
+def test_tune_on_card_picks_a_kernel_variant(cuda, tmp_path):
+    from cask_tpu_torch.tune import tune
+
+    a = fem_blocks(128, dof=4, dtype=np.float32)
+    cache = _tuner_cache(tmp_path)
+    t = tune(a, cache=cache, time_budget=20, device=cuda)
+    assert "_xla" not in t.variant, cache.get(t.signature_key)
+    entry = cache.get(t.signature_key)
+    assert all("refused" in r or r["floor_seconds"] > 0 for r in entry["timings"].values())
+    assert not any(r.get("non_finite") for r in entry["timings"].values())
+    x = np.random.default_rng(0).standard_normal(a.shape[1]).astype(np.float32)
+    y = t(torch.from_numpy(x).to(cuda))
+    assert y.is_cuda
+    ref = to_scipy(a).astype(np.float64) @ x.astype(np.float64)
+    assert _relerr(y, torch.from_numpy(ref)) <= TOL[np.float32]
+
+
+TUNE_VARIANTS = [("bsr_pallas:4", None), ("bsr_pallas:4", 8), ("bsr_pallas:4", 72),
+                 ("bsr_pallas:32", 72), ("dia_pallas", None), ("dia_pallas", 8),
+                 ("dia_pallas", 72), ("poh", None), ("poh:8192", None),
+                 ("poh_fast:2048", None), ("poh_fast:8192", None), ("poh_mm", 8),
+                 ("poh_mm_fast", 8), ("rcm:dia_pallas", None), ("rcm:dia_pallas", 8)]
+
+
+@pytest.mark.parametrize("name,k", TUNE_VARIANTS, ids=[f"{n}-k{k}" for n, k in TUNE_VARIANTS])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_tuner_kernel_variant_equals_its_twin(cuda, name, k, dtype):
+    from cask_tpu_torch.tune import Variant
+
+    if name.startswith("rcm:"):
+        s = to_scipy(banded(600, 4, seed=2, dtype=dtype))
+        p = np.random.default_rng(0).permutation(600)
+        a = from_scipy(s.tocsr()[p][:, p].tocsr(), format="csr")
+    elif name.startswith("poh"):
+        a = power_law(3000, avg_degree=8, seed=4, dtype=dtype)
+    else:
+        a = fem_blocks(12, dof=4, dtype=dtype)
+    x = np.random.default_rng(1).standard_normal((a.shape[1], k) if k else a.shape[1])
+    x = torch.from_numpy(x.astype(dtype))
+    _, fn = Variant(name, 0.0).build(a, k, cuda)
+    _, twin = Variant(name, 0.0).build(a, k, "cpu")
+    before = sum(c.launches for c in (bdia_spmv, dia_spmv, dia_spmm, bsr_spmm, poh_spmv,
+                                      poh_spmm, bdia_spmm_ring, bdia_spmm_slab))
+    y = fn(x.to(cuda))
+    torch.cuda.synchronize()
+    after = sum(c.launches for c in (bdia_spmv, dia_spmv, dia_spmm, bsr_spmm, poh_spmv,
+                                     poh_spmm, bdia_spmm_ring, bdia_spmm_slab))
+    assert after > before, f"{name} launched no kernel"
+    assert _relerr(y, twin(x)) <= TOL[dtype] * (10 if name.startswith("poh") else 1)
+
+
+def test_tuner_cache_hit_times_nothing(cuda, tmp_path, monkeypatch):
+    from cask_tpu_torch.tune import tune
+
+    tuner_mod = importlib.import_module("cask_tpu_torch.tune.tuner")
+    a = fem_blocks(32, dof=4, dtype=np.float32)
+    cache = _tuner_cache(tmp_path)
+    t = tune(a, cache=cache, time_budget=3, device=cuda)
+
+    def no_measure(*args, **kw):
+        raise AssertionError("a cache hit times nothing")
+
+    monkeypatch.setattr(tuner_mod, "measure", no_measure)
+    before = bdia_spmv.launches + dia_spmv.launches + poh_spmv.launches
+    hit = tune(a, cache=cache, device=cuda)
+    assert hit.variant == t.variant
+    assert bdia_spmv.launches + dia_spmv.launches + poh_spmv.launches == before
