@@ -28,7 +28,13 @@ preconditioners, all over the port's own copy of the native C++
 preprocessing core (:mod:`cask_tpu_torch.native`); the per-matrix autotuner
 (:func:`tune`: sparsity signatures, RCM reordering (:func:`reorder_rcm`),
 the tuner cache and the POH calibration) and the bench harness over it
-(:mod:`cask_tpu_torch.bench`).
+(:mod:`cask_tpu_torch.bench`); the rest of the solver half
+(:mod:`cask_tpu_torch.solvers`): pipelined CG, BiCGStab, Chebyshev,
+MINRES, CGLS, GMRES(m) and mixed-precision iterative refinement, the LOBPCG
+eigensolver, smoothed-aggregation AMG (its levels routed through the DIA
+and POH kernels), block Jacobi, the Chebyshev polynomial preconditioner and
+the power and Lanczos spectrum estimates; and twins of four of the
+repository's examples (:mod:`cask_tpu_torch.examples`).
 """
 
 __version__ = "0.1.0"

@@ -68,6 +68,14 @@ def torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
 
 
+def numpy_dtype(dtype) -> np.dtype:
+    """A numpy or torch dtype (or its name) as a numpy dtype (numpy has no
+    bfloat16: a torch bfloat16 raises)."""
+    if isinstance(dtype, torch.dtype):
+        return torch.empty(0, dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
+
+
 def to_device(x, device: Union[str, torch.device], dtype=None) -> torch.Tensor:
     """``x`` (numpy or tensor) as a tensor on ``device``, cast to ``dtype``
     when given.  A numpy bfloat16 array crosses as its bits, so no
@@ -90,7 +98,7 @@ def to_device(x, device: Union[str, torch.device], dtype=None) -> torch.Tensor:
 def _astype(x, dtype):
     if isinstance(x, torch.Tensor):
         return x.to(torch_dtype(dtype))
-    return np.asarray(x).astype(dtype)
+    return np.asarray(x).astype(dtype if _is_bf16(dtype) else numpy_dtype(dtype))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

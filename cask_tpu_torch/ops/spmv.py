@@ -246,15 +246,20 @@ def cached_plan(a, x: torch.Tensor):
     return plan if ok else None
 
 
+def operand_device(a) -> torch.device:
+    """Where host data for ``a`` goes: the matrix's device when its arrays
+    are tensors (a plan's or an operator's ``device``), else the CUDA device
+    (:func:`default_device`, which raises without one)."""
+    home = plan_device(a.data) if isinstance(a, (CSR, COO, BSR)) else getattr(a, "device", None)
+    return home if home is not None else default_device()
+
+
 def as_operand(a, x) -> torch.Tensor:
     """``x`` as a tensor.  A tensor stays where it is (a CPU tensor asks for
-    the CPU); host data goes to the matrix's device when its arrays are
-    tensors, else to the CUDA device (:func:`default_device`, which raises
-    without one)."""
+    the CPU); host data goes to :func:`operand_device`."""
     if isinstance(x, torch.Tensor):
         return x
-    home = plan_device(a.data) if isinstance(a, (CSR, COO, BSR)) else getattr(a, "device", None)
-    return torch.as_tensor(np.asarray(x), device=home if home is not None else default_device())
+    return torch.as_tensor(np.asarray(x), device=operand_device(a))
 
 
 def spmv(a, x, *, transpose: bool = False, method: str = "auto",

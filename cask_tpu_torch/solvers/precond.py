@@ -1,14 +1,16 @@
-"""Preconditioners: Jacobi, IC(0) and SSOR.
+"""Preconditioners: Jacobi, block Jacobi, IC(0), SSOR, the Chebyshev
+polynomial, and the spectrum estimates it needs.
 
-The PyTorch counterparts of ``extract_diagonal``, ``jacobi``, ``ic0`` and
-``ssor`` in :mod:`cask_tpu.solvers.precond`; ILU(0) lives in
+The PyTorch counterparts of :mod:`cask_tpu.solvers.precond` (all but
+``shard_ilu0``, which goes with the multi-device port); ILU(0) lives in
 :mod:`cask_tpu_torch.ops.ilu`.  Each is a callable ``r → M⁻¹r`` (or has an
 ``apply``) on the device, for the Krylov solvers.  IC(0) and SSOR apply
 through the same level-scheduled triangular-solve plans as ILU(0), so on
 the card each apply is a Python loop of small launches per level (about
 2·√n levels for a 2-D stencil); IC(0)'s ``method='jacobi'`` apply is a
-few DIA SpMV launches instead.  Block Jacobi and the Chebyshev
-preconditioner are not ported yet.
+few DIA SpMV launches instead.  Block Jacobi applies its host-inverted
+blocks as one batched product; the Chebyshev preconditioner is ``degree``
+operator applications.
 """
 
 from __future__ import annotations
@@ -19,10 +21,11 @@ import numpy as np
 import torch
 
 from cask_tpu_torch.formats.convert import coo_from_arrays, coo_to_csr, from_scipy, to_scipy
-from cask_tpu_torch.formats.matrix import CSR, host, to_device
+from cask_tpu_torch.formats.matrix import CSR, host, to_device, torch_dtype
 from cask_tpu_torch.ops.ilu import _split_lu, ilu0_lu
+from cask_tpu_torch.ops.spmv import operand_device, spmv
 from cask_tpu_torch.ops.trisolve import TriSolvePlan, jacobi_trisolve_plan, trisolve_plan
-from cask_tpu_torch.utils.platform import plan_device
+from cask_tpu_torch.utils.platform import plan_device, require_full_fp32
 
 
 def extract_diagonal(a: CSR) -> np.ndarray:
@@ -51,6 +54,49 @@ def jacobi(a: CSR, *, device=None):
         if r.ndim == 1:
             return r * inv
         return r * inv[:, None]
+
+    return apply
+
+
+def block_jacobi(a: CSR, block: int = 64, *, device=None):
+    """Dense-inverted diagonal blocks: ``r → blkdiag(A)⁻¹ r``.
+
+    The blocks are inverted once on the host (LU, a zero on a block's
+    diagonal patched to 1, the padding of the last block the identity) and
+    applied as one batched product (``torch.bmm``) on ``device`` (default:
+    where ``a``'s tensors are, the CUDA device for host numpy arrays), to a
+    vector or an (n, s) block.  A CUDA float32 apply refuses to run under
+    ``allow_tf32``."""
+    device = plan_device(a.data, device)
+    n = a.shape[0]
+    nb = -(-n // block)
+    data = host(a.data)
+    dense = np.zeros((nb, block, block), dtype=data.dtype)
+    indptr = host(a.indptr).astype(np.int64)
+    indices = host(a.indices).astype(np.int64)
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    inblk = rows // block == indices // block
+    r, c, v = rows[inblk], indices[inblk], data[inblk]
+    dense[r // block, r % block, c % block] = v
+    for b in range(nb):
+        hi = min(block, n - b * block)
+        blk = dense[b, :hi, :hi]
+        if np.any(np.diag(blk) == 0):
+            np.fill_diagonal(blk, np.where(np.diag(blk) == 0, 1.0, np.diag(blk)))
+        dense[b, :hi, :hi] = np.linalg.inv(blk)
+        if hi < block:  # identity on padding
+            for i in range(hi, block):
+                dense[b, i, i] = 1.0
+    inv = torch.as_tensor(dense, device=device)
+
+    def apply(r):
+        vec = r.ndim == 1
+        dt = torch.promote_types(inv.dtype, r.dtype)
+        r2 = (r[:, None] if vec else r).to(dt)
+        require_full_fp32(r2, "block_jacobi")
+        rp = torch.nn.functional.pad(r2, (0, 0, 0, nb * block - n))
+        out = torch.bmm(inv.to(dt), rp.reshape(nb, block, -1)).reshape(nb * block, -1)[:n]
+        return out[:, 0] if vec else out
 
     return apply
 
@@ -165,5 +211,112 @@ def ssor(a: CSR, omega: float = 1.0, *, device=None):
         y = lowplan.solve(low_data, r)
         y = y * dj if y.ndim == 1 else y * dj[:, None]
         return scale * upplan.solve(up_data, y)
+
+    return apply
+
+
+def _operator(a):
+    return a if callable(a) and not hasattr(a, "shape") else (lambda v: spmv(a, v))
+
+
+def _start_vector(n: int, dtype, seed: int, device) -> torch.Tensor:
+    """The power and Lanczos iterations' start: ``n`` standard normal
+    values of ``dtype`` from a ``torch.Generator`` seeded with ``seed`` (on
+    the CPU, so every device draws the same vector), on ``device``.  (The
+    reference draws ``jax.random.normal(PRNGKey(seed))``, which torch
+    cannot reproduce.)"""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(n, generator=g, dtype=dtype).to(device)
+
+
+def _widened(a, v: torch.Tensor) -> torch.Tensor:
+    """``v`` in the wider of its type and the matrix's, as the reference's
+    product promotes it (a callable's operand stays as it is)."""
+    dt = getattr(a, "dtype", None)
+    return v if dt is None else v.to(torch.promote_types(v.dtype, torch_dtype(dt)))
+
+
+def estimate_lmax(a, n: int, *, iters: int = 20, seed: int = 0, device=None) -> float:
+    """Largest-eigenvalue estimate by ``iters`` power iterations from a
+    float32 start vector (float32 whatever ``a``'s type; the products
+    promote as in the reference), inflated ×1.05 for use as Chebyshev's
+    ``lmax``.  ``a`` is a matrix or an ``x → A@x`` callable over length-``n``
+    vectors; the vector lives on ``device`` (default: the matrix's or
+    operator's, the CUDA device for host arrays or a plain callable)."""
+    op = _operator(a)
+    device = torch.device(device) if device is not None else operand_device(a)
+    v = _start_vector(n, torch.float32, seed, device)
+    for _ in range(iters):
+        w = op(_widened(a, v))
+        v = (w / torch.linalg.vector_norm(w)).to(torch.float32)
+    av = op(_widened(a, v))
+    return float(torch.vdot(_widened(a, v), av) / torch.vdot(v, v)) * 1.05
+
+
+def lanczos_extremal(a, n: int, *, iters: int = 30, seed: int = 0, device=None):
+    """Extremal-eigenvalue estimates ``(lmin, lmax)`` for symmetric ``a``.
+
+    ``iters`` Lanczos steps with full reorthogonalization against the
+    stored basis, in ``a``'s type (float32 for a callable), then
+    ``eigvalsh`` of the small tridiagonal; the pair is nudged outward
+    (lmin ×0.95, lmax ×1.05; the other way for negative values) for use as
+    Chebyshev bounds.  ``lmax`` is accurate within a few percent at
+    ``iters≈30``; ``lmin`` of an ill-conditioned operator lands above the
+    true minimum.  The vectors live on ``device`` as in
+    :func:`estimate_lmax`."""
+    op = _operator(a)
+    device = torch.device(device) if device is not None else operand_device(a)
+    m = int(min(iters, n))
+    dt = torch_dtype(a.dtype) if hasattr(a, "dtype") else torch.float32
+    v0 = _start_vector(n, dt, seed, device)
+    V = v0.new_zeros((m + 1, n))
+    V[0] = v0 / torch.linalg.vector_norm(v0)
+    beta = v0.new_zeros(())
+    alphas, betas = [], []
+    for j in range(m):
+        vj = V[j]
+        w = op(vj).to(dt) - beta * V[j - 1]  # V[-1], the zero last row, at j = 0
+        alpha = torch.vdot(vj, w)
+        w = w - alpha * vj
+        Vj = V[:j + 1]
+        w = w - Vj.T @ (Vj @ w)  # full reorthogonalization over the filled rows
+        beta = torch.linalg.vector_norm(w)
+        V[j + 1] = w / torch.where(beta == 0, torch.ones_like(beta), beta)
+        alphas.append(alpha)
+        betas.append(beta)
+    al, be = torch.stack(alphas), torch.stack(betas)[:-1]
+    t = torch.diag(al) + torch.diag(be, 1) + torch.diag(be, -1)
+    evals = torch.linalg.eigvalsh(t).cpu()
+    lmin, lmax = float(evals[0]), float(evals[-1])
+    lmin *= 0.95 if lmin > 0 else 1.05
+    lmax *= 1.05 if lmax > 0 else 0.95
+    return lmin, lmax
+
+
+def chebyshev_precond(a, *, lmin: float, lmax: float, degree: int = 8, M=None):
+    """Polynomial preconditioner ``r → p(A) r ≈ A⁻¹ r``: ``degree`` fixed
+    Chebyshev steps over ``[lmin, lmax]``, each one operator application
+    and an axpy, with no inner product or triangular solve.  A fixed degree
+    makes it a linear SPD operator, so a valid CG preconditioner.  ``M`` is
+    an optional inner preconditioner (e.g. :func:`jacobi`) applied in each
+    step."""
+    op = _operator(a)
+    inner = M or (lambda r: r)
+    theta = (lmax + lmin) / 2.0
+    delta = (lmax - lmin) / 2.0
+
+    def apply(r):
+        x = torch.zeros_like(r)
+        alpha = 1.0 / theta
+        d = inner(r) * alpha
+        rr = r
+        for _ in range(degree):
+            x = x + d
+            rr = rr - op(d)
+            beta = (delta * alpha / 2.0) ** 2
+            alpha_new = 1.0 / (theta - beta / alpha)
+            d = alpha_new * (inner(rr) + beta * d / alpha)
+            alpha = alpha_new
+        return x + d
 
     return apply

@@ -420,11 +420,13 @@ def tune(a: CSR, *, k: Optional[int] = None, cache: Optional[TunerCache] = None,
     plans = {}  # the plans built for ``a``, shared by the variants that use one
     results_t = []  # (var, dev, fn, info, meas)
     timings = {}  # every variant's measurement (or refusal) persists in the cache
+    aliases = {}  # a name -> the first name of its callable, whose entry it copies at the end
     for var in candidates:
         first = next((n for n in timings if _same_callable(n) == _same_callable(var.name)),
                      None)
         if first is not None:  # one callable, timed under its first name
-            timings[var.name] = dict(timings[first], same_as=first)
+            timings[var.name] = None
+            aliases[var.name] = first
             continue
         if (wall_budget_s is not None and results_t
                 and time.time() - t_tune0 > wall_budget_s):
@@ -502,6 +504,9 @@ def tune(a: CSR, *, k: Optional[int] = None, cache: Optional[TunerCache] = None,
         dev, fn = var.build(a, k, device)
         best = (var, dev, fn, {}, None)
 
+    # copied after any re-measurement, so an alias carries its first name's final reading
+    for name, first in aliases.items():
+        timings[name] = dict(timings[first], same_as=first)
     var, dev, fn, info, meas_b = best
     secs = meas_b.seconds_per_iter if meas_b is not None else float("nan")
     cache.put(cache_key, {"variant": var.name, "seconds_per_op": secs,

@@ -39,6 +39,16 @@ def plan_device(x, device=None) -> torch.device:
     return default_device()
 
 
+def require_full_fp32(t: torch.Tensor, what: str) -> None:
+    """Raise if ``t`` is a CUDA float32 tensor while
+    ``torch.backends.cuda.matmul.allow_tf32`` is set: ``what``'s dense
+    products must be full FP32, as the reference's are.  The global setting
+    is left as it is."""
+    if t.is_cuda and t.dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(f"{what} needs full-FP32 products, but "
+                           "torch.backends.cuda.matmul.allow_tf32 is set")
+
+
 def hbm_bandwidth(name: Optional[str] = None) -> tuple:
     """``(bytes_per_second, known)`` for the card called ``name``
     (default: CUDA device 0).  An unknown card gives ``(None, False)``."""

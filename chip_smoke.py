@@ -150,9 +150,40 @@ card.  Phases, one line each:
    model's.
 19j. bench-harness — ``bench_matrix`` on the FEM matrix and
    ``bench_suite("small")``: JSON lines with their roofline shares.
+19k. krylov — over ``solver_operator(S)`` of phase 12 (tol 1e-6, f32):
+   ``pipelined_cg``, ``bicgstab``, ``minres``, ``gmres(restart=32)`` and
+   ``chebyshev`` with bounds from ``lanczos_extremal(iters=30)``; each
+   solve's iterations beside phase 12's CG, its warm time, its true
+   residual (f64 host, 1e-5) and its ``dia_spmv`` launches, equal to the
+   products its recurrence makes and no other kernel launched (no gather
+   route); ``lanczos_extremal`` and ``estimate_lmax`` within 5 % of the
+   closed-form top of the spectrum; ``pipelined_cg`` and ``minres`` over
+   phase 9's ``BdiaOperator`` too (B2).  Run before the tuner's phases,
+   right after ``[spgemm]``, as are 19l-19o.
+19l. ir — ``ir_solve`` on the f64 DIA plan of S (inner ``cg`` on its f32
+   copy; both plans through the DIA SpMV kernel) to a true 1e-12, beside an
+   f64 ``cg`` to 1e-12.
+19m. amg — ``smoothed_aggregation_amg(stencil_2d(1024))`` (1,048,576 rows,
+   f32 apply): host set-up split into strength, aggregation (the native
+   core), plans and the rest; level sizes and routes; one V-cycle by CUDA
+   events with its ``dia_spmv`` and ``poh_spmv`` launches (each nonzero),
+   within 1e-5 of a scipy f64 V-cycle over levels rebuilt here; CG to
+   1e-6 with no preconditioner, Jacobi, ``block_jacobi(64)``,
+   ``chebyshev_precond`` (degree 8 over Jacobi, Lanczos bounds) and the
+   V-cycle.
+19n. eig — ``lobpcg`` on the eigenvalues example's case to convergence
+   (``stencil_2d(100)`` f64, k = 4: smallest with IC(0), largest plain;
+   Ritz values within 1e-6 of the closed form), then 10 and 20 iterations
+   on ``stencil_2d(1024)`` f32 at k = 8 from one start block (the DIA SpMM
+   kernel, k ≤ 64): Ritz values no larger at 20 than at 10, none below the
+   closed form's.
+19o. lstsq — ``cgls`` on the POH plan of ``random_uniform(2_097_152,
+   1_048_576, density=4e-6)`` (8.8 M entries): A and its transposed plan
+   through the POH SpMV kernel, two launches an iteration;
+   ‖Aᵀ(b − Ax)‖/‖Aᵀb‖ ≤ 1e-5 in f64 on the host.
 
 The host-side power law (generated once, shared by phases 15-18) and its
-plans add about half a minute of host time.  Every main path (phases 8-19f)
+plans add about half a minute of host time.  Every main path (phases 8-19f, 19k-19o)
 runs with all launch counts set to 0 just before it and read just after,
 and must launch its kernel; its result must match the twin and scipy
 (f64, host).  It needs one CUDA device and exits
@@ -597,6 +628,21 @@ def _pack_bytes(vals, index_bytes: int) -> int:
     import torch
 
     return vals.numel() * vals.element_size() + int(torch.count_nonzero(vals)) * index_bytes
+
+
+def _spmv_bytes(nnz: int, rows: int, cols: int, vb: int = 4) -> int:
+    """Bytes a sparse matrix–vector product must move whatever the format
+    that holds the matrix: each entry's value and 4-byte column index, the
+    row pointers, x read once and y written once (the bound of a pack that
+    pads most of its slots, which the pack's own bytes would flatter)."""
+    return nnz * (vb + 4) + (rows + 1) * 4 + (rows + cols) * vb
+
+
+def _fill(vals) -> float:
+    """The share of a slot pack's slots that hold an entry (0 marks padding)."""
+    import torch
+
+    return int(torch.count_nonzero(vals)) / vals.numel()
 
 
 def _short(dtype) -> str:
@@ -1393,6 +1439,564 @@ def _lib_spgemm(A, c):
 
 
 L2_BYTES = 50 * 2**20  # the H100's L2: a working set under it is read from cache when warm
+# ---------------------------------------------------------------------------
+# the rest of the solver half: [krylov], [ir], [amg], [eig], [lstsq]
+# ---------------------------------------------------------------------------
+
+SOLVE_TOL = 1e-6  # each solve's stopping tolerance; its true residual is held to 1e-5
+LSQ_M, LSQ_N, LSQ_DENSITY = 2_097_152, 1_048_576, 4e-6  # [lstsq]: 8.8 M entries
+EIG_K = 8  # [eig]: lobpcg's block at full size
+
+
+def _true_rel(s64, x, b64) -> float:
+    """‖b − S·x‖/‖b‖ in f64 on the host."""
+    import numpy as np
+
+    return float(np.linalg.norm(b64 - s64 @ x.detach().cpu().double().numpy())
+                 / np.linalg.norm(b64))
+
+
+class _LaunchesByPlan:
+    """Within its block, the DIA and POH SpMV kernels' launches per plan:
+    each call of a plan's SpMV (``DiaMatrix.spmv``, ``PohMatrix.spmv``)
+    adds what it advanced the kernel wrapper's own count by to that plan's
+    entry.  ``of(plan)`` reads one plan's launches."""
+
+    def __init__(self):
+        self._by_id = {}  # id(plan) -> [plan, launches]
+
+    def of(self, plan) -> int:
+        return self._by_id.get(id(plan), [plan, 0])[1]
+
+    def plans(self):
+        return [p for p, _ in self._by_id.values()]
+
+    def __enter__(self):
+        import cask_tpu_torch.ops.dia as dia_mod
+        import cask_tpu_torch.ops.poh as poh_mod
+
+        self._saved = [(dia_mod, "dia_spmv", dia_mod.dia_spmv),
+                       (poh_mod, "poh_spmv", poh_mod.poh_spmv)]
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._counted(fn, _counters()[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def _counted(self, fn, counter):
+        def run(plan, *args, **kw):
+            before = counter.launches
+            out = fn(plan, *args, **kw)
+            self._by_id.setdefault(id(plan), [plan, 0])[1] += counter.launches - before
+            return out
+        return run
+
+
+def _counted_then_warm(solve, by_plan: _LaunchesByPlan | None = None):
+    """Run ``solve`` with every launch count at 0 and read the counts (and,
+    given ``by_plan``, each plan's own, in that run only); then once more,
+    warm, on the host clock.  (result, counts, warm seconds)."""
+    import contextlib
+
+    import torch
+
+    _reset()
+    with by_plan if by_plan is not None else contextlib.nullcontext():
+        res = solve()
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    _, t_warm = _sync_seconds(solve)
+    return res, counts, t_warm
+
+
+def _only(counts: dict, kernel: str, want, what: str) -> int:
+    """The launches of ``kernel``, which must be ``want`` (``None``: any but
+    0), with no other kernel launched: every product of the solve went
+    through it."""
+    got = counts[kernel]
+    others = {k: v for k, v in counts.items() if k != kernel and v}
+    if (got != want if want is not None else not got) or others:
+        raise AssertionError(f"{what}: {kernel} launched {got} times (want "
+                             f"{'some' if want is None else want}), others {others}")
+    return got
+
+
+def _laplacian_eigs(nx: int, shift: float = 0.0):
+    """Every eigenvalue of ``shift·I + stencil_2d(nx)``, ascending (closed form)."""
+    import numpy as np
+
+    c = 2.0 - 2.0 * np.cos(np.pi * np.arange(1, nx + 1) / (nx + 1))
+    return np.sort((shift + c[:, None] + c[None, :]).ravel())
+
+
+def _converged(what: str, res, stopped) -> None:
+    """Raise unless ``stopped(res)``: the solve stopped on its own test.  The
+    caller also holds the true residual in f64."""
+    if not stopped(res):
+        raise AssertionError(f"{what} did not converge: {res.iterations} iterations, "
+                             f"residual {res.residual_norm:.3e}")
+
+
+def _loop_stopped(maxiter: int):
+    """``pipelined_cg``'s stop rule: its ``converged`` is the true residual's
+    test at ``tol``, and in f32 its recurrence residual drifts from b − A·x
+    (the reference's does the same: 3.6e-6 relative at tol 1e-6 on a small
+    S), so the loop's own stop before ``maxiter`` counts, with the true
+    residual held to 1e-5 beside it."""
+    return lambda r: r.converged or r.iterations < maxiter
+
+
+def krylov_phase(dev, card, s_sp, dop, bs, cg_iters, fem_op, fem_b, fem_sp):
+    """[krylov]: pipelined CG, BiCGStab, MINRES, GMRES(32) and Chebyshev
+    (bounds from ``lanczos_extremal``) over ``solver_operator(S)``, S = I +
+    stencil_2d(GRID_SPMV), tol 1e-6; pipelined CG and MINRES also over the
+    FEM system's ``BdiaOperator``.  Returns the B9 timing row."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+    from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmv, dia_spmv_reference
+
+    sv = ct.solvers
+    n = s_sp.shape[0]
+    s64 = s_sp.astype(np.float64)
+    b64 = bs.cpu().double().numpy()
+    lam = _laplacian_eigs(GRID_SPMV, 1.0)
+    _reset()
+    (lmin, lmax), t_lz = _sync_seconds(lambda: sv.lanczos_extremal(dop, n, iters=30))
+    n_lz = _launched("dia_spmv", "lanczos_extremal over solver_operator")
+    _reset()
+    est, t_pw = _sync_seconds(lambda: sv.estimate_lmax(dop, n, iters=20))
+    n_pw = _launched("dia_spmv", "estimate_lmax over solver_operator")
+    for what, got in (("lanczos_extremal", lmax), ("estimate_lmax", est)):
+        if not abs(got / 1.05 - lam[-1]) <= 0.05 * lam[-1]:
+            raise AssertionError(f"{what}: lmax {got:.4f} (÷1.05 {got / 1.05:.4f}) is not "
+                                 f"within 5 % of the closed form's {lam[-1]:.4f}")
+    print(f"[krylov] S = I + stencil_2d({GRID_SPMV}), {n} rows: lanczos_extremal(iters=30) "
+          f"({lmin:.4f}, {lmax:.4f}) in {t_lz * 1e3:.1f} ms, {n_lz} dia_spmv launches; "
+          f"estimate_lmax(iters=20) {est:.4f} in {t_pw * 1e3:.1f} ms, {n_pw} launches; closed "
+          f"form ({lam[0]:.6f}, {lam[-1]:.6f}) (the estimates nudged x0.95 and x1.05)",
+          flush=True)
+    maxiter_gmres = 50
+
+    def gmres_products(k):  # a test of ‖M(b − Ax)‖ before each cycle, restart + 1 a cycle
+        return (k + 1 if k < maxiter_gmres else k) + 33 * k + 1
+
+    converged = lambda r: r.converged  # noqa: E731
+    cases = (
+        ("pipelined_cg", lambda: sv.pipelined_cg(dop, bs, tol=SOLVE_TOL, maxiter=500),
+         lambda k: k + 3, "2 before the loop, 1 an iteration, 1 after", _loop_stopped(500)),
+        ("bicgstab", lambda: sv.bicgstab(dop, bs, tol=SOLVE_TOL, maxiter=500),
+         lambda k: 2 * k + 1, "1 before the loop, 2 an iteration", converged),
+        ("minres", lambda: sv.minres(dop, bs, tol=SOLVE_TOL, maxiter=500),
+         lambda k: k + 2, "1 before the loop, 1 an iteration, 1 after", converged),
+        ("gmres(restart=32)", lambda: sv.gmres(dop, bs, tol=SOLVE_TOL, restart=32,
+                                               maxiter=maxiter_gmres),
+         gmres_products, "1 a convergence test, 33 a cycle, 1 after", converged),
+        ("chebyshev(lanczos bounds)", lambda: sv.chebyshev(dop, bs, lmin=lmin, lmax=lmax,
+                                                            tol=SOLVE_TOL, maxiter=2000),
+         lambda k: k + 1, "1 before the loop, 1 an iteration", converged),
+    )
+    total = 0
+    for name, solve, products, rule, stopped in cases:
+        res, counts, t_warm = _counted_then_warm(solve)
+        _converged(f"[krylov] {name}", res, stopped)
+        launches = _only(counts, "dia_spmv", products(res.iterations), f"[krylov] {name}")
+        total += launches
+        rel = _true_rel(s64, res.x, b64)
+        if not rel <= 1e-5:
+            raise AssertionError(f"[krylov] {name}: true relative residual {rel:.3e} > 1e-5")
+        print(f"[krylov] {name}(S, b), tol {SOLVE_TOL:.0e}: {res.iterations} iterations (cg "
+              f"{cg_iters}, [dia-cg]), converged {res.converged}, warm solve "
+              f"{t_warm * 1e3:.2f} ms = {t_warm / max(res.iterations, 1) * 1e3:.3f} ms an "
+              f"iteration (host clock); dia_spmv launches {launches} ({rule}); true relative "
+              f"residual {rel:.2e} (f64 host, tol 1e-5); card {card}", flush=True)
+    fem64 = fem_sp.astype(np.float64)
+    fb64 = fem_b.cpu().double().numpy()
+    for name, solve, products, stopped in (
+            ("pipelined_cg", lambda: sv.pipelined_cg(fem_op, fem_b, tol=SOLVE_TOL, maxiter=500),
+             lambda k: k + 3, _loop_stopped(500)),
+            ("minres", lambda: sv.minres(fem_op, fem_b, tol=SOLVE_TOL, maxiter=500),
+             lambda k: k + 2, converged)):
+        res, counts, t_warm = _counted_then_warm(solve)
+        _converged(f"[krylov] {name} over the FEM BdiaOperator", res, stopped)
+        launches = _only(counts, "bdia_spmv", products(res.iterations),
+                         f"[krylov] {name} over the FEM BdiaOperator")
+        rel = _true_rel(fem64, res.x, fb64)
+        if not rel <= 1e-5:
+            raise AssertionError(f"[krylov] {name} (FEM): true relative residual {rel:.3e}")
+        print(f"[krylov] {name}(BdiaOperator, b) on the FEM SPD system ([cg]), {fem_sp.shape[0]} "
+              f"rows: {res.iterations} iterations, converged {res.converged}, warm solve "
+              f"{t_warm * 1e3:.2f} ms = "
+              f"{t_warm / max(res.iterations, 1) * 1e3:.3f} ms an iteration; bdia_spmv "
+              f"launches {launches}; true relative residual {rel:.2e} (f64 host, tol 1e-5)",
+              flush=True)
+    return [("dia_spmv f32 [solver_operator in pipelined_cg, bicgstab, minres, gmres(32), "
+             "chebyshev]", "dia_spmv", f"{DIA_PY}:336 (B9), :511 (B10), :650 (B11)",
+             lambda d=dop.dia, v=bs: dia_spmv(d, v), lambda d=dop.dia, v=bs: dia_spmv_reference(d, v),
+             s_sp, bs, (dop.dia.vals.numel() + 2 * n) * 4, 2 * dop.dia.vals.numel(), total,
+             float((dop(bs) - dop.dia._spmv_reference(bs)).abs().max()), torch.float32)]
+
+
+def ir_phase(dev, card, s_sp) -> None:
+    """[ir]: ``ir_solve`` on the f64 DIA plan of S (inner ``cg`` on its f32
+    copy, both through the DIA SpMV kernel) to 1e-12, beside an f64 ``cg``."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+
+    sv = ct.solvers
+    s64 = s_sp.astype(np.float64)
+    plan, t_plan = _sync_seconds(lambda: ct.dia_plan(_csr_of(s64), device=dev))
+    b64 = np.random.default_rng(SEED + 2).standard_normal(s64.shape[0])
+    b = torch.from_numpy(b64).to(dev)
+    out = {}
+    for name, solve in (("ir_solve(S f64, work f32, inner cg)",
+                         lambda: sv.ir_solve(plan, b, tol=1e-12)),
+                        ("cg(S f64)", lambda: sv.cg(plan, b, tol=1e-12, maxiter=1000))):
+        res, counts, t_warm = _counted_then_warm(solve)
+        rel = _true_rel(s64, res.x, b64)
+        if not (res.converged and rel <= 1e-12 and res.x.dtype == torch.float64):
+            raise AssertionError(f"[ir] {name}: converged {res.converged}, true relative "
+                                 f"residual {rel:.3e} (tol 1e-12), x {res.x.dtype}")
+        launches = _only(counts, "dia_spmv", None, f"[ir] {name}")
+        out[name] = (res.iterations, t_warm, launches, rel)
+    (k_ir, t_ir, l_ir, r_ir), (k_cg, t_cg, l_cg, r_cg) = out.values()
+    print(f"[ir] S = I + stencil_2d({GRID_SPMV}) as an f64 DIA plan ({t_plan:.1f} s host): "
+          f"ir_solve to 1e-12, {k_ir} outer steps (f32 inner cg to 1e-5, at most 300 "
+          f"iterations), warm {t_ir * 1e3:.1f} ms, dia_spmv launches {l_ir} (f64 and f32 "
+          f"plans), true relative residual {r_ir:.2e}; f64 cg to 1e-12: {k_cg} iterations, "
+          f"warm {t_cg * 1e3:.1f} ms, launches {l_cg}, true relative residual {r_cg:.2e} "
+          f"(f64 host, tol 1e-12); card {card}", flush=True)
+
+
+def amg_phase(dev, card, mm_host, mm_sp):
+    """[amg]: ``smoothed_aggregation_amg(stencil_2d(GRID_SPMM))`` (f32 apply):
+    its host set-up by step, levels and routes, one V-cycle by CUDA events
+    with its DIA and POH launches, held against a scipy f64 V-cycle over
+    level matrices rebuilt here, then CG with five preconditioners.
+    Returns the B8 and B16 timing rows."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import cask_tpu_torch as ct
+    import cask_tpu_torch.solvers.amg as amg_mod
+    from cask_tpu_torch.ops.dia import DiaMatrix
+    from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmv, dia_spmv_reference
+    from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmv, poh_spmv_reference
+    from cask_tpu_torch.ops.poh import PohMatrix
+    from cask_tpu_torch.tune.timing import time_cuda
+
+    sv = ct.solvers
+    n = mm_sp.shape[0]
+    # the set-up's steps timed where the module runs them
+    spent = {"strength": 0.0, "aggregation": 0.0, "plans": 0.0}
+    steps = {"_strength_graph": "strength", "_aggregate": "aggregation", "dia_plan": "plans",
+             "poh_plan": "plans"}
+    saved = {name: getattr(amg_mod, name) for name in steps}
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+
+    for name, key in steps.items():
+        setattr(amg_mod, name, timed(key, saved[name]))
+    try:
+        amg, t_setup = _sync_seconds(lambda: sv.smoothed_aggregation_amg(
+            mm_host, dtype=torch.float32, device=dev))
+    finally:
+        for name, fn in saved.items():
+            setattr(amg_mod, name, fn)
+
+    def route(op) -> str:
+        if isinstance(op, torch.Tensor):
+            return "dense"
+        if isinstance(op, DiaMatrix):
+            return "DIA"
+        if isinstance(op, PohMatrix):
+            return "POH"
+        if isinstance(op, amg_mod._FactoredApply):
+            return f"factored ({route(op.tent)} tentative packs)"
+        return type(op).__name__
+
+    routes = "; ".join(f"level {i} ({lv.a.shape[0]} rows): A {route(lv.a)}, P and R "
+                       f"{route(lv.p)}" for i, lv in enumerate(amg.levels))
+    print(f"[amg] smoothed_aggregation_amg(stencil_2d({GRID_SPMM}), dtype=f32): set-up "
+          f"{t_setup:.2f} s (host clock): strength {spent['strength']:.2f} s, aggregation "
+          f"(native core) {spent['aggregation']:.2f} s, plans {spent['plans']:.2f} s, triple "
+          f"products and the rest {t_setup - sum(spent.values()):.2f} s; level sizes "
+          f"{amg.level_sizes}; {routes}; coarse: a dense {amg.coarse_inv.shape[0]}-row inverse",
+          flush=True)
+
+    # the same hierarchy in scipy f64, rebuilt with the port's strength graph
+    # and aggregation and the reference's triple products
+    t0 = time.perf_counter()
+    a_sp = mm_sp.astype(np.float64).tocsr()
+    ref_levels = []
+    t_tri = 0.0
+    while a_sp.shape[0] > 256 and len(ref_levels) < 12:
+        agg = amg_mod._aggregate(amg_mod._strength_graph(a_sp, 0.08))
+        nl, n_agg = a_sp.shape[0], int(agg.max()) + 1
+        if n_agg >= nl:
+            break
+        t1 = time.perf_counter()
+        tent = sp.csr_matrix((np.ones(nl), (np.arange(nl), agg)), shape=(nl, n_agg))
+        dinv = 1.0 / a_sp.diagonal()
+        da = sp.diags(dinv) @ a_sp
+        rho = float(abs(da).sum(axis=1).max())
+        prol = (tent - (4.0 / 3.0 / rho) * (da @ tent)).tocsr()
+        a_c = (prol.T @ a_sp @ prol).tocsr()
+        t_tri += time.perf_counter() - t1
+        ref_levels.append((a_sp, prol, dinv, tent))
+        a_sp = a_c
+    coarse = np.linalg.inv(a_sp.toarray())
+    sizes = [lv[0].shape[0] for lv in ref_levels] + [coarse.shape[0]]
+    if sizes != amg.level_sizes:
+        raise AssertionError(f"[amg] rebuilt level sizes {sizes} != {amg.level_sizes}")
+
+    def vcycle(b, lvl=0, w=2.0 / 3.0):
+        if lvl == len(ref_levels):
+            return coarse @ b
+        a_l, p_l, dinv_l, _ = ref_levels[lvl]
+        x = w * dinv_l * b
+        x = x + p_l @ vcycle(p_l.T @ (b - a_l @ x), lvl + 1)
+        return x + w * dinv_l * (b - a_l @ x)
+
+    r = torch.from_numpy(np.random.default_rng(SEED + 3).standard_normal(n)
+                         .astype(np.float32)).to(dev)
+    want = vcycle(r.cpu().double().numpy())
+    t_ref = time.perf_counter() - t0
+    _reset()
+    y = amg(r)
+    torch.cuda.synchronize()
+    n_dia = _launched("dia_spmv", "the AMG V-cycle")
+    n_poh = _launched("poh_spmv", "the AMG V-cycle")
+    err = _relerr(y, torch.from_numpy(want))
+    _check("[amg] V-cycle vs scipy f64", err, 1e-5)
+    t_cycle = time_cuda(lambda: amg(r), warmup=3, runs=10, reps=3)
+    print(f"[amg] one V-cycle {t_cycle.ms * 1e3:.1f} us (CUDA events, median of 10 samples of "
+          f"3), dia_spmv launches {n_dia}, poh_spmv {n_poh}; vs a scipy f64 V-cycle over the "
+          f"rebuilt levels {err:.2e} (tol 1e-5; rebuild {t_ref:.1f} s, its triple products "
+          f"{t_tri:.1f} s); card {card}", flush=True)
+
+    op = ct.solver_operator(mm_host, device=dev)
+    b = torch.from_numpy(np.random.default_rng(SEED + 4).standard_normal(n)
+                         .astype(np.float32)).to(dev)
+    s64, b64 = mm_sp.astype(np.float64), b.cpu().double().numpy()
+    jac = sv.jacobi(mm_host, device=dev)
+    bj, t_bj = _sync_seconds(lambda: sv.block_jacobi(mm_host, 64, device=dev))
+    # Chebyshev's bounds: those of the Jacobi-preconditioned operator it steps
+    (clo, chi), t_cl = _sync_seconds(lambda: sv.lanczos_extremal(lambda v: jac(op(v)), n,
+                                                                  iters=30, device=dev))
+    cheb = sv.chebyshev_precond(op, lmin=clo, lmax=chi, degree=8, M=jac)
+    print(f"[amg] cg(solver_operator(A), b) preconditioners: block_jacobi(64) host set-up "
+          f"{t_bj:.2f} s; chebyshev_precond(degree 8, M=jacobi) over lanczos_extremal of "
+          f"D⁻¹A: ({clo:.3e}, {chi:.4f}) in {t_cl * 1e3:.0f} ms", flush=True)
+    # The f32 solves' true residuals: κ(A) is about 4e5 here, and f32 CG's
+    # recurrence residual parts from b − A·x by about eps·‖A‖·‖x‖/‖b‖ (2.4e-4
+    # for plain CG on the card, 2.2e-5 for AMG-PCG), so f32 is held to 1e-3 and
+    # the same AMG-PCG solve in f64 to 1e-9.
+    fine = amg.levels[0]
+    tent = fine.p.tent
+    by_plan = _LaunchesByPlan()  # the f32 AMG-PCG solve's launches on each plan
+    s_op64, b_d64 = ct.solver_operator(_csr_of(s64), device=dev), torch.from_numpy(b64).to(dev)
+    amg64, t_setup64 = _sync_seconds(lambda: sv.smoothed_aggregation_amg(mm_host, device=dev))
+    for name, A, rhs, tol, M, maxiter, per_apply, bound in (
+            ("none", op, b, SOLVE_TOL, None, 10000, 0, 1e-3),
+            ("jacobi", op, b, SOLVE_TOL, jac, 10000, 0, 1e-3),
+            ("block_jacobi(64)", op, b, SOLVE_TOL, bj, 10000, 0, 1e-3),
+            ("chebyshev_precond(8)", op, b, SOLVE_TOL, cheb, 3000, 8, 1e-3),
+            ("amg V-cycle", op, b, SOLVE_TOL, amg, 200, None, 1e-3),
+            ("amg V-cycle, f64 (A, b, cycle)", s_op64, b_d64, 1e-10, amg64, 200, None, 1e-9)):
+        res, counts, t_warm = _counted_then_warm(
+            lambda: sv.cg(A, rhs, tol=tol, maxiter=maxiter, M=M),
+            by_plan if M is amg else None)
+        rel = _true_rel(s64, res.x, b64)
+        print(f"[amg] cg(A, b, M={name}), tol {tol:.0e}: {res.iterations} iterations, "
+              f"converged {res.converged}, warm solve {t_warm * 1e3:.1f} ms = "
+              f"{t_warm / max(res.iterations, 1) * 1e3:.3f} ms an iteration (host clock); "
+              f"launches dia_spmv {counts['dia_spmv']}, poh_spmv {counts['poh_spmv']}; true "
+              f"relative residual {rel:.2e} (f64 host, tol {bound:.0e}); card {card}", flush=True)
+        if not (res.converged and rel <= bound):
+            raise AssertionError(f"[amg] cg with {name}: converged {res.converged} in "
+                                 f"{res.iterations}, true relative residual {rel:.3e}")
+        if per_apply is not None:
+            _only(counts, "dia_spmv", (res.iterations + 1) * (1 + per_apply), f"[amg] {name}")
+        elif not (counts["dia_spmv"] and counts["poh_spmv"]):  # the V-cycle's own launches
+            raise AssertionError(f"[amg] AMG-PCG launched dia_spmv {counts['dia_spmv']} and "
+                                 f"poh_spmv {counts['poh_spmv']} times")
+    per_level = "; ".join(
+        f"level {i}: A {by_plan.of(lv.a)}, T {by_plan.of(lv.p.tent)}, Tᵀ "
+        f"{by_plan.of(lv.r.tent_t)}" if isinstance(lv.p, amg_mod._FactoredApply) else
+        f"level {i}: A {by_plan.of(lv.a)}, P {by_plan.of(lv.p)}, R {by_plan.of(lv.r)}"
+        for i, lv in enumerate(amg.levels))
+    print(f"[amg] the f64 hierarchy's set-up {t_setup64:.2f} s; the f32 AMG-PCG solve's "
+          f"launches on each plan (DIA or POH SpMV, counted at the plan's SpMV): {per_level}; "
+          f"the CG operator's own (solver_operator, B9) {by_plan.of(getattr(op, 'dia', op))}; "
+          f"T's POH pack {_fill(tent.vals):.3f} full, {_pack_bytes(tent.vals, 8) / 1e6:.1f} MB "
+          f"padded against the product's {_spmv_bytes(n, n, tent.shape[1]) / 1e6:.1f} MB",
+          flush=True)
+    if not (by_plan.of(fine.a) and by_plan.of(tent)):
+        raise AssertionError(f"[amg] AMG-PCG launched nothing on the fine level's A or T: "
+                             f"{per_level}")
+    xc = torch.from_numpy(np.random.default_rng(SEED + 5).standard_normal(tent.shape[1])
+                          .astype(np.float32)).to(dev)
+    tent_sp = ref_levels[0][3].astype(np.float32)
+    return [(f"dia_spmv f32 [AMG fine level A ({n} rows) in AMG-PCG: smoothing, residual, "
+             f"factored P and R]", "dia_spmv",
+             f"{DIA_PY}:176 (B8)", lambda d=fine.a, v=r: dia_spmv(d, v),
+             lambda d=fine.a, v=r: dia_spmv_reference(d, v), mm_sp, r,
+             (fine.a.vals.numel() + 2 * n) * 4, 2 * fine.a.vals.numel(), by_plan.of(fine.a),
+             float((dia_spmv(fine.a, r) - dia_spmv_reference(fine.a, r)).abs().max()),
+             torch.float32),
+            (f"poh_spmv f32 [AMG tentative pack T ({n} x {tent.shape[1]}, one-hot) in "
+             "AMG-PCG]", "poh_spmv", f"{POH_PY}:388 (B16)",
+             lambda p=tent, v=xc: poh_spmv(p, v), lambda p=tent, v=xc: poh_spmv_reference(p, v),
+             tent_sp, xc, _spmv_bytes(n, n, tent.shape[1]), 2 * n, by_plan.of(tent),
+             float((poh_spmv(tent, xc) - poh_spmv_reference(tent, xc)).abs().max()),
+             torch.float32)]
+
+
+def eig_phase(dev, card, mm, mm_sp, mplan):
+    """[eig]: the eigenvalues example's case to convergence, then 10 and 20
+    iterations of ``lobpcg`` on stencil_2d(GRID_SPMM) at k = EIG_K from one
+    start block.  Returns the B12/B14 timing row."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+    from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmm, dia_spmm_reference
+
+    sv = ct.solvers
+    a = ct.generate.stencil_2d(100)  # f64, as the example
+    ad = a.to(dev)
+    lam = _laplacian_eigs(100)
+    x0 = np.random.default_rng(0).standard_normal((a.shape[0], 4))
+    ic, t_ic = _sync_seconds(lambda: sv.ic0(a, device=dev))
+    for name, largest, M in (("smallest 4, M=ic0(a).apply", False, ic.apply),
+                             ("largest 4", True, None)):
+        _reset()
+        res, t = _sync_seconds(lambda: sv.lobpcg(ad, x0, largest=largest, tol=1e-6,
+                                                  maxiter=500, M=M))
+        want = lam[-4:] if largest else lam[:4]
+        err = float(np.max(np.abs(res.theta.cpu().numpy() - want) / want))
+        launches = _launched("dia_spmm", f"lobpcg ({name})")
+        if not (res.converged and err <= 1e-6 and launches == res.iterations + 2):
+            raise AssertionError(f"[eig] lobpcg {name}: converged {res.converged}, Ritz values "
+                                 f"{err:.2e} from the closed form (tol 1e-6), dia_spmm "
+                                 f"{launches} launches for {res.iterations} iterations")
+        print(f"[eig] lobpcg(stencil_2d(100) f64, {name}), tol 1e-6: {res.iterations} "
+              f"iterations, {t:.2f} s (host clock; ic0 set-up {t_ic:.2f} s); Ritz values "
+              f"{np.array2string(res.theta.cpu().numpy(), precision=8)}, {err:.1e} from the "
+              f"closed form (tol 1e-6); dia_spmm launches {launches}", flush=True)
+
+    n = mm.shape[0]
+    lam = _laplacian_eigs(GRID_SPMM)[:EIG_K]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    X0 = torch.randn((n, EIG_K), generator=gen, device=dev, dtype=torch.float32)
+    runs = {}
+    for it in (10, 20):
+        _reset()
+        res, t = _sync_seconds(lambda: sv.lobpcg(mm, X0, tol=1e-6, maxiter=it))
+        launches = _launched("dia_spmm", f"lobpcg(maxiter={it})")
+        if res.iterations != it or launches != it + 2:
+            raise AssertionError(f"[eig] lobpcg(maxiter={it}): {res.iterations} iterations, "
+                                 f"dia_spmm {launches} launches (want {it + 2})")
+        runs[it] = (res.theta.cpu().double().numpy(), t, launches)
+    (th10, t10, _), (th20, t20, l20) = runs[10], runs[20]
+    if not (np.all(th20 <= th10 * (1 + 1e-6)) and np.all(th20 >= lam * (1 - 1e-6))):
+        raise AssertionError(f"[eig] Ritz values at 20 iterations {th20} against 10 {th10} "
+                             f"and the closed form {lam}")
+    print(f"[eig] lobpcg(stencil_2d({GRID_SPMM}) f32, k={EIG_K}) from one start block: 10 "
+          f"iterations {t10 * 1e3:.1f} ms, 20 iterations {t20 * 1e3:.1f} ms, so "
+          f"{(t20 - t10) / 10 * 1e3:.2f} ms an iteration (host clock); dia_spmm launches "
+          f"{l20} at 20; Ritz values at 20 {np.array2string(th20, precision=6)} no larger "
+          f"than at 10 and no smaller than the closed form's smallest {EIG_K} "
+          f"{np.array2string(lam, precision=6)} (Courant-Fischer); card {card}", flush=True)
+    return [(f"dia_spmm f32 [spmm(csr, X) in lobpcg, k={EIG_K}]", "dia_spmm",
+             f"{DIA_PY}:1148 (B14, k <= 64), :789 (B12)",
+             lambda d=mplan, v=X0: dia_spmm(d, v), lambda d=mplan, v=X0: dia_spmm_reference(d, v),
+             mm_sp, X0, (mplan.vals.numel() + 2 * n * EIG_K) * 4,
+             2 * mplan.vals.numel() * EIG_K, l20,
+             float((dia_spmm(mplan, X0) - dia_spmm_reference(mplan, X0)).abs().max()),
+             torch.float32)]
+
+
+def lstsq_phase(dev, card):
+    """[lstsq]: ``cgls`` on random_uniform(LSQ_M, LSQ_N) planned as a POH, A and
+    its transposed plan both through the POH SpMV kernel.  Returns the B16
+    timing rows of A and Aᵀ."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+    from cask_tpu_torch.formats.generate import random_uniform
+    from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmv, poh_spmv_reference
+
+    sv = ct.solvers
+    t0 = time.perf_counter()
+    a = random_uniform(LSQ_M, LSQ_N, density=LSQ_DENSITY, seed=SEED, dtype=np.float32)
+    s = ct.to_scipy(a)
+    s64 = s.astype(np.float64)
+    rng = np.random.default_rng(SEED + 1)
+    b64 = s64 @ rng.standard_normal(LSQ_N) + 1e-3 * rng.standard_normal(LSQ_M)
+    t_gen = time.perf_counter() - t0
+    plan, t_plan = _sync_seconds(lambda: ct.poh_plan(a, device=dev))
+    b = torch.from_numpy(b64.astype(np.float32)).to(dev)
+    _reset()
+    with _LaunchesByPlan() as by_plan:  # A's and the transposed plan's launches apart
+        res, t_first = _sync_seconds(lambda: sv.cgls(plan, b, tol=SOLVE_TOL, maxiter=5000))
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    launches = _only(counts, "poh_spmv", 2 * res.iterations + 3, "[lstsq] cgls(poh plan)")
+    n_a = by_plan.of(plan)
+    n_at = sum(by_plan.of(p) for p in by_plan.plans() if p is not plan)
+    if n_a + n_at != launches or not (n_a and n_at):
+        raise AssertionError(f"[lstsq] cgls: poh_spmv launches {launches}, of which A's "
+                             f"{n_a} and the transposed plan's {n_at}")
+    atb = np.linalg.norm(s64.T @ b64)
+    rel = float(np.linalg.norm(s64.T @ (b64 - s64 @ res.x.cpu().double().numpy())) / atb)
+    if not (res.converged and rel <= 1e-5):
+        raise AssertionError(f"[lstsq] cgls: converged {res.converged} in {res.iterations}, "
+                             f"‖Aᵀ(b − Ax)‖/‖Aᵀb‖ {rel:.3e} (tol 1e-5)")
+    at, t_t = _sync_seconds(lambda: ct.transposed(plan))
+    _, t_warm = _sync_seconds(lambda: sv.cgls(lambda v: ct.spmv(plan, v), b,
+                                              at=lambda v: ct.spmv(at, v), tol=SOLVE_TOL,
+                                              maxiter=5000))
+    print(f"[lstsq] cgls(poh_plan(random_uniform({LSQ_M}, {LSQ_N}, density={LSQ_DENSITY})), b), "
+          f"nnz {a.nnz}, tol {SOLVE_TOL:.0e}: {res.iterations} iterations; host: generation "
+          f"{t_gen:.1f} s, poh_plan {t_plan:.1f} s, transposed(plan) {t_t:.1f} s; first solve "
+          f"{t_first:.2f} s (transposed(plan) built in it), warm solve over the held plans "
+          f"{t_warm * 1e3:.1f} ms = {t_warm / max(res.iterations, 1) * 1e3:.3f} ms an "
+          f"iteration (host clock); poh_spmv launches {launches} (2 an iteration, 3 more): A "
+          f"{n_a}, transposed(A) {n_at}; the packs {_fill(plan.vals):.3f} and "
+          f"{_fill(at.vals):.3f} full, {_pack_bytes(plan.vals, 8) / 1e6:.1f} and "
+          f"{_pack_bytes(at.vals, 8) / 1e6:.1f} MB padded against the product's "
+          f"{_spmv_bytes(a.nnz, LSQ_M, LSQ_N) / 1e6:.1f} and "
+          f"{_spmv_bytes(a.nnz, LSQ_N, LSQ_M) / 1e6:.1f} MB; "
+          f"‖Aᵀ(b − Ax)‖/‖Aᵀb‖ {rel:.2e} (f64 host, tol 1e-5); card {card}", flush=True)
+    x = torch.from_numpy(rng.standard_normal(LSQ_N).astype(np.float32)).to(dev)
+    rows = []
+    for name, p, v, lib, n_p in (("A", plan, x, s, n_a),
+                                 ("transposed(A)", at, b, s.T.tocsr(), n_at)):
+        rows.append((f"poh_spmv f32 [{name} in cgls, {p.shape[0]} x {p.shape[1]}]", "poh_spmv",
+                     f"{POH_PY}:388 (B16)", lambda p=p, v=v: poh_spmv(p, v),
+                     lambda p=p, v=v: poh_spmv_reference(p, v), lib, v,
+                     _spmv_bytes(a.nnz, *p.shape), 2 * a.nnz, n_p,
+                     float((poh_spmv(p, v) - poh_spmv_reference(p, v)).abs().max()),
+                     torch.float32))
+    return rows
+
+
 HBM_BW = 3.35e12  # bytes/s: the H100 SXM5's published HBM bandwidth, the roofline's denominator
 HOST_SLOW_S = 30.0  # a host step of the tuner above this many seconds is flagged
 
@@ -2869,6 +3473,17 @@ def main() -> int:
     t_lap = _lap("ilu-device", t_lap)
     gem_rows, gem_extra = spgemm_phase(dev, rng, card)
     t_lap = _lap("spgemm", t_lap)
+    # -- 19k-19o. the rest of the solver half ------------------------------------
+    sol_rows = krylov_phase(dev, card, s_sp, dop, bs, dcg32[0], op, b, sb_sp)
+    t_lap = _lap("krylov", t_lap)
+    ir_phase(dev, card, s_sp)
+    t_lap = _lap("ir", t_lap)
+    sol_rows += amg_phase(dev, card, mm_host, mm_sp)
+    t_lap = _lap("amg", t_lap)
+    sol_rows += eig_phase(dev, card, mm, mm_sp, mplan)
+    t_lap = _lap("eig", t_lap)
+    sol_rows += lstsq_phase(dev, card)
+    t_lap = _lap("lstsq", t_lap)
     # -- 19g-19j. the tuner, its calibration and the bench harness --------------
     with tempfile.TemporaryDirectory() as tmp:  # the tuner caches of this run
         tune_row = tune_phase(dev, card, rng, a, x, a_host, a_sp, st_host, st_sp, mm_host,
@@ -3087,7 +3702,7 @@ def main() -> int:
                  bq.vals.numel() * 2 + bq.cols.numel() * 4 + n * K_WIDE * xb
                  + m * K_WIDE * 2, 2 * bq.vals.numel() * K_WIDE,
                  *runs[f"spmm(bsr_{ht}, X {xt}, method='pallas_bsr'), k={K_WIDE}"], h)]
-    rows += tri_rows + ilu["rows"] + gem_rows + [tune_row]  # the slices' kernel entries (f32)
+    rows += tri_rows + ilu["rows"] + gem_rows + sol_rows + [tune_row]  # the slices' entries (f32)
     lib_mats = {}  # (id of the scipy matrix, dtype) -> its torch sparse CSR on the card
 
     def lib_csr(s, dtype):

@@ -214,7 +214,11 @@ def test_import_leaves_out_jax_and_the_reference():
             "cask_tpu_torch.tune.timing, cask_tpu_torch.utils.platform, "
             "cask_tpu_torch.formats.mtx, cask_tpu_torch.ops.poh, cask_tpu_torch.ops.lell, "
             "cask_tpu_torch.ops.kernels.poh_kernels, cask_tpu_torch.ops.kernels.lell_kernels, "
-            "cask_tpu_torch.utils.debug; "
+            "cask_tpu_torch.utils.debug, cask_tpu_torch.solvers.krylov, "
+            "cask_tpu_torch.solvers.precond, cask_tpu_torch.solvers.eig, "
+            "cask_tpu_torch.solvers.amg, cask_tpu_torch.examples.cg_solver, "
+            "cask_tpu_torch.examples.preconditioners, cask_tpu_torch.examples.eigenvalues, "
+            "cask_tpu_torch.examples.least_squares; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
             "or m == 'cask_tpu' or m.startswith('cask_tpu.')]; print(bad); "
             "sys.exit(1 if bad else 0)")

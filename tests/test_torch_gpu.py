@@ -813,6 +813,48 @@ def test_block_cg_refuses_tf32(cuda):
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
+@pytest.mark.parametrize("what", ["block_jacobi", "lobpcg", "amg"])
+def test_solver_dense_products_refuse_tf32(cuda, what):
+    a = stencil_2d(48, dtype=np.float32)
+    r = torch.ones(a.shape[0], dtype=torch.float32, device=cuda)
+    if what == "block_jacobi":
+        run = functools.partial(ct.solvers.block_jacobi(a, 64, device=cuda), r)
+    elif what == "lobpcg":
+        run = functools.partial(ct.solvers.lobpcg, a.to(cuda), torch.ones(
+            (a.shape[0], 4), dtype=torch.float32, device=cuda))
+    else:
+        run = functools.partial(ct.solvers.smoothed_aggregation_amg(
+            a, dtype=torch.float32, device=cuda), r)
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="tf32"):
+            run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_amg_v_cycle_on_card_matches_cpu(cuda, dtype):
+    # the same hierarchy built on the card and on the CPU: the card's cycle
+    # runs the DIA SpMV kernel on banded levels and the POH SpMV kernel on
+    # the tentative packs, the CPU's their twins
+    a = stencil_2d(96, dtype=dtype)
+    kw = dict(dense_cutoff=256, coarse_size=64, dtype=dtype)  # set-up is f64 whatever a is
+    amg_gpu = ct.solvers.smoothed_aggregation_amg(a, device=cuda, **kw)
+    amg_cpu = ct.solvers.smoothed_aggregation_amg(a, device="cpu", **kw)
+    assert amg_gpu.level_sizes == amg_cpu.level_sizes
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(a.shape[0]).astype(dtype))
+    for fn in (dia_spmv, poh_spmv):
+        fn.launches = 0
+    y = amg_gpu(r.to(cuda))
+    assert dia_spmv.launches > 0 and poh_spmv.launches > 0
+    assert _relerr(y, amg_cpu(r)) <= TOL[dtype]
+    res = ct.solvers.cg(a.to(cuda), r.to(cuda), tol=1e-6, maxiter=200, M=amg_gpu)
+    ref = ct.solvers.cg(a.to("cpu"), r, tol=1e-6, maxiter=200, M=amg_cpu)
+    assert res.converged and abs(res.iterations - ref.iterations) <= 1
+
+
 # -- POH SpMV and SpMM (B16, B17), LELL group sums (B18) -----------------------
 
 
