@@ -6,11 +6,14 @@ The PyTorch counterpart of :mod:`cask_tpu.bench.cli`.  Subcommands:
   spmm      --k 32|128 ...
   tune      --mtx FILE | --suite ... [--k N]   (populate the tuner cache)
   calibrate [--force]                          (POH cost constants for this card)
+  scaling   [--side N] [--shards 1,2,4,8]      (distributed SpMV weak scaling)
+  overlap   [--side N] [--shards N]            (halo exchange overlapped vs serialized)
 
-Everything runs on the CUDA device unless ``--cpu`` asks for the CPU.
-Records are JSON lines on stdout; ``--out FILE`` appends them to a file.
-``scaling``, ``overlap`` and ``solve`` are the JAX package's too, and raise
-``NotImplementedError`` until the port has what they time.
+Everything runs on the CUDA device unless ``--cpu`` asks for the CPU
+(``scaling`` and ``overlap``: one NCCL rank a GPU, or gloo ranks on the
+CPU).  Records are JSON lines on stdout; ``--out FILE`` appends them to a
+file.  ``solve`` is the JAX package's too, and raises
+``NotImplementedError`` until the port has what it times.
 """
 
 from __future__ import annotations
@@ -24,9 +27,7 @@ import numpy as np
 # the JAX package's subcommands whose paths the port lacks, and the ROADMAP
 # item that brings each
 _NOT_YET = {
-    "scaling": "the multi-device SpMV (ROADMAP Queue A 7)",
-    "overlap": "the multi-device SpMV (ROADMAP Queue A 7)",
-    "solve": "pipelined_cg (ROADMAP Queue A 2)",
+    "solve": "the device matrix generators (ROADMAP Queue A 1)",
 }
 
 
@@ -62,6 +63,12 @@ def main(argv=None):
         "calibrate", help="measure the POH cost constants on this card and store "
         "them in the tuner cache")
     p_cal.add_argument("--force", action="store_true")
+    p_sc = sub.add_parser("scaling")
+    p_sc.add_argument("--side", type=int, default=512)
+    p_sc.add_argument("--shards", default="1,2,4,8")
+    p_ov = sub.add_parser("overlap")
+    p_ov.add_argument("--side", type=int, default=512)
+    p_ov.add_argument("--shards", type=int, default=None)
     for name in _NOT_YET:
         sub.add_parser(name)
 
@@ -88,6 +95,15 @@ def main(argv=None):
             for name, a in _load(args).items():
                 t = tune(a, k=args.k, force=True, device=device)
                 print(f"{name}: {t.variant} ({t.seconds_per_op:.3e} s/op)", file=sys.stderr)
+        elif args.cmd == "scaling":
+            from cask_tpu_torch.bench.harness import bench_scaling
+
+            bench_scaling(side=args.side, nshards_list=[int(v) for v in args.shards.split(",")],
+                          out=out, device=device)
+        elif args.cmd == "overlap":
+            from cask_tpu_torch.bench.harness import bench_overlap
+
+            bench_overlap(side=args.side, nshards=args.shards, out=out, device=device)
         elif args.cmd == "calibrate":
             from cask_tpu_torch.tune.calibrate import backend_kind, calibrate_poh
 

@@ -5,9 +5,15 @@ and ``bench_suite``).  Synthetic suites or user ``.mtx`` files, the tuner's
 variants timed on the card, one JSON line per variant: {matrix, op,
 variant, device, seconds, GB/s, nnz/s, roofline share, scipy's host time}.
 A variant whose plan a kernel's gate refuses is a record with ``refused``;
-any other error propagates.  The JAX package's ``bench_scaling``,
-``bench_overlap`` and ``bench_solve`` wait for the port's multi-device
-SpMV and ``pipelined_cg`` (ROADMAP Queue A 7 and A 2).
+any other error propagates.
+
+``bench_scaling`` and ``bench_overlap`` time the distributed halo SpMV
+(:class:`cask_tpu_torch.parallel.DistSpmv`) on a world of ranks spawned on
+this host (NCCL ranks, one a GPU; or gloo ranks on the CPU with
+``device="cpu"``), through the rank program of
+:mod:`cask_tpu_torch.examples.scaling_job`, and keep its records.  The JAX
+package's ``bench_solve`` waits for the device matrix generators (ROADMAP
+Queue A 1).
 """
 
 from __future__ import annotations
@@ -104,3 +110,54 @@ def bench_suite(size: str = "small", *, k: Optional[int] = None, dtype=np.float3
     for name, a in suite(size).items():
         all_recs += bench_matrix(name, a, k=k, dtype=dtype, out=out, device=device)
     return all_recs
+
+
+def _ranks_available(device) -> int:
+    """Ranks this host can run: one per GPU (NCCL refuses two on one card),
+    or the CPU cores."""
+    import os
+
+    return torch.cuda.device_count() if device.type == "cuda" else os.cpu_count() or 1
+
+
+def _scaling_job(side: int, shards, device) -> list:
+    """Rank 0's records of :func:`cask_tpu_torch.examples.scaling_job.job`
+    (the one rank program behind both benches) on ``max(shards)`` ranks
+    spawned on this host: NCCL ranks on the card, gloo ranks on the CPU."""
+    from cask_tpu_torch.examples import scaling_job
+    from cask_tpu_torch.parallel import launch
+
+    cpu = device.type != "cuda"
+    args = dict(rows_per_shard=side * side, shards=list(shards), kind="dia", mm=0, trace=None)
+    return launch(scaling_job.job, max(shards), args, "cpu" if cpu else None,
+                  backend="gloo" if cpu else "nccl", timeout=1800.0)[0]
+
+
+def _emit(records, ops, out: TextIO) -> list:
+    kept = [r for r in records if r["op"] in ops]
+    for rec in kept:
+        print(json.dumps(rec), file=out, flush=True)
+    return kept
+
+
+def bench_scaling(side: int = 512, *, nshards_list=(1, 2, 4, 8), out: TextIO = sys.stdout,
+                  device=None) -> list:
+    """Weak scaling of the distributed halo SpMV: the 5-point stencil of
+    ``side·√P`` points a side on ``P`` ranks, for each ``P`` the host can
+    run; ``efficiency`` is ns per row at the first ``P`` over ns per row
+    at this one.  On the card the DIA kernel is the shard interior."""
+    device = plan_device(None, device)
+    shards = [p for p in nshards_list if p <= _ranks_available(device)]
+    return _emit(_scaling_job(side, shards, device), ("dist_spmv_weak_scaling",), out)
+
+
+def bench_overlap(side: int = 512, *, nshards: Optional[int] = None,
+                  out: TextIO = sys.stdout, device=None) -> list:
+    """A/B on ``nshards`` ranks (default: all the host can run): the halo
+    exchange overlapped with the interior against serialized before it,
+    over the stencil of ``side·√P`` points a side.  Overlapped should
+    approach max(exchange, interior) and serialized pay their sum; the
+    difference is the exchange hidden."""
+    device = plan_device(None, device)
+    p = nshards or _ranks_available(device)
+    return _emit(_scaling_job(side, [p], device), ("dist_spmv_overlap_ab",), out)

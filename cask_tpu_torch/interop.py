@@ -2,12 +2,15 @@
 
 A matrix or plan of :mod:`cask_tpu` crosses over as its arrays (numpy,
 e.g. ``np.asarray(plan.vals)``) plus its static metadata; nothing here
-imports JAX.  The result's arrays are tensors on ``device``.
+imports JAX.  The result's arrays are tensors on ``device``, but for the
+partitions of :mod:`cask_tpu.parallel` (``*_partition_from_arrays``), whose
+arrays stay host numpy: each rank of a distributed executor moves its own
+shard to its device.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -22,6 +25,8 @@ from cask_tpu_torch.ops.ilu import ILU0Factors, ilu0_factors
 from cask_tpu_torch.ops.poh import PohMatrix
 from cask_tpu_torch.ops.spgemm import SpGEMMPlan
 from cask_tpu_torch.ops.trisolve import TriSolvePlan
+from cask_tpu_torch.parallel.partition import (_POH_FIELDS, BdiaPartition, Coo2DPartition,
+                                               CooPartition, DiaPartition, PohPartition)
 
 
 def _index(x, name: str) -> np.ndarray:
@@ -252,3 +257,99 @@ def ilu0_factors_from_arrays(data, indices, indptr, shape: Tuple[int, int], *,
     return ilu0_factors(CSR(data=np.asarray(data), indices=_index(indices, "indices"),
                             indptr=_index(indptr, "indptr"),
                             shape=(int(shape[0]), int(shape[1]))), device=device)
+
+
+def _stacked(x, name: str, nshards: int, ndim: int, index: bool = False) -> np.ndarray:
+    a = np.asarray(x)
+    if a.ndim != ndim or a.shape[0] != nshards:
+        raise ValueError(f"{name} must be ({nshards}, ...) with {ndim} dimensions, got {a.shape}")
+    if index:
+        if a.dtype.kind not in "iu":
+            raise ValueError(f"{name} must be an integer array, got {a.dtype}")
+        return a.astype(np.int32)
+    return a
+
+
+def coo_partition_from_arrays(int_data, int_row, int_col, ext_data, ext_row, ext_col, *,
+                              shape: Tuple[int, int], nshards: int, mloc: int) -> CooPartition:
+    """A reference ``CooPartition``'s six stacked arrays and fields."""
+    P = int(nshards)
+    arrs = [_stacked(x, name, P, 2, index=name[4:] != "data") for x, name in (
+        (int_data, "int_data"), (int_row, "int_row"), (int_col, "int_col"),
+        (ext_data, "ext_data"), (ext_row, "ext_row"), (ext_col, "ext_col"))]
+    if not arrs[0].shape == arrs[1].shape == arrs[2].shape \
+            or not arrs[3].shape == arrs[4].shape == arrs[5].shape:
+        raise ValueError("interior and exterior arrays must each share one shape")
+    return CooPartition(*arrs, shape=(int(shape[0]), int(shape[1])), nshards=P, mloc=int(mloc))
+
+
+def dia_partition_from_arrays(vals, remainder: Optional[CooPartition], *,
+                              offsets: Sequence[int], shape: Tuple[int, int], nshards: int,
+                              mloc: int) -> DiaPartition:
+    """A reference ``DiaPartition``'s stacked values, its remainder (crossed
+    with :func:`coo_partition_from_arrays`, or None) and fields."""
+    vals = _stacked(vals, "vals", int(nshards), 3)
+    offsets = tuple(int(o) for o in offsets)
+    if vals.shape[1:] != (len(offsets), int(mloc)):
+        raise ValueError(f"vals {vals.shape} is not (P, {len(offsets)} offsets, mloc {mloc})")
+    return DiaPartition(vals=vals, remainder=remainder, offsets=offsets,
+                        shape=(int(shape[0]), int(shape[1])), nshards=int(nshards),
+                        mloc=int(mloc))
+
+
+def bdia_partition_from_arrays(vals, head_vals, tail_vals, remainder: Optional[CooPartition], *,
+                               block_offsets: Sequence[int], shape: Tuple[int, int],
+                               blocksize: Tuple[int, int], ts: int, nshards: int, mloc: int,
+                               nbloc: int) -> BdiaPartition:
+    """A reference ``BdiaPartition``'s stacked values, edge windows, remainder
+    (or None) and fields."""
+    P = int(nshards)
+    br, bc = (int(b) for b in blocksize)
+    offsets = tuple(int(o) for o in block_offsets)
+    vals = _stacked(vals, "vals", P, 6)
+    if vals.shape[1] != br or vals.shape[3] != len(offsets) * bc \
+            or vals.shape[4:] != (int(ts), _LANE):
+        raise ValueError(f"vals shape {vals.shape} is not (P, br, T, npairs, ts, 128) for "
+                         f"blocksize {(br, bc)}, {len(offsets)} offsets, ts={ts}")
+    head_vals = _stacked(head_vals, "head_vals", P, 4)
+    tail_vals = _stacked(tail_vals, "tail_vals", P, 4)
+    if head_vals.shape[1:3] != (br, vals.shape[3]) or tail_vals.shape[1:3] != head_vals.shape[1:3]:
+        raise ValueError("edge windows must be (P, br, npairs, width)")
+    return BdiaPartition(vals=vals, head_vals=head_vals, tail_vals=tail_vals,
+                         remainder=remainder, block_offsets=offsets,
+                         shape=(int(shape[0]), int(shape[1])), blocksize=(br, bc), ts=int(ts),
+                         nshards=P, mloc=int(mloc), nbloc=int(nbloc))
+
+
+def poh_partition_from_arrays(arrays: dict, *, shape: Tuple[int, int], nshards: int,
+                              mloc: int, row_panel: int, col_window: int) -> PohPartition:
+    """A reference ``PohPartition``'s stacked packs, ``arrays`` keyed as its
+    fields (``int_vals`` ... ``ext_last``; its ``rloc_t``, a TPU layout, is
+    not taken), and fields."""
+    P = int(nshards)
+    got = {}
+    for pfx in ("int", "ext"):
+        vals = _stacked(arrays[f"{pfx}_vals"], f"{pfx}_vals", P, 4)
+        if vals.shape[3] != _LANE:
+            raise ValueError(f"{pfx}_vals {vals.shape} is not (P, ntiles, S, 128)")
+        got[f"{pfx}_vals"] = vals
+        for f in _POH_FIELDS[1:]:
+            a = _stacked(arrays[f"{pfx}_{f}"], f"{pfx}_{f}", P, 4 if f in ("cloc", "rloc") else 2,
+                         index=True)
+            if a.shape[:2] != vals.shape[:2]:
+                raise ValueError(f"{pfx}_{f} {a.shape} does not match {pfx}_vals {vals.shape}")
+            got[f"{pfx}_{f}"] = a
+    return PohPartition(**got, shape=(int(shape[0]), int(shape[1])), nshards=P,
+                        mloc=int(mloc), row_panel=int(row_panel), col_window=int(col_window))
+
+
+def coo2d_partition_from_arrays(data, row, col, *, shape: Tuple[int, int], pr: int, pc: int,
+                                mr: int, mc: int) -> Coo2DPartition:
+    """A reference ``Coo2DPartition``'s stacked blocks and fields."""
+    P = int(pr) * int(pc)
+    data = _stacked(data, "data", P, 2)
+    row, col = _stacked(row, "row", P, 2, index=True), _stacked(col, "col", P, 2, index=True)
+    if not data.shape == row.shape == col.shape:
+        raise ValueError("data, row and col must share one shape")
+    return Coo2DPartition(data=data, row=row, col=col, shape=(int(shape[0]), int(shape[1])),
+                          pr=int(pr), pc=int(pc), mr=int(mr), mc=int(mc))

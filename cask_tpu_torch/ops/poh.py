@@ -151,6 +151,28 @@ class PohMatrix:
         return poh_spmm(self, x)
 
 
+_MINW = 8 * _LANE  # the reference's floor on R and C
+
+
+def _panel_rows(row_panel: int, m: int) -> int:
+    """The panel height R that :func:`poh_plan` uses for ``m`` rows."""
+    R = max(-(-row_panel // _LANE) * _LANE, _LANE)
+    return max(min(R, max(-(-m // _LANE) * _LANE, _LANE)), _MINW)
+
+
+def auto_col_window(nnz: int, m: int, n: int, *, row_panel: int = 4096,
+                    tile_slots: int = 2048) -> int:
+    """``col_window="auto"``: the power of two, at most 8192, that covers the
+    expected column span of one tile's column-sorted slots in an ``m × n``
+    matrix of ``nnz`` entries."""
+    nnz_per_panel = max(nnz * _panel_rows(row_panel, m) / max(m, 1), 1.0)
+    span = tile_slots * max(n, 1) / nnz_per_panel
+    col_window = 128
+    while col_window < min(span, 8192):
+        col_window *= 2
+    return col_window
+
+
 def poh_plan(a: CSR, *, row_panel: int = 4096, col_window="auto",
              tile_slots: int = 2048, device=None) -> PohMatrix:
     """Pack a CSR matrix into panel one-hot tiles (host numpy, as the JAX
@@ -168,15 +190,9 @@ def poh_plan(a: CSR, *, row_panel: int = 4096, col_window="auto",
     m, n = a.shape
     if tile_slots % _LANE:
         raise ValueError("tile_slots must be a multiple of 128")
-    _MINW = 8 * _LANE
-    R = max(-(-row_panel // _LANE) * _LANE, _LANE)
-    R = max(min(R, max(-(-m // _LANE) * _LANE, _LANE)), _MINW)
+    R = _panel_rows(row_panel, m)
     if col_window == "auto":
-        nnz_per_panel = max(a.nnz * R / max(m, 1), 1.0)
-        span = tile_slots * max(n, 1) / nnz_per_panel
-        col_window = 128
-        while col_window < min(span, 8192):
-            col_window *= 2
+        col_window = auto_col_window(a.nnz, m, n, row_panel=row_panel, tile_slots=tile_slots)
     C = max(-(-int(col_window) // _LANE) * _LANE, _MINW)
     S = tile_slots // _LANE
     T = tile_slots

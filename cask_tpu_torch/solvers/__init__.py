@@ -29,5 +29,6 @@ from cask_tpu_torch.solvers.precond import (  # noqa: F401
     ic0,
     jacobi,
     lanczos_extremal,
+    shard_ilu0,
     ssor,
 )

@@ -11,6 +11,12 @@ the device, with one host sync per iteration for the stopping test.
 :func:`cask_tpu_torch.ops.spmm.spmm` is used) or any callable
 ``x -> A@x``, such as a :class:`cask_tpu_torch.ops.bdia.BdiaOperator`.
 ``M`` is an optional preconditioner callable ``r -> M⁻¹r``.
+
+An operator that carries a ``mesh`` (the ``padded_op`` of
+:class:`cask_tpu_torch.parallel.DistSpmv` or ``Dist2DSpmv``) works on this
+rank's shard of every vector: each inner product and norm is then summed
+over the mesh with an ``all_reduce`` (:class:`_Dots`), which XLA does for
+the reference when a ``vdot`` meets sharded arrays.
 """
 
 from __future__ import annotations
@@ -48,35 +54,63 @@ def _ident(r):
     return r
 
 
+class _Dots:
+    """Inner products and norms of an operator's vectors: local
+    (``torch.vdot``, ``vector_norm``) for an operator without a mesh, the
+    sum over the mesh's ranks (one ``all_reduce`` each) for one with a mesh,
+    whose vectors are this rank's shards."""
+
+    def __init__(self, op):
+        self.mesh = getattr(op, "mesh", None)
+
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.mesh is None else self.mesh.all_reduce(t).wait()
+
+    def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self.total(torch.vdot(a, b))
+
+    def gram(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """``aᴴ b`` of two (n, s) blocks."""
+        return self.total(a.mH @ b)
+
+    def norm(self, v: torch.Tensor, dim=None) -> torch.Tensor:
+        """‖v‖₂ (per column with ``dim=0``)."""
+        if self.mesh is None:
+            return torch.linalg.vector_norm(v, dim=dim)
+        sq = (v.conj() * v).real
+        return torch.sqrt(self.total(sq.sum() if dim is None else sq.sum(dim)))
+
+
 def cg(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0, maxiter: int = 1000,
        M: Optional[Callable] = None) -> SolveResult:
     """Conjugate gradients for SPD (or Hermitian positive definite) ``a``,
     optionally preconditioned.  A host (numpy) ``b`` is placed as in
     :func:`block_cg`."""
     op, b = _operator_and_rhs(a, b, spmv)
+    dots = _Dots(op)
     M = M or _ident
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
 
     # the threshold is real (a norm), also for a complex system
-    target = torch.clamp(tol * torch.linalg.vector_norm(b), min=atol)
+    target = torch.clamp(tol * dots.norm(b), min=atol)
 
     r = b - op(x)
     z = M(r)
     p = z
-    rz = torch.vdot(r, z)  # conjugates r: the Hermitian inner product
+    rz = dots.dot(r, z)  # conjugates r: the Hermitian inner product
     k = 0
-    while k < maxiter and bool(torch.linalg.vector_norm(r) > target):
+    while k < maxiter and bool(dots.norm(r) > target):
         ap = op(p)
-        alpha = rz / torch.vdot(p, ap)
+        alpha = rz / dots.dot(p, ap)
         x = x + alpha * p
         r = r - alpha * ap
         z = M(r)
-        rz_new = torch.vdot(r, z)
+        rz_new = dots.dot(r, z)
         beta = rz_new / rz
         p = z + beta * p
         rz = rz_new
         k += 1
-    rn = torch.linalg.vector_norm(r)
+    rn = dots.norm(r)
     return SolveResult(x=x, iterations=k, residual_norm=float(rn),
                        converged=bool(rn <= target))
 
@@ -108,30 +142,31 @@ def block_cg(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0,
     raises if ``torch.backends.cuda.matmul.allow_tf32`` is set, and it does
     not change that global setting."""
     op, b = _operator_and_rhs(a, b, spmm)
+    dots = _Dots(op)
     M = M or _ident
     if b.ndim != 2:
         raise ValueError("block_cg expects b of shape (n, s); use cg for one RHS")
     require_full_fp32(b, "block_cg")
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
 
-    target = torch.clamp(tol * torch.linalg.vector_norm(b, dim=0), min=atol)  # real
+    target = torch.clamp(tol * dots.norm(b, dim=0), min=atol)  # real
     r = b - op(x)
     z = M(r)
     p = z
-    s = r.mH @ z  # (s, s)
+    s = dots.gram(r, z)  # (s, s)
     k = 0
-    while k < maxiter and bool(torch.any(torch.linalg.vector_norm(r, dim=0) > target)):
+    while k < maxiter and bool(torch.any(dots.norm(r, dim=0) > target)):
         q = op(p)
-        alpha = _solve_small(p.mH @ q, s)
+        alpha = _solve_small(dots.gram(p, q), s)
         x = x + p @ alpha
         r = r - q @ alpha
         z = M(r)
-        s_new = r.mH @ z
+        s_new = dots.gram(r, z)
         beta = _solve_small(s, s_new)
         p = z + p @ beta
         s = s_new
         k += 1
-    rns = torch.linalg.vector_norm(r, dim=0)
+    rns = dots.norm(r, dim=0)
     return SolveResult(x=x, iterations=k, residual_norm=float(rns.max()),
                        converged=bool(torch.all(rns <= target)))
 
@@ -145,14 +180,19 @@ def pipelined_cg(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0,
                  maxiter: int = 1000, M: Optional[Callable] = None) -> SolveResult:
     """Pipelined PCG (Ghysels & Vanroose 2014): both inner products of an
     iteration come from vectors known before its operator and
-    preconditioner applications, so on a mesh the reductions could overlap
-    them.  One operator application an iteration, two before the loop and
-    one after it: ``residual_norm`` and ``converged`` are the true residual
-    ``b − A·x``'s, not the recurrence's, which drifts over long runs."""
+    preconditioner applications, so on a mesh the reduction overlaps them:
+    the iteration's ‖r‖², γ and δ go out in one ``all_reduce``, issued
+    before ``M`` and the product and waited on after them (the iteration
+    that finds ‖r‖ small enough has then made one product for nothing).
+    Without a mesh, one operator application an iteration, two before the
+    loop and one after it: ``residual_norm`` and ``converged`` are the true
+    residual ``b − A·x``'s, not the recurrence's, which drifts over long
+    runs."""
     op, b = _operator_and_rhs(a, b, spmv)
+    dots = _Dots(op)
     M = M or _ident
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
-    target = torch.clamp(tol * torch.linalg.vector_norm(b), min=atol)
+    target = torch.clamp(tol * dots.norm(b), min=atol)
 
     r = b - op(x)
     u = M(r)
@@ -161,11 +201,20 @@ def pipelined_cg(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0,
     q = p = s = z
     gamma_old = alpha_old = torch.ones((), dtype=b.dtype, device=b.device)
     k = 0
-    while k < maxiter and bool(torch.linalg.vector_norm(r) > target):
-        gamma = torch.vdot(r, u)
-        delta = torch.vdot(w, u)
+    while k < maxiter:
+        if dots.mesh is None:
+            if not bool(torch.linalg.vector_norm(r) > target):
+                break
+            gamma, delta = torch.vdot(r, u), torch.vdot(w, u)
+        else:
+            sums = dots.mesh.all_reduce(torch.stack([torch.vdot(r, r), torch.vdot(r, u),
+                                                     torch.vdot(w, u)]))
         m = M(w)
         n_ = op(m)
+        if dots.mesh is not None:
+            rr, gamma, delta = sums.wait()
+            if not bool(torch.sqrt(rr.real) > target):
+                break
         beta = torch.zeros_like(gamma) if k == 0 else gamma / gamma_old
         alpha = gamma / (delta - beta * gamma / alpha_old)
         z = n_ + beta * z
@@ -178,7 +227,7 @@ def pipelined_cg(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0,
         w = w - alpha * z
         gamma_old, alpha_old = gamma, alpha
         k += 1
-    rn = torch.linalg.vector_norm(b - op(x))
+    rn = dots.norm(b - op(x))
     return SolveResult(x=x, iterations=k, residual_norm=float(rn), converged=bool(rn <= target))
 
 
@@ -188,31 +237,32 @@ def bicgstab(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0, maxiter: in
     preconditioner applications an iteration, the shadow residual
     ``r̂ = r₀``, inner products conjugating their first argument."""
     op, b = _operator_and_rhs(a, b, spmv)
+    dots = _Dots(op)
     M = M or _ident
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
-    target = torch.clamp(tol * torch.linalg.vector_norm(b), min=atol)
+    target = torch.clamp(tol * dots.norm(b), min=atol)
 
     r = b - op(x)
     rhat = r
     rho = alpha = omega = torch.ones((), dtype=b.dtype, device=b.device)
     v = p = torch.zeros_like(b)
     k = 0
-    while k < maxiter and bool(torch.linalg.vector_norm(r) > target):
-        rho_new = torch.vdot(rhat, r)
+    while k < maxiter and bool(dots.norm(r) > target):
+        rho_new = dots.dot(rhat, r)
         beta = (rho_new / rho) * (alpha / omega)
         p = r + beta * (p - omega * v)
         phat = M(p)
         v = op(phat)
-        alpha = rho_new / torch.vdot(rhat, v)
+        alpha = rho_new / dots.dot(rhat, v)
         s = r - alpha * v
         shat = M(s)
         t = op(shat)
-        omega = torch.vdot(t, s) / torch.vdot(t, t)
+        omega = dots.dot(t, s) / dots.dot(t, t)
         x = x + alpha * phat + omega * shat
         r = s - omega * t
         rho = rho_new
         k += 1
-    rn = torch.linalg.vector_norm(r)
+    rn = dots.norm(r)
     return SolveResult(x=x, iterations=k, residual_norm=float(rn), converged=bool(rn <= target))
 
 
@@ -225,9 +275,10 @@ def chebyshev(a, b, *, lmin: float, lmax: float, x0=None, tol: float = 1e-8,
     scalar recurrence runs on the host in Python floats (the reference's
     are of ``b``'s type: the same numbers in f64)."""
     op, b = _operator_and_rhs(a, b, spmv)
+    dots = _Dots(op)
     M = M or _ident
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
-    target = torch.clamp(tol * torch.linalg.vector_norm(b), min=atol)
+    target = torch.clamp(tol * dots.norm(b), min=atol)
 
     theta = (lmax + lmin) / 2.0
     delta = (lmax - lmin) / 2.0
@@ -235,7 +286,7 @@ def chebyshev(a, b, *, lmin: float, lmax: float, x0=None, tol: float = 1e-8,
     alpha = 1.0 / theta
     d = M(r) * alpha
     k = 0
-    while k < maxiter and bool(torch.linalg.vector_norm(r) > target):
+    while k < maxiter and bool(dots.norm(r) > target):
         x = x + d
         r = r - op(d)
         beta = (delta * alpha / 2.0) ** 2
@@ -243,7 +294,7 @@ def chebyshev(a, b, *, lmin: float, lmax: float, x0=None, tol: float = 1e-8,
         d = alpha_new * (M(r) + beta * d / alpha)
         alpha = alpha_new
         k += 1
-    rn = torch.linalg.vector_norm(r)
+    rn = dots.norm(r)
     return SolveResult(x=x, iterations=k, residual_norm=float(rn), converged=bool(rn <= target))
 
 
@@ -256,12 +307,13 @@ def minres(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0, maxiter: int 
     ``converged``; ``residual_norm`` is the true ‖b − A·x‖₂, one more
     operator application after the loop."""
     op, b = _operator_and_rhs(a, b, spmv)
+    dots = _Dots(op)
     M = M or _ident
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
 
     r0 = b - op(x)
     z = M(r0)
-    gamma = torch.sqrt(torch.clamp(torch.vdot(r0, z), min=0))
+    gamma = torch.sqrt(torch.clamp(dots.dot(r0, z), min=0))
     target = torch.clamp(tol * gamma, min=atol)
     zeros = torch.zeros_like(b)
     one = torch.ones((), dtype=b.dtype, device=b.device)
@@ -276,10 +328,10 @@ def minres(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0, maxiter: int 
     while k < maxiter and bool(torch.abs(eta) > target):
         zj = z / _where0(gamma)
         az = op(zj)
-        delta = torch.vdot(zj, az)
+        delta = dots.dot(zj, az)
         v_new = az - (delta / _where0(gamma)) * v - (gamma / _where0(gamma_old)) * v_old
         z_new = M(v_new)
-        gamma_new = torch.sqrt(torch.clamp(torch.vdot(z_new, v_new), min=0))
+        gamma_new = torch.sqrt(torch.clamp(dots.dot(z_new, v_new), min=0))
         a0 = c * delta - c_old * s * gamma
         a1 = torch.sqrt(a0 * a0 + gamma_new * gamma_new)
         a2 = s * delta + c_old * c * gamma
@@ -295,7 +347,7 @@ def minres(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0, maxiter: int 
         c_old, c, s_old, s = c, c_new, s, s_new
         w_old, w = w, w_new
         k += 1
-    rn = torch.linalg.vector_norm(b - op(x))
+    rn = dots.norm(b - op(x))
     return SolveResult(x=x, iterations=k, residual_norm=float(rn),
                        converged=bool(torch.abs(eta) <= target))
 
@@ -321,22 +373,23 @@ def cgls(a, b, *, at: Optional[Callable] = None, x0=None, tol: float = 1e-8,
         op = lambda v: spmv(a, v)  # noqa: E731
         opt = lambda v: spmv(a_t, v)  # noqa: E731
     b = as_operand(a, b)
+    dots = _Dots(a)
     s = opt(b)
     x = torch.zeros_like(s) if x0 is None else torch.as_tensor(x0, device=b.device)
-    target = torch.clamp(tol * torch.linalg.vector_norm(s), min=atol)
+    target = torch.clamp(tol * dots.norm(s), min=atol)
 
     r = b - op(x)
     s = opt(r)
     p = s
-    gamma = torch.vdot(s, s)
+    gamma = dots.dot(s, s)
     k = 0
     while k < maxiter and bool(torch.sqrt(gamma.real) > target):
         q = op(p)
-        alpha = gamma / torch.vdot(q, q)
+        alpha = gamma / dots.dot(q, q)
         x = x + alpha * p
         r = r - alpha * q
         s = opt(r)
-        gamma_new = torch.vdot(s, s)
+        gamma_new = dots.dot(s, s)
         p = s + (gamma_new / gamma) * p
         gamma = gamma_new
         k += 1
@@ -382,24 +435,25 @@ def gmres(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0, restart: int =
     applications; its small least-squares problem is solved by
     :func:`_solve_small` (a breakdown leaves H rank-deficient)."""
     op, b = _operator_and_rhs(a, b, spmv)
+    dots = _Dots(op)
     M = M or _ident
     x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
     m = restart
-    target = torch.clamp(tol * torch.linalg.vector_norm(M(b)), min=atol)
+    target = torch.clamp(tol * dots.norm(M(b)), min=atol)
 
     def arnoldi_cycle(x):
         r = M(b - op(x))
-        beta = torch.linalg.vector_norm(r)
+        beta = dots.norm(r)
         V = b.new_zeros((m + 1, b.shape[0]))
         V[0] = r / _where0(beta)
         H = b.new_zeros((m + 1, m))
         for j in range(m):
             w = M(op(V[j]))
             for i in range(j + 1):  # the reference's masked scan over i ≤ j
-                h = torch.vdot(V[i], w)
+                h = dots.dot(V[i], w)
                 w = w - h * V[i]
                 H[i, j] = h
-            hnorm = torch.linalg.vector_norm(w)
+            hnorm = dots.norm(w)
             H[j + 1, j] = hnorm
             V[j + 1] = w / _where0(hnorm)
         e1 = b.new_zeros(m + 1)
@@ -407,9 +461,9 @@ def gmres(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0, restart: int =
         return x + V[:m].T @ _solve_small(H, e1)
 
     k = 0
-    while k < maxiter and bool(torch.linalg.vector_norm(M(b - op(x))) > target):
+    while k < maxiter and bool(dots.norm(M(b - op(x))) > target):
         x = arnoldi_cycle(x)
         k += 1
-    rn = torch.linalg.vector_norm(b - op(x))
-    done = rn <= torch.clamp(tol * torch.linalg.vector_norm(b), min=atol)
+    rn = dots.norm(b - op(x))
+    done = rn <= torch.clamp(tol * dots.norm(b), min=atol)
     return SolveResult(x=x, iterations=k, residual_norm=float(rn), converged=bool(done))

@@ -1,9 +1,9 @@
 """Preconditioners: Jacobi, block Jacobi, IC(0), SSOR, the Chebyshev
 polynomial, and the spectrum estimates it needs.
 
-The PyTorch counterparts of :mod:`cask_tpu.solvers.precond` (all but
-``shard_ilu0``, which goes with the multi-device port); ILU(0) lives in
-:mod:`cask_tpu_torch.ops.ilu`.  Each is a callable ``r → M⁻¹r`` (or has an
+The PyTorch counterparts of :mod:`cask_tpu.solvers.precond`, with
+``shard_ilu0``, the block ILU(0) of a distributed operator; ILU(0) lives
+in :mod:`cask_tpu_torch.ops.ilu`.  Each is a callable ``r → M⁻¹r`` (or has an
 ``apply``) on the device, for the Krylov solvers.  IC(0) and SSOR apply
 through the same level-scheduled triangular-solve plans as ILU(0), so on
 the card each apply is a Python loop of small launches per level (about
@@ -22,7 +22,7 @@ import torch
 
 from cask_tpu_torch.formats.convert import coo_from_arrays, coo_to_csr, from_scipy, to_scipy
 from cask_tpu_torch.formats.matrix import CSR, host, to_device, torch_dtype
-from cask_tpu_torch.ops.ilu import _split_lu, ilu0_lu
+from cask_tpu_torch.ops.ilu import _split_lu, ilu0, ilu0_lu
 from cask_tpu_torch.ops.spmv import operand_device, spmv
 from cask_tpu_torch.ops.trisolve import TriSolvePlan, jacobi_trisolve_plan, trisolve_plan
 from cask_tpu_torch.utils.platform import plan_device, require_full_fp32
@@ -320,3 +320,29 @@ def chebyshev_precond(a, *, lmin: float, lmax: float, degree: int = 8, M=None):
         return x + d
 
     return apply
+
+
+def shard_ilu0(a: CSR, dist):
+    """Additive-Schwarz block ILU(0) of a distributed operator: each rank
+    factors its own diagonal block ``A_ss`` (padded with the identity to
+    ``mloc`` rows, as the reference pads its stacked plans) and applies
+    ``U_s⁻¹ L_s⁻¹`` to its shard with the level-scheduled triangular
+    solves, with no communication.  No rank holds another rank's plans.
+
+    ``dist`` is a :class:`cask_tpu_torch.parallel.DistSpmv`; the result is
+    the bound ``apply`` of this rank's :class:`ILU0Factors` (its
+    ``__self__``), for the operator's padded shards:
+    ``cg(dist.padded_op, dist.padded(b), M=shard_ilu0(a, dist))``.  Needs
+    A's diagonal present in every local block."""
+    import scipy.sparse as sp
+
+    plan, mesh = dist.plan, dist.mesh
+    s, mloc, m = mesh.rank, plan.mloc, a.shape[0]
+    r0, r1 = s * mloc, min((s + 1) * mloc, m)
+    spa = to_scipy(a).tocsr()
+    blk = spa[r0:r1, r0:r1].tocsr() if r1 > r0 else sp.csr_matrix((0, 0))
+    pad = mloc - blk.shape[0]
+    if pad:
+        blk = sp.block_diag([blk, sp.identity(pad, format="csr")], format="csr")
+    blk.sort_indices()
+    return ilu0(from_scipy(blk, format="csr"), device=mesh.device).apply

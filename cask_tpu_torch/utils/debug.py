@@ -1,6 +1,7 @@
-"""Structural checks of packed plans.
+"""Structural checks of packed plans and partitions.
 
-The PyTorch counterpart of ``check_poh`` in :mod:`cask_tpu.utils.debug`.
+The PyTorch counterparts of ``check_poh`` and ``check_partition`` in
+:mod:`cask_tpu.utils.debug`.
 """
 
 from __future__ import annotations
@@ -50,3 +51,43 @@ def check_poh(p, a=None) -> None:
         ).tocsr()[:m, :n]
         if abs(got - to_scipy(a).tocsr()).max() != 0:
             raise AssertionError("POH: pack does not reconstruct the matrix")
+
+
+def check_partition(plan) -> None:
+    """:class:`~cask_tpu_torch.parallel.CooPartition` /
+    :class:`~cask_tpu_torch.parallel.DiaPartition` invariants: every index in
+    range, structural zeros where claimed (a DIA remainder is checked as a
+    COO partition)."""
+    from cask_tpu_torch.parallel.partition import CooPartition, DiaPartition
+
+    if isinstance(plan, DiaPartition):
+        vals = np.asarray(plan.vals)
+        P, _, mloc = vals.shape
+        if P != plan.nshards or mloc != plan.mloc:
+            raise AssertionError("DiaPartition shape metadata mismatch")
+        rows = np.arange(P * mloc)
+        for d, off in enumerate(plan.offsets):
+            if abs(off) > plan.mloc:
+                raise AssertionError(f"offset {off} wider than a shard ({plan.mloc})")
+            # entries whose global column falls outside [0, n) must be 0
+            cols = rows + off
+            bad = (cols < 0) | (cols >= plan.shape[1]) | (rows >= plan.shape[0])
+            if np.any(vals[:, d, :].reshape(-1)[bad] != 0):
+                raise AssertionError(f"nonzero out-of-range entry on diagonal {off}")
+        if plan.remainder is not None:
+            check_partition(plan.remainder)
+        return
+    if isinstance(plan, CooPartition):
+        mloc = plan.mloc
+        for name in ("int_row", "ext_row"):
+            r = np.asarray(getattr(plan, name))
+            if r.size and (r.min() < 0 or r.max() >= mloc):
+                raise AssertionError(f"{name} out of local range")
+        ic = np.asarray(plan.int_col)
+        if ic.size and (ic.min() < 0 or ic.max() >= mloc):
+            raise AssertionError("interior column not local")
+        ec = np.asarray(plan.ext_col)
+        if ec.size and (ec.min() < 0 or ec.max() >= plan.nshards * mloc):
+            raise AssertionError("exterior column out of padded-global range")
+        return
+    raise TypeError(f"not a partition plan: {type(plan)}")

@@ -182,8 +182,34 @@ card.  Phases, one line each:
    through the POH SpMV kernel, two launches an iteration;
    ‖Aᵀ(b − Ax)‖/‖Aᵀb‖ ≤ 1e-5 in f64 on the host.
 
-The host-side power law (generated once, shared by phases 15-18) and its
-plans add about half a minute of host time.  Every main path (phases 8-19f, 19k-19o)
+19p. dist — the multi-device half on one NCCL rank, in process, at BASELINE
+   config 5's 10,240,000 rows: ``DistSpmv`` over
+   ``fem_bdia_partition(1600, dof=4, nshards=1)`` with the ``"fused"`` (B1)
+   and ``"pallas"`` (B2) interiors, ``mm_interior="slab"`` at k = 128 (B6;
+   refused with its bytes above the slab's byte cap), the DIA ``"pallas"``
+   interior (B9) over ``stencil_dia_partition(3200)``, POH SpMV and SpMM at
+   k = 32 (B16, B17: the interior and the exterior pack) over
+   ``partition_poh`` of the 1M power law (its defaults: ``poh_plan``'s
+   tile and window), COO and the 1×1 grid: each
+   kernel launched once a pack a call and no other, y against the plain
+   shard formulation and the single-device product, both timed; ``cg`` and
+   ``pipelined_cg`` over the FEM SPD system's partition, iterations within
+   one of the single-device solve's; ``shard_ilu0``-PCG on
+   I + ``stencil_2d(1024)`` against plain CG.
+19q. dist-ranks — four gloo ranks on the one card through
+   ``cask_tpu_torch.parallel.launch`` (NCCL refuses two ranks on one GPU,
+   so every exchanged slice goes through the host), every partition built
+   once in this process and shipped: B1, B6, B9, B16 and B17 as shard
+   interiors at 4,194,304 rows a matrix (1,048,576 a shard), a DIA
+   partition with a remainder, POH and the 2×2 grid; every rank's rows of
+   y against its plain shard formulation (POH: the single-device plain
+   gather in f64) and the single-device product, its launches; CG and
+   pipelined CG across the four shards; ``shard_ilu0``-PCG with four
+   blocks against one; each rank's time overlapped, serialized and of the
+   exchange alone (four processes sharing one card: not scaling numbers).
+
+The host-side power law (generated once, shared by phases 15-18 and 19p-q) and its
+plans add about half a minute of host time.  Every main path (phases 8-19f, 19k-19q)
 runs with all launch counts set to 0 just before it and read just after,
 and must launch its kernel; its result must match the twin and scipy
 (f64, host).  It needs one CUDA device and exits
@@ -2389,6 +2415,529 @@ def bench_harness_phase(dev, a_host) -> None:
                              f"roofline share: {bad}")
 
 
+# -- 19p-19q. the multi-device half ---------------------------------------------
+
+DIST_FEM_NX = 1600  # [dist]: fem_bdia_partition(1600, dof=4): 10,240,000 rows, 0.8 GB of values
+DIST_STENCIL = 3200  # [dist]: stencil_dia_partition(3200): 10,240,000 rows
+DIST_K = 128  # [dist]: the slab SpMM's k, where the byte cap admits it
+DIST_ILU_GRID = 1024  # shard_ilu0-PCG on I + stencil_2d(1024)
+DIST_RANKS = 4  # [dist-ranks]: four gloo ranks on the one card
+DIST_RANKS_FEM_NX = 1024  # fem_bdia_partition(1024, dof=4, nshards=4): 4,194,304 rows
+DIST_RANKS_STENCIL = 2048  # stencil_dia_partition(2048, nshards=4): 4,194,304 rows
+DIST_RANKS_K = 16  # [dist-ranks]: the slab SpMM's k (the shards' Y come back to this process)
+
+
+def _ilu_system(grid: int):
+    """I + stencil_2d(grid) as a host CSR (f32) and as scipy."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from cask_tpu_torch.formats.convert import from_scipy, to_scipy
+    from cask_tpu_torch.formats.generate import stencil_2d
+
+    st = to_scipy(stencil_2d(grid, dtype=np.float32))
+    s = (sp.identity(st.shape[0], dtype=np.float32, format="csr") + st).tocsr()
+    return from_scipy(s), s
+
+
+def _pl_block(n: int, k: int):
+    """The power law's SpMM operand of ``[dist-ranks]``, made from its seed
+    in each rank and in this process alike (not shipped to the ranks)."""
+    import numpy as np
+
+    return np.random.default_rng(SEED + 17).standard_normal((n, k)).astype(np.float32)
+
+
+def _dist_product(what, op, x, kernel, want, plain, single, card):
+    """One distributed product with every launch count at 0: ``kernel``
+    launched ``want`` times and no other kernel, y within the f32 gate of the
+    plain shard formulation and of the single-device product; then both timed
+    with CUDA events."""
+    import torch
+
+    from cask_tpu_torch.tune.timing import time_cuda
+
+    _reset()
+    y = op(x)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    launches = _only(counts, kernel, want, f"[dist] {what}")
+    y_plain, y_single = plain(x), single(x)
+    max_abs = float((y - y_plain).abs().max())
+    err_plain, err_single = _relerr(y, y_plain), _relerr(y, y_single)
+    _check(f"[dist] {what} vs the plain shard formulation", err_plain, F32_TOL)
+    _check(f"[dist] {what} vs the single-device product", err_single, F32_TOL)
+    xs = op.padded(x)
+    t_dist = time_cuda(lambda: op.padded_op(xs), runs=10, reps=5)
+    t_single = time_cuda(lambda: single(x), runs=10, reps=5)
+    t_plain = time_cuda(lambda: plain(x), warmup=1, runs=3, reps=1)
+    print(f"[dist] {what}: {kernel} launches {launches} (one rank; {want} a call); vs plain "
+          f"{err_plain:.2e} (max abs {max_abs:.2e}), vs single-device {err_single:.2e} (tol "
+          f"{F32_TOL:.0e}); "
+          f"padded_op {t_dist.ms * 1e3:.1f} us, single-device {t_single.ms * 1e3:.1f} us: the "
+          f"wrapper's cost {(t_dist.ms - t_single.ms) * 1e3:.1f} us; the plain formulation "
+          f"{t_plain.ms * 1e3:.1f} us; card {card}; median of 10 samples of 5 calls, the plain "
+          f"3 of 1 (CUDA events)", flush=True)
+
+
+def dist_phase(dev, card, pl_host, pplan, fem_op, fem_b, fem_sp, spd_bsr, cg_iters):
+    """[dist]: one rank over NCCL, in process, at BASELINE config 5's 10,240,000
+    rows: ``DistSpmv`` with the BDIA ``"fused"`` (B1) and ``"pallas"`` (B2)
+    interiors and the DIA ``"pallas"`` interior (B9), the slab SpMM (B6) where
+    its byte cap admits it, POH SpMV and SpMM (B16, B17) on the 1M power law,
+    COO and the 1×1 grid; ``cg`` and ``pipelined_cg`` over the FEM SPD
+    system's partition; ``shard_ilu0``-PCG.  Returns the PCG's iterations."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import cask_tpu_torch as ct
+    import cask_tpu_torch.parallel as tpar
+    from cask_tpu_torch.parallel.dist import _bdia_shard_matrix
+    from cask_tpu_torch.tune.timing import time_cuda
+
+    sv = ct.solvers
+    rng = np.random.default_rng(SEED + 15)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", store=dist.HashStore(),
+                            rank=0, world_size=1)
+    try:
+        mesh = tpar.row_mesh(device=dev)
+        print(f"[dist] {mesh}: one rank, in process", flush=True)
+        t0 = time.perf_counter()
+        fem = tpar.fem_bdia_partition(DIST_FEM_NX, dof=4, nshards=1)
+        t_fem = time.perf_counter() - t0
+        n = fem.shape[0]
+        x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+        fused = tpar.DistSpmv(fem, mesh, interior="fused")
+        plain = tpar.DistSpmv(fem, mesh, interior="plain")
+        single = _bdia_shard_matrix(fem, fused._shard.local.vals)  # the same values, once
+        print(f"[dist] fem_bdia_partition({DIST_FEM_NX}, dof=4, nshards=1): {n} rows, vals "
+              f"{fem.vals.nbytes / 1e9:.2f} GB, host build {t_fem:.1f} s; resolved interiors "
+              f"auto -> {tpar.resolve_interiors(fem, dev)}", flush=True)
+        for what, op in (("BDIA fused interior (B1)", fused),
+                         ("BDIA pallas interior (B2)",
+                          tpar.DistSpmv(fem, mesh, interior="pallas"))):
+            _dist_product(what, op, x, "bdia_spmv", 1, plain,
+                                           lambda v: ct.spmv(single, v), card)
+        del plain
+        g, nbytes = tpar.slab_choice(fem)
+        if g is None:
+            try:
+                tpar.DistSpmv(fem, mesh, mm_interior="slab")
+            except ValueError as e:
+                print(f"[dist] mm_interior='slab' at k={DIST_K} on {n} rows refused, as the "
+                      f"cap says: {e}", flush=True)
+            else:
+                raise AssertionError("[dist] the slab was not refused above its byte cap")
+        else:
+            X = torch.randn((n, DIST_K), device=dev, dtype=torch.float32)
+            slab = tpar.DistSpmv(fem, mesh, mm_interior="slab")
+            _dist_product(
+                f"slab SpMM interior (B6), k={DIST_K}, g={g}, {nbytes} bytes", slab, X,
+                "bdia_spmm_slab", 1, tpar.DistSpmv(fem, mesh, mm_interior="plain"),
+                lambda v: ct.spmm(single, v, method="slab"), card)
+            del X, slab
+        del fused, single, fem, x
+
+        sten = tpar.stencil_dia_partition(DIST_STENCIL, nshards=1, align=8192)
+        xs_ = torch.from_numpy(rng.standard_normal(sten.shape[0]).astype(np.float32)).to(dev)
+        dop = tpar.DistSpmv(sten, mesh, interior="pallas")
+        # one rank's shard is the whole matrix, its rows padded to the 8192 alignment
+        dsingle = dataclasses.replace(dop._shard.local, shape=sten.shape)
+        _dist_product(
+            f"DIA pallas interior (B9), stencil_dia_partition({DIST_STENCIL}), "
+            f"{sten.shape[0]} rows", dop, xs_, "dia_spmv", 1,
+            tpar.DistSpmv(sten, mesh, interior="plain"), lambda v: ct.spmv(dsingle, v), card)
+        del dop, dsingle, sten, xs_
+
+        t0 = time.perf_counter()
+        poh = tpar.partition_poh(pl_host, 1)
+        t_poh = time.perf_counter() - t0
+        pop = tpar.DistSpmv(poh, mesh)
+        int_m, ext_m = pop._shard  # on one rank the interior pack is the whole matrix
+        if (int_m.ntiles, int_m.col_window, int_m.slot_rows) != (
+                pplan.ntiles, pplan.col_window, pplan.slot_rows):
+            raise AssertionError("[dist] partition_poh's defaults did not give one shard "
+                                 "poh_plan's pack")
+        pl_dev = pl_host.to(dev)
+        xp = torch.from_numpy(rng.standard_normal(PL_N).astype(np.float32)).to(dev)
+        Xp = torch.randn((PL_N, K), device=dev, dtype=torch.float32)
+        print(f"[dist] partition_poh(power_law({PL_N}), 1) (the port's defaults: poh_plan's "
+              f"{pplan.slot_rows * 128}-slot tile and its {poh.col_window}-column window, "
+              f"not the reference's 4096 slots and 1024 columns): {int_m.ntiles} interior and "
+              f"{ext_m.ntiles} exterior tiles, host pack {t_poh:.1f} s; poh_plan's own pack "
+              f"{pplan.ntiles} tiles", flush=True)
+        # plain: the gather formulation of the same matrix (the POH twin's
+        # gathers would take tens of GB at k = 32)
+        for what, v, kernel, plain, single, other in (
+                ("POH SpMV (B16)", xp, "poh_spmv", lambda v: ct.spmv(pl_dev, v, method="xla"),
+                 lambda v: ct.spmv(int_m, v), lambda v: ct.spmv(pplan, v)),
+                (f"POH SpMM (B17), k={K}", Xp, "poh_spmm",
+                 lambda v: ct.spmm(pl_dev, v, method="xla"), lambda v: ct.spmm(int_m, v),
+                 lambda v: ct.spmm(pplan, v))):
+            _dist_product(f"{what}: the interior and the exterior pack", pop, v, kernel, 2,
+                          plain, single, card)
+            err = _relerr(pop(v), other(v))
+            _check(f"[dist] {what} vs poh_plan's own pack", err, F32_TOL)
+            vs = pop.padded(v)
+            parts = {"the shard's interior pack": lambda: single(v),
+                     "its exterior pack (empty on one rank)": lambda: ext_m.spmv(v)
+                     if v.ndim == 1 else ext_m.spmm(v),
+                     "the all-gather (NCCL, one rank)": lambda: mesh.all_gather(vs).wait(),
+                     "poh_plan's own pack": lambda: other(v)}
+            times = {k: time_cuda(f, runs=10, reps=5).ms for k, f in parts.items()}
+            print(f"[dist] {what} apart: " + ", ".join(f"{k} {t * 1e3:.1f} us"
+                                                        for k, t in times.items())
+                  + f"; vs poh_plan's pack {err:.2e}; card {card} (CUDA events)", flush=True)
+        del pop, int_m, ext_m, poh, Xp
+        # the f64 gather: two f32 gathers with atomic sums disagree by a few
+        # 1e-6 on the power law's hub rows, run to run
+        y64 = ct.spmv(pl_host.astype(np.float64).to(dev), xp.double(), method="xla")
+        for what, op in (("COO partition", tpar.DistSpmv(tpar.partition_coo(pl_host, 1), mesh)),
+                         ("Dist2DSpmv 1x1", tpar.Dist2DSpmv(tpar.partition_2d(pl_host, 1, 1),
+                                                            tpar.mesh_2d(1, 1, device=dev)))):
+            _reset()
+            y = op(xp)
+            torch.cuda.synchronize()
+            if _all_launches():
+                raise AssertionError(f"[dist] {what} launched a kernel: the reference's is "
+                                     f"plain")
+            err = _relerr(y, y64)
+            _check(f"[dist] {what} vs the single-device gather product (f64)", err, F32_TOL)
+            print(f"[dist] {what} of the power law (plain, as the reference's): vs "
+                  f"single-device (f64 gather) {err:.2e} (tol {F32_TOL:.0e})", flush=True)
+        del pl_dev, xp, y64
+
+        t0 = time.perf_counter()
+        sop = tpar.DistSpmv(tpar.partition_bdia(spd_bsr, 1), mesh)
+        t_spd = time.perf_counter() - t0
+        b_ = sop.padded(fem_b)
+        for name, solve, single_iters in (
+                ("cg", lambda o: sv.cg(o, b_, tol=1e-6, maxiter=200), cg_iters),
+                ("pipelined_cg", lambda o: sv.pipelined_cg(o, b_, tol=SOLVE_TOL, maxiter=500),
+                 None)):
+            _reset()
+            res, t_solve = _sync_seconds(lambda: solve(sop.padded_op))
+            n_l = _launched("bdia_spmv", f"[dist] {name}")
+            if single_iters is None:
+                single_iters = solve(fem_op).iterations
+            if abs(res.iterations - single_iters) > 1:
+                raise AssertionError(f"[dist] {name}: {res.iterations} iterations, the "
+                                     f"single-device solve {single_iters}")
+            rel = _true_rel(fem_sp.astype(np.float64), res.x, fem_b.cpu().double().numpy())
+            if not rel <= 1e-5:
+                raise AssertionError(f"[dist] {name}: true relative residual {rel:.3e} > 1e-5")
+            print(f"[dist] {name} over DistSpmv(partition_bdia(FEM SPD system, 1)) "
+                  f"({fem_sp.shape[0]} rows, partition {t_spd:.1f} s): {res.iterations} "
+                  f"iterations (single-device {single_iters}), {n_l} bdia_spmv launches, "
+                  f"{t_solve * 1e3:.1f} ms (host clock); true relative residual {rel:.2e} "
+                  f"(f64 host, tol 1e-5)", flush=True)
+        del sop, b_
+
+        s1, s1_sp = _ilu_system(DIST_ILU_GRID)
+        iop = tpar.DistSpmv(tpar.partition_dia(s1, 1, align=8192), mesh, interior="pallas")
+        bi = iop.padded(rng.standard_normal(s1.shape[0]).astype(np.float32))
+        t0 = time.perf_counter()
+        M = sv.shard_ilu0(s1, iop)
+        t_fac = time.perf_counter() - t0
+        plain_cg = sv.cg(iop.padded_op, bi, tol=1e-6, maxiter=500)
+        pre, t_pcg = _sync_seconds(lambda: sv.cg(iop.padded_op, bi, tol=1e-6, maxiter=500, M=M))
+        if not (plain_cg.converged and pre.converged
+                and pre.iterations < plain_cg.iterations):
+            raise AssertionError(f"[dist] shard_ilu0-PCG {pre.iterations} iterations "
+                                 f"({pre.converged}) against plain CG {plain_cg.iterations}")
+        n1 = s1.shape[0]
+        rel = _true_rel(s1_sp.astype(np.float64), pre.x[:n1], bi[:n1].cpu().double().numpy())
+        print(f"[dist] shard_ilu0-PCG on I + stencil_2d({DIST_ILU_GRID}), one block: "
+              f"{pre.iterations} iterations against plain CG {plain_cg.iterations}; factor and "
+              f"plans {t_fac:.1f} s (host), solve {t_pcg * 1e3:.0f} ms; true relative residual "
+              f"{rel:.2e}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return pre.iterations
+
+
+def _dist_rank(shared: dict) -> dict:
+    """[dist-ranks]' rank program: this rank's rows of each product through
+    its kernel and through the plain shard formulation, its kernels'
+    launches, its solves and its times (one of four gloo ranks on the one
+    card, the exchanges staged through the host).  The partitions come
+    built from the parent."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch.parallel as tpar
+    from cask_tpu_torch.solvers import cg, pipelined_cg, shard_ilu0
+    from cask_tpu_torch.tune.timing import time_cuda
+
+    mesh = tpar.row_mesh(device=shared["device"])
+    on_card = mesh.device.type == "cuda"
+    out = {"mesh": repr(mesh), "products": {}, "times": {}}
+    fem, sten, k = shared["fem"], shared["sten"], shared["k"]
+    X16 = np.random.default_rng(21).standard_normal((fem.shape[0], k)).astype(np.float32)
+
+    def ms(fn):  # CUDA events on the card, the host clock in a rehearsal on the CPU
+        if on_card:
+            return time_cuda(fn, runs=3, reps=3).ms
+        t1 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        return (time.perf_counter() - t1) / 3 * 1e3
+    # (name, plan, the kernel's options, the plain formulation's (None: POH
+    # has one interior), operand, kernel)
+    cases = (("bdia fused (B1)", fem, {"interior": "fused"}, {"interior": "plain"},
+              shared["x_fem"], "bdia_spmv"),
+             (f"slab SpMM (B6), k={k}", fem, {"mm_interior": "slab"}, {"mm_interior": "plain"},
+              X16, "bdia_spmm_slab"),
+             ("dia pallas (B9)", sten, {"interior": "pallas"}, {"interior": "plain"},
+              shared["x_sten"], "dia_spmv"),
+             ("dia pallas + remainder (B9)", shared["dia_rem"], {"interior": "pallas"},
+              {"interior": "plain"}, shared["x_rem"], "dia_spmv"),
+             ("poh SpMV (B16)", shared["poh"], {}, None, shared["x_pl"], "poh_spmv"),
+             (f"poh SpMM (B17), k={shared['k_pl']}", shared["poh"], {}, None,
+              _pl_block(shared["poh"].shape[0], shared["k_pl"]), "poh_spmm"))
+    for name, plan, kw, plain_kw, x, kernel in cases:
+        op = tpar.DistSpmv(plan, mesh, **kw)
+        xs = op.padded(x)
+        _reset()
+        y = op.padded_op(xs)
+        if on_card:
+            torch.cuda.synchronize()
+        counts = {c: fn.launches for c, fn in _counters().items() if fn.launches}
+        got = {"y": y.cpu().numpy(), "counts": counts, "kernel": kernel,
+               "interiors": (op.interior, op.mm_interior)}
+        del op, y
+        if plain_kw is not None:
+            got["y_plain"] = tpar.DistSpmv(plan, mesh, **plain_kw).padded_op(xs).cpu().numpy()
+        out["products"][name] = got
+    del X16
+    op2 = tpar.Dist2DSpmv(shared["pl2d"], tpar.mesh_2d(2, mesh.size // 2, device=mesh.device))
+    y2d = op2(shared["x_pl"]).cpu().numpy()  # every rank takes part in the collectives
+    out["y2d"] = y2d if mesh.rank == 0 else None
+
+    sop = tpar.DistSpmv(shared["spd"], mesh)
+    b = sop.padded(shared["b_spd"])
+    for name, solve in (("cg", lambda: cg(sop.padded_op, b, tol=1e-6, maxiter=200)),
+                        ("pipelined_cg",
+                         lambda: pipelined_cg(sop.padded_op, b, tol=SOLVE_TOL, maxiter=500))):
+        res = solve()
+        out[name] = {"iterations": res.iterations, "x": res.x.cpu().numpy(),
+                     "converged": res.converged}
+    iop = tpar.DistSpmv(shared["ilu_plan"], mesh, interior="pallas")
+    M = shard_ilu0(shared["ilu_a"], iop)
+    bi = iop.padded(shared["b_ilu"])
+    out["ilu_cg"] = cg(iop.padded_op, bi, tol=1e-6, maxiter=500, M=M).iterations
+
+    # per-rank times: the exchange overlapped with the interior and serialized
+    # before it, and the exchange alone
+    for name, plan, x in (("bdia", fem, shared["x_fem"]), ("dia", sten, shared["x_sten"])):
+        ops = {ov: tpar.DistSpmv(plan, mesh, overlap=ov,
+                                 interior="fused" if name == "bdia" else "pallas")
+               for ov in (True, False)}
+        xs = ops[True].padded(x)
+        lo, hi = ((plan.halo_lo_b * 4, plan.halo_hi_b * 4) if name == "bdia"
+                  else (plan.halo_lo, plan.halo_hi))
+        out["times"][name] = {"overlapped": ms(lambda: ops[True].padded_op(xs)),
+                              "serialized": ms(lambda: ops[False].padded_op(xs)),
+                              "exchange": ms(lambda: mesh.ring_halo(xs, lo, hi).wait())}
+    return out
+
+
+def _rank_launches(what: str, counts: dict, kernel: str) -> None:
+    """A rank's launches in one distributed product: ``kernel`` once per pack
+    (the POH kernels twice: the interior and the exterior pack) and no other
+    kernel."""
+    want = {kernel: 2 if kernel.startswith("poh") else 1}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, want {want}")
+
+
+def _whole_bdia(plan, dev):
+    """The whole matrix of a formulaic ``fem_bdia_partition`` on one device:
+    its shards' block rows laid end to end and retiled, as
+    ``fem_bdia_partition(..., nshards=1)`` would pack them (each shard's
+    values hold every term of its rows, the halo's too)."""
+    import numpy as np
+    import torch
+
+    from cask_tpu_torch.ops.bdia import BdiaMatrix, _pick_ts
+    from cask_tpu_torch.parallel.dist import _empty_rem
+
+    P, br, T, npairs, ts, lane = plan.vals.shape
+    nbr = plan.shape[0] // br
+    rows = plan.vals.transpose(1, 3, 0, 2, 4, 5).reshape(br, npairs, P, T * ts * lane)
+    rows = rows[..., :plan.nbloc].reshape(br, npairs, P * plan.nbloc)[..., :nbr]
+    ts1 = _pick_ts(nbr)
+    t1 = -(-nbr // (ts1 * lane))
+    v = np.zeros((br, npairs, t1 * ts1 * lane), dtype=plan.vals.dtype)
+    v[..., :nbr] = rows
+    v = v.reshape(br, npairs, t1, ts1, lane).transpose(0, 2, 1, 3, 4)
+    vals = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+    return BdiaMatrix(vals=vals, **_empty_rem(vals), block_offsets=plan.block_offsets,
+                      shape=plan.shape, blocksize=plan.blocksize, ts=ts1)
+
+
+def _whole_dia(plan, dev):
+    """The whole matrix of a ``DiaPartition`` with no remainder on one
+    device: its shards' rows of every diagonal laid end to end."""
+    import torch
+
+    from cask_tpu_torch.ops.dia import DiaMatrix
+
+    P, nd, mloc = plan.vals.shape
+    vals = torch.from_numpy(plan.vals.transpose(1, 0, 2).reshape(nd, P * mloc)).to(dev)
+    zi = torch.zeros(0, dtype=torch.int32, device=dev)
+    return DiaMatrix(vals=vals, rem_data=vals.new_zeros(0), rem_row=zi, rem_col=zi,
+                     vals_t=None, offsets=plan.offsets, shape=plan.shape)
+
+
+def dist_ranks_phase(dev, card, pl_host, pplan, fem_op, fem_b, fem_sp, spd_bsr, cg_iters,
+                     ilu_one_block: int):
+    """[dist-ranks]: four gloo ranks spawned on the one card through
+    ``launch`` (NCCL refuses two ranks on one GPU, so the exchanged slices go
+    through the host), each partition built once here and shipped: each
+    rank's rows of y against its plain shard formulation and the
+    single-device product, with the real kernels as interiors; distributed
+    CG against the single-device iterations; ``shard_ilu0``-PCG with four
+    blocks against one.  The times are four processes sharing one card, not
+    scaling numbers."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+    import cask_tpu_torch.parallel as tpar
+    from cask_tpu_torch.formats.convert import from_scipy, to_scipy
+    from cask_tpu_torch.formats.generate import random_uniform, stencil_2d
+    from cask_tpu_torch.ops.bdia_slab import slab_auto_plan
+
+    P = DIST_RANKS
+    rng = np.random.default_rng(SEED + 16)
+    t0 = time.perf_counter()
+    fem = tpar.fem_bdia_partition(DIST_RANKS_FEM_NX, dof=4, nshards=P)
+    sten = tpar.stencil_dia_partition(DIST_RANKS_STENCIL, nshards=P, align=8192)
+    st_sp = to_scipy(stencil_2d(DIST_RANKS_STENCIL // 2, dtype=np.float32))
+    rem_sp = (st_sp + to_scipy(random_uniform(st_sp.shape[0], density=1e-6, seed=5,
+                                              dtype=np.float32))).tocsr()
+    ilu_a, _ = _ilu_system(DIST_ILU_GRID)
+    shared = {
+        "device": str(dev), "fem": fem, "sten": sten, "k": DIST_RANKS_K,
+        "x_fem": rng.standard_normal(fem.shape[0]).astype(np.float32),
+        "x_sten": rng.standard_normal(sten.shape[0]).astype(np.float32),
+        "dia_rem": tpar.partition_dia(from_scipy(rem_sp), P, align=8192),
+        "x_rem": rng.standard_normal(rem_sp.shape[0]).astype(np.float32),
+        "poh": tpar.partition_poh(pl_host, P),
+        "pl2d": tpar.partition_2d(pl_host, 2, P // 2),
+        "x_pl": rng.standard_normal(PL_N).astype(np.float32), "k_pl": K,
+        "spd": tpar.partition_bdia(spd_bsr, P),
+        "b_spd": fem_b.cpu().numpy(),
+        "ilu_plan": tpar.partition_dia(ilu_a, P, align=8192), "ilu_a": ilu_a,
+        "b_ilu": rng.standard_normal(ilu_a.shape[0]).astype(np.float32)}
+    t_host = time.perf_counter() - t0
+    if shared["dia_rem"].remainder is None:
+        raise AssertionError("[dist-ranks] the scattered entries did not spill to a remainder")
+    t0 = time.perf_counter()
+    ranks = tpar.launch(_dist_rank, P, shared, backend="gloo", timeout=900.0)
+    t_ranks = time.perf_counter() - t0
+    print(f"[dist-ranks] {P} ranks on the one card over gloo ({ranks[0]['mesh']}): the "
+          f"exchanged slices go through the host; partitions and inputs built once here "
+          f"{t_host:.1f} s (host), spawn to exit {t_ranks:.1f} s", flush=True)
+
+    # the single-device products, on the card in this process: the kernel on
+    # the whole matrix and, for POH, the plain gather in f64 as well
+    t0 = time.perf_counter()
+    fem_m = _whole_bdia(fem, dev)
+    fem_slab = slab_auto_plan(fem_m)  # spmm(fem_m, X) at k <= 64 would take scalar DIA
+    if fem_slab is None:
+        raise AssertionError("[dist-ranks] the whole FEM matrix has no slab plan")
+    sten_m = _whole_dia(sten, dev)
+    X16 = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        (fem.shape[0], DIST_RANKS_K)).astype(np.float32)).to(dev)
+    pl64 = pl_host.astype(np.float64).to(dev)
+    rem_dev = from_scipy(rem_sp).to(dev)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    xp, Xp = t(shared["x_pl"]), t(_pl_block(PL_N, K))
+    singles = {  # name -> (the single-device kernel product, a plain single-device product)
+        "bdia fused (B1)": (lambda: ct.spmv(fem_m, t(shared["x_fem"])), None),
+        f"slab SpMM (B6), k={DIST_RANKS_K}": (lambda: ct.spmm(fem_slab, X16), None),
+        "dia pallas (B9)": (lambda: ct.spmv(sten_m, t(shared["x_sten"])), None),
+        "dia pallas + remainder (B9)": (
+            lambda: ct.spmv(rem_dev, t(shared["x_rem"]), method="xla"), None),
+        "poh SpMV (B16)": (lambda: ct.spmv(pplan, xp),
+                           lambda: ct.spmv(pl64, xp.double(), method="xla")),
+        f"poh SpMM (B17), k={K}": (lambda: ct.spmm(pplan, Xp),
+                                   lambda: ct.spmm(pl64, Xp.double(), method="xla")),
+    }
+    for name, (single, single_plain) in singles.items():
+        refs = {"the single-device product": single().cpu()}
+        if single_plain is not None:
+            refs["the single-device plain gather (f64)"] = single_plain().cpu()
+        got = [r["products"][name] for r in ranks]
+        kernel = got[0]["kernel"]
+        worst = {}
+        for r, g in enumerate(got):
+            _rank_launches(f"[dist-ranks] {name} rank {r}", g["counts"], kernel)
+            y = torch.from_numpy(g["y"])
+            if "y_plain" in g:  # the rank's own rows through the plain shard formulation
+                err = _relerr_or_zero(y, torch.from_numpy(g["y_plain"]))
+                _check(f"[dist-ranks] {name} rank {r} vs its plain shard formulation", err,
+                       F32_TOL)
+                worst["its plain shard formulation"] = max(
+                    worst.get("its plain shard formulation", 0.0), err)
+            mloc = y.shape[0]
+            lo, hi = r * mloc, min((r + 1) * mloc, refs["the single-device product"].shape[0])
+            if hi <= lo:  # a shard of padding only
+                continue
+            for what, ref in refs.items():
+                err = _relerr(y[: hi - lo], ref[lo:hi])
+                _check(f"[dist-ranks] {name} rank {r} rows vs {what}", err, F32_TOL)
+                worst[what] = max(worst.get(what, 0.0), err)
+        print(f"[dist-ranks] {name}: every rank's rows, worst against "
+              + ", ".join(f"{what} {e:.2e}" for what, e in worst.items())
+              + f" (tol {F32_TOL:.0e}); interiors {got[0]['interiors']}; launches a rank "
+              f"{got[0]['counts']}", flush=True)
+    del fem_m, fem_slab, sten_m, X16, Xp
+    err2d = _relerr(torch.from_numpy(ranks[0]["y2d"]), singles["poh SpMV (B16)"][1]())
+    _check("[dist-ranks] Dist2DSpmv 2x2 vs single-device (f64 gather)", err2d, F32_TOL)
+    print(f"[dist-ranks] Dist2DSpmv 2x{P // 2} of the power law (the grid-row sums): vs "
+          f"single-device (f64 gather) {err2d:.2e}", flush=True)
+    for name, single_iters in (("cg", cg_iters), ("pipelined_cg", None)):
+        its = {r[name]["iterations"] for r in ranks}
+        if len(its) != 1:
+            raise AssertionError(f"[dist-ranks] {name}: ranks disagree on iterations {its}")
+        it = its.pop()
+        if single_iters is None:
+            single_iters = ct.solvers.pipelined_cg(fem_op, fem_b, tol=SOLVE_TOL,
+                                                   maxiter=500).iterations
+        if abs(it - single_iters) > 1:
+            raise AssertionError(f"[dist-ranks] {name}: {it} iterations, single-device "
+                                 f"{single_iters}")
+        x = np.concatenate([r[name]["x"] for r in ranks])[: fem_sp.shape[0]]
+        rel = float(np.linalg.norm(fem_b.cpu().double().numpy()
+                                   - fem_sp.astype(np.float64) @ x.astype(np.float64))
+                    / np.linalg.norm(fem_b.cpu().double().numpy()))
+        if not rel <= 1e-5:
+            raise AssertionError(f"[dist-ranks] {name}: true relative residual {rel:.3e}")
+        print(f"[dist-ranks] {name} over {P} shards of the FEM SPD system: {it} iterations "
+              f"(single-device {single_iters}); true relative residual {rel:.2e}", flush=True)
+    ilu4 = {r["ilu_cg"] for r in ranks}
+    if len(ilu4) != 1 or ilu4.pop() < ilu_one_block:
+        raise AssertionError(f"[dist-ranks] shard_ilu0-PCG with {P} blocks: "
+                             f"{[r['ilu_cg'] for r in ranks]} iterations, one block "
+                             f"{ilu_one_block}")
+    print(f"[dist-ranks] shard_ilu0-PCG on I + stencil_2d({DIST_ILU_GRID}) with {P} blocks: "
+          f"{ranks[0]['ilu_cg']} iterations, one block {ilu_one_block} (more blocks drop more "
+          f"coupling); the checks here {time.perf_counter() - t0:.1f} s (host)", flush=True)
+    for name in ("bdia", "dia"):
+        for r, res in enumerate(ranks):
+            tm = res["times"][name]
+            print(f"[dist-ranks] {name} rank {r}: overlapped {tm['overlapped'] * 1e3:.1f} us, "
+                  f"serialized {tm['serialized'] * 1e3:.1f} us, the exchange alone "
+                  f"{tm['exchange'] * 1e3:.1f} us = {tm['exchange'] / tm['serialized']:.3f} "
+                  f"of serialized; four processes sharing one card over gloo, staged through "
+                  f"the host: not scaling numbers; card {card} (CUDA events, median of 3 "
+                  f"samples of 3 calls)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3484,6 +4033,12 @@ def main() -> int:
     t_lap = _lap("eig", t_lap)
     sol_rows += lstsq_phase(dev, card)
     t_lap = _lap("lstsq", t_lap)
+    # -- 19p-19q. the multi-device half ----------------------------------------
+    spd_bsr = csr_to_bsr(from_scipy(sb_sp), (DOF, DOF))  # the FEM SPD system, partitioned
+    ilu_one_block = dist_phase(dev, card, pl_host, pplan, op, b, sb_sp, spd_bsr, cg32[0])
+    t_lap = _lap("dist", t_lap)
+    dist_ranks_phase(dev, card, pl_host, pplan, op, b, sb_sp, spd_bsr, cg32[0], ilu_one_block)
+    t_lap = _lap("dist-ranks", t_lap)
     # -- 19g-19j. the tuner, its calibration and the bench harness --------------
     with tempfile.TemporaryDirectory() as tmp:  # the tuner caches of this run
         tune_row = tune_phase(dev, card, rng, a, x, a_host, a_sp, st_host, st_sp, mm_host,

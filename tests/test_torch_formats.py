@@ -218,7 +218,9 @@ def test_import_leaves_out_jax_and_the_reference():
             "cask_tpu_torch.solvers.precond, cask_tpu_torch.solvers.eig, "
             "cask_tpu_torch.solvers.amg, cask_tpu_torch.examples.cg_solver, "
             "cask_tpu_torch.examples.preconditioners, cask_tpu_torch.examples.eigenvalues, "
-            "cask_tpu_torch.examples.least_squares; "
+            "cask_tpu_torch.examples.least_squares, cask_tpu_torch.parallel, "
+            "cask_tpu_torch.parallel.batch, cask_tpu_torch.examples.distributed_spmv, "
+            "cask_tpu_torch.examples.scaling_job, cask_tpu_torch.examples.dryrun_multichip; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
             "or m == 'cask_tpu' or m.startswith('cask_tpu.')]; print(bad); "
             "sys.exit(1 if bad else 0)")

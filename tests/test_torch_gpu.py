@@ -1887,3 +1887,74 @@ def test_tuner_cache_hit_times_nothing(cuda, tmp_path, monkeypatch):
     hit = tune(a, cache=cache, device=cuda)
     assert hit.variant == t.variant
     assert bdia_spmv.launches + dia_spmv.launches + poh_spmv.launches == before
+
+
+# -- the distributed executors on one NCCL rank ----------------------------------
+
+
+@pytest.fixture()
+def nccl_rank(cuda):
+    """A world of one NCCL rank in this process (the card's only rank)."""
+    import torch.distributed as dist
+
+    from cask_tpu_torch.parallel import row_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield row_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_distspmv_on_one_nccl_rank_launches_the_kernels(nccl_rank):
+    """Each interior a kernel: once a call on one rank (POH: once a pack),
+    agreeing with the plain formulation and with scipy; CG and pipelined CG
+    over the BDIA operator within one iteration of the single-device solve."""
+    import cask_tpu_torch.parallel as tpar
+
+    mesh = nccl_rank
+    assert mesh.backend == "nccl" and not mesh.staged and mesh.device.type == "cuda"
+    rng = np.random.default_rng(3)
+    fem = tpar.fem_bdia_partition(48, dof=4, nshards=1)  # 9216 rows, f32
+    fem_sp = to_scipy(tpar.fem_formula_bsr(48, dof=4)).astype(np.float32)
+    sten = tpar.stencil_dia_partition(96, nshards=1, align=8192)
+    sten_sp = to_scipy(stencil_2d(96, dtype=np.float32))
+    pl = power_law(3000, avg_degree=6, seed=1, dtype=np.float32)
+    poh = tpar.partition_poh(pl, 1)
+    cases = [("fused", fem, fem_sp, None, dict(interior="fused"), bdia_spmv),
+             ("pallas", fem, fem_sp, None, dict(interior="pallas"), bdia_spmv),
+             ("slab", fem, fem_sp, 128, dict(mm_interior="slab"), bdia_spmm_slab),
+             ("dia", sten, sten_sp, None, dict(interior="pallas"), dia_spmv),
+             ("poh", poh, to_scipy(pl), None, {}, poh_spmv),
+             ("poh_mm", poh, to_scipy(pl), 32, {}, poh_spmm)]
+    for name, plan, s, k, kw, counter in cases:
+        x = rng.standard_normal((s.shape[1], k) if k else s.shape[1]).astype(np.float32)
+        op = tpar.DistSpmv(plan, mesh, **kw)
+        before = counter.launches
+        y = op(x)
+        torch.cuda.synchronize()
+        # POH: the interior and the exterior pack, one launch each
+        assert counter.launches - before == (2 if name.startswith("poh") else 1), name
+        ref = torch.from_numpy(s.astype(np.float64) @ x.astype(np.float64))
+        assert _relerr(y, ref) <= 1e-5, name
+        if not name.startswith("poh"):  # POH has no plain interior
+            plain = tpar.DistSpmv(plan, mesh, interior="plain", mm_interior="plain")
+            assert _relerr(y, plain(x)) <= 1e-5, name
+    op = tpar.DistSpmv(fem, mesh)
+    assert (op.interior, op.mm_interior) == ("fused", "slab")
+    # the solves: an SPD block system (the FEM formula matrix is not symmetric)
+    a_sp = to_scipy(fem_blocks(48, dof=4, dtype=np.float32))
+    spd = csr_to_bsr(_diag_shift(from_scipy((a_sp + a_sp.T).tocsr()), 1.1), (4, 4))
+    op = tpar.DistSpmv(tpar.partition_bdia(spd, 1), mesh)
+    single = ct.BdiaOperator(ct.bdia_plan(spd, device=mesh.device))
+    b = op.padded(rng.standard_normal(spd.shape[0]).astype(np.float32))
+    from cask_tpu_torch.solvers import cg, pipelined_cg
+
+    for solver in (cg, pipelined_cg):
+        res = solver(op.padded_op, b, tol=1e-6, maxiter=200)
+        ref = solver(single, b, tol=1e-6, maxiter=200)
+        # (f32 pipelined CG's recurrence drifts: its true residual, which
+        # decides converged, ends near 1e-6 in both)
+        assert abs(res.iterations - ref.iterations) <= 1, solver.__name__
+        assert res.residual_norm <= 10 * max(ref.residual_norm, 1e-6 * float(b.norm()))
+        assert res.converged or solver is pipelined_cg

@@ -747,9 +747,21 @@ class TestBenchHarness:
         assert cli.main(["--cpu", "tune", "--mtx", str(mtx)]) == 0
         assert "s/op" in capsys.readouterr().err
         assert (tmp_path / "t.json").exists()
-        for cmd in ("scaling", "overlap", "solve"):
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-                cli.main([cmd])
+        # scaling and overlap run on spawned gloo ranks; solve is not yet ported
+        dist_out = tmp_path / "dist.jsonl"
+        assert cli.main(["--cpu", "--out", str(dist_out), "scaling", "--side", "24",
+                         "--shards", "1,2"]) == 0
+        assert cli.main(["--cpu", "--out", str(dist_out), "overlap", "--side", "24",
+                         "--shards", "2"]) == 0
+        recs = [json.loads(line) for line in dist_out.read_text().splitlines()]
+        assert [(r["op"], r.get("nshards")) for r in recs] == [
+            ("dist_spmv_weak_scaling", 1), ("dist_spmv_weak_scaling", 2),
+            ("dist_spmv_overlap_ab", 2), ("dist_spmv_overlap_ab", 2),
+            ("dist_spmv_overlap_ab", 2)]
+        assert recs[0]["efficiency"] == 1.0 and recs[0]["interior"] == "plain"
+        assert all(r["seconds_per_op"] > 0 for r in recs[:4])
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+            cli.main(["solve"])
 
 
 def test_import_keeps_jax_out():
