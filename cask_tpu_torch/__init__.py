@@ -33,8 +33,12 @@ the tuner cache and the POH calibration) and the bench harness over it
 MINRES, CGLS, GMRES(m) and mixed-precision iterative refinement, the LOBPCG
 eigensolver, smoothed-aggregation AMG (its levels routed through the DIA
 and POH kernels), block Jacobi, the Chebyshev polynomial preconditioner and
-the power and Lanczos spectrum estimates; and twins of four of the
-repository's examples (:mod:`cask_tpu_torch.examples`).
+the power and Lanczos spectrum estimates; the multi-device half
+(:mod:`cask_tpu_torch.parallel`); the device matrix generators
+(:mod:`cask_tpu_torch.formats.device_gen`, ``poh_synth_device``), the
+checkpoint, debug and profiling utilities (:mod:`cask_tpu_torch.utils`);
+and twins of the repository's examples and entry points
+(:mod:`cask_tpu_torch.examples`).
 """
 
 __version__ = "0.1.0"

@@ -8,12 +8,12 @@ The PyTorch counterpart of :mod:`cask_tpu.bench.cli`.  Subcommands:
   calibrate [--force]                          (POH cost constants for this card)
   scaling   [--side N] [--shards 1,2,4,8]      (distributed SpMV weak scaling)
   overlap   [--side N] [--shards N]            (halo exchange overlapped vs serialized)
+  solve     [--side N]                         (CG and pipelined CG, µs an iteration)
 
 Everything runs on the CUDA device unless ``--cpu`` asks for the CPU
 (``scaling`` and ``overlap``: one NCCL rank a GPU, or gloo ranks on the
 CPU).  Records are JSON lines on stdout; ``--out FILE`` appends them to a
-file.  ``solve`` is the JAX package's too, and raises
-``NotImplementedError`` until the port has what it times.
+file.
 """
 
 from __future__ import annotations
@@ -23,12 +23,6 @@ import json
 import sys
 
 import numpy as np
-
-# the JAX package's subcommands whose paths the port lacks, and the ROADMAP
-# item that brings each
-_NOT_YET = {
-    "solve": "the device matrix generators (ROADMAP Queue A 1)",
-}
 
 
 def _load(args):
@@ -69,13 +63,10 @@ def main(argv=None):
     p_ov = sub.add_parser("overlap")
     p_ov.add_argument("--side", type=int, default=512)
     p_ov.add_argument("--shards", type=int, default=None)
-    for name in _NOT_YET:
-        sub.add_parser(name)
+    p_sv = sub.add_parser("solve")
+    p_sv.add_argument("--side", type=int, default=512)
 
     args = ap.parse_args(argv)
-    if args.cmd in _NOT_YET:
-        raise NotImplementedError(f"'{args.cmd}' needs {_NOT_YET[args.cmd]}, "
-                                  "which the port does not have yet")
     device = "cpu" if args.cpu else None
 
     out = open(args.out, "a") if args.out else sys.stdout
@@ -104,6 +95,10 @@ def main(argv=None):
             from cask_tpu_torch.bench.harness import bench_overlap
 
             bench_overlap(side=args.side, nshards=args.shards, out=out, device=device)
+        elif args.cmd == "solve":
+            from cask_tpu_torch.bench.harness import bench_solve
+
+            bench_solve(side=args.side, out=out, device=device)
         elif args.cmd == "calibrate":
             from cask_tpu_torch.tune.calibrate import backend_kind, calibrate_poh
 

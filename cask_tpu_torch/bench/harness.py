@@ -11,9 +11,9 @@ any other error propagates.
 (:class:`cask_tpu_torch.parallel.DistSpmv`) on a world of ranks spawned on
 this host (NCCL ranks, one a GPU; or gloo ranks on the CPU with
 ``device="cpu"``), through the rank program of
-:mod:`cask_tpu_torch.examples.scaling_job`, and keep its records.  The JAX
-package's ``bench_solve`` waits for the device matrix generators (ROADMAP
-Queue A 1).
+:mod:`cask_tpu_torch.examples.scaling_job`, and keep its records.
+``bench_solve`` times an iteration of ``cg`` and ``pipelined_cg`` on a
+Poisson system built on the device.
 """
 
 from __future__ import annotations
@@ -161,3 +161,76 @@ def bench_overlap(side: int = 512, *, nshards: Optional[int] = None,
     device = plan_device(None, device)
     p = nshards or _ranks_available(device)
     return _emit(_scaling_job(side, [p], device), ("dist_spmv_overlap_ab",), out)
+
+
+SOLVE_LADDER = (10, 200, 400, 600)  # iteration counts of bench_solve's k-ladder
+
+
+def bench_solve(side: int = 512, *, dtype=np.float32, out: TextIO = sys.stdout,
+                device=None) -> list:
+    """Per-iteration cost of ``cg`` and ``pipelined_cg`` on the 5-point
+    Poisson system of ``side²`` rows, built on the device
+    (:func:`~cask_tpu_torch.formats.device_gen.stencil2d_dia_device`) under
+    a :class:`~cask_tpu_torch.ops.dia.DiaOperator`, by the k-ladder: solves
+    at ``tol=0`` and ``maxiter=k`` for each k of :data:`SOLVE_LADDER`, two
+    rounds, the least wall for each k, and the median of the slopes between
+    every pair of ks.  A wall is the host clock between two device syncs;
+    the solvers sync at every loop test, so it is the solve's own time.  A
+    solve that stops short of its k (a residual of exactly 0, or not a
+    number) raises: its slope would not be a cost per iteration.
+    ``device``: the CUDA device unless given (raises without one)."""
+    from cask_tpu_torch.formats.device_gen import stencil2d_dia_device
+    from cask_tpu_torch.ops.dia import DiaOperator
+    from cask_tpu_torch.solvers import cg, pipelined_cg
+
+    device = plan_device(None, device)
+    on_card = device.type == "cuda"
+    m = side * side
+    op = DiaOperator(stencil2d_dia_device(side, dtype=dtype, device=device))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    bp = op.to_padded(torch.randn(m, generator=gen, device=device, dtype=op.dia.dtype))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    def per_iteration(name, solver):
+        def run(k):
+            sync()
+            t0 = time.perf_counter()
+            res = solver(op, bp, tol=0.0, maxiter=k)
+            sync()
+            wall = time.perf_counter() - t0
+            if res.iterations != k:
+                raise RuntimeError(f"bench_solve: {name} stopped after {res.iterations} of "
+                                   f"{k} iterations (residual {res.residual_norm:.3e})")
+            return wall
+
+        ks = SOLVE_LADDER
+        run(ks[0])
+        run(ks[-1])
+        walls = {}
+        for _ in range(2):
+            for k in ks:
+                walls[k] = min(walls.get(k, float("inf")), run(k))
+        slopes = sorted((walls[b] - walls[a]) / (b - a) for a in ks for b in ks if b > a)
+        return slopes[len(slopes) // 2]
+
+    kind = torch.cuda.get_device_name(device) if on_card else "cpu"
+    records = []
+    for name, solver in (("cg", cg), ("pipelined_cg", pipelined_cg)):
+        per_iter = per_iteration(name, solver)
+        rec = {
+            "op": "pcg_per_iteration",
+            "solver": name,
+            "matrix": f"stencil5_{side}x{side}",
+            "rows": m,
+            "operator_mode": op.mode,
+            "us_per_iteration": round(per_iter * 1e6, 2),
+            "iterations_per_s": round(1.0 / per_iter, 1),
+            "device": kind,
+        }
+        records.append(rec)
+        print(json.dumps(rec), file=out, flush=True)
+    return records

@@ -255,6 +255,44 @@ def poh_plan(a: CSR, *, row_panel: int = 4096, col_window="auto",
     )
 
 
+def poh_synth_device(*, row_panel: int = 4096, col_window: int = 1024, tile_slots: int = 2048,
+                     n_panels: int = 25, tiles_per_panel: int = 60, dtype=torch.float32,
+                     seed: int = 0, device=None) -> PohMatrix:
+    """A synthetic POH pack of ``n_panels · row_panel`` square rows built on
+    ``device`` (the CUDA device unless given; raises without one), every
+    slot live: ``tiles_per_panel`` tiles a panel, slot rows and columns
+    uniform in the panel and the 2C window, each tile's window start
+    uniform.  The kernels' work depends only on the tile count, so a
+    product times like that of a real pack of as many tiles.  The values
+    are normal draws, none exactly 0 (a 0 would be a padding slot), scaled
+    by 0.9/√(slots a row), so chained products contract.  The random
+    arrays come from a ``torch.Generator`` on ``device`` seeded by ``seed``
+    (not ``jax.random``'s draws); ``panel``, ``first``, ``last`` and
+    ``whi`` are the reference's."""
+    from cask_tpu_torch.formats.device_gen import _generator, _normal
+
+    dev = plan_device(None, device)
+    dt = torch_dtype(dtype)
+    R, C, S = row_panel, col_window, tile_slots // _LANE
+    m = n_panels * R
+    nseg = m // C
+    ntiles = n_panels * tiles_per_panel
+    avg_per_row = ntiles * tile_slots / m
+    gen = _generator(seed, dev)
+    slots = (ntiles, S, _LANE)
+    vals = _normal(slots, gen, dev, dt) * (0.9 / avg_per_row ** 0.5)
+    cloc = torch.randint(0, 2 * C, slots, generator=gen, device=dev, dtype=torch.int32)
+    rloc = torch.randint(0, R, slots, generator=gen, device=dev, dtype=torch.int32)
+    wlo = torch.randint(0, max(nseg - 1, 1), (ntiles,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    tile = torch.arange(ntiles, device=dev, dtype=torch.int32)
+    return PohMatrix(
+        vals=vals, cloc=cloc, rloc=rloc, wlo=wlo, whi=torch.clamp(wlo + 1, max=nseg - 1),
+        panel=tile // tiles_per_panel, first=(tile % tiles_per_panel == 0).to(torch.int32),
+        last=(tile % tiles_per_panel == tiles_per_panel - 1).to(torch.int32),
+        shape=(m, m), row_panel=R, col_window=C)
+
+
 def poh_to_coo(p: PohMatrix) -> COO:
     """Host-side scalar triples recovered from a pack (zero slots are
     structural padding and drop out)."""

@@ -1,1 +1,3 @@
-"""Device and platform helpers."""
+"""Device and platform helpers, checkpoints, structural checks and profiling."""
+
+from cask_tpu_torch.utils import checkpoint, debug, profiling  # noqa: F401

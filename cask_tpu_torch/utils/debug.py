@@ -1,12 +1,58 @@
-"""Structural checks of packed plans and partitions.
+"""Structural checks of matrices, packed plans and partitions, and a
+non-finite tripwire.
 
-The PyTorch counterparts of ``check_poh`` and ``check_partition`` in
-:mod:`cask_tpu.utils.debug`.
+The PyTorch counterparts of :mod:`cask_tpu.utils.debug`: each check runs on
+host copies and raises the reference's exception on the same bad input.
+Call them in tests or before long runs.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
+
+from cask_tpu_torch.formats.matrix import host
+
+
+def check_csr(a) -> None:
+    """Index bounds and ``indptr`` monotonicity (the gather's bounds)."""
+    indptr = host(a.indptr)
+    indices = host(a.indices)
+    m, n = a.shape
+    if indptr.shape[0] != m + 1:
+        raise AssertionError(f"indptr length {indptr.shape[0]} != m+1 ({m + 1})")
+    if indptr[0] != 0 or indptr[-1] != indices.shape[0]:
+        raise AssertionError("indptr endpoints corrupt")
+    if np.any(np.diff(indptr) < 0):
+        raise AssertionError("indptr not monotone")
+    if indices.size and (indices.min() < 0 or indices.max() >= n):
+        raise AssertionError("column index out of bounds")
+
+
+def check_permutation(perm) -> None:
+    perm = host(perm)
+    if not np.array_equal(np.sort(perm), np.arange(perm.shape[0])):
+        raise AssertionError("not a permutation")
+
+
+def nan_guard(fn):
+    """Wrap an op so that a non-finite value in its output (the first
+    element of a tuple) raises ``FloatingPointError``.  Debug only: the
+    check syncs with the device once a call."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        first = out[0] if isinstance(out, tuple) else out
+        finite = (bool(torch.isfinite(first).all()) if isinstance(first, torch.Tensor)
+                  else bool(np.all(np.isfinite(host(first)))))
+        if not finite:
+            raise FloatingPointError(f"{fn.__name__}: non-finite output")
+        return out
+
+    return wrapped
 
 
 def check_poh(p, a=None) -> None:
@@ -14,8 +60,6 @@ def check_poh(p, a=None) -> None:
     invariants; if the source CSR ``a`` is given, also verify that the pack
     reconstructs it exactly.  (The reference also checks ``rloc_t``, which
     the port's plan does not carry.)"""
-    from cask_tpu_torch.formats.matrix import host
-
     m, n = p.shape
     C, R = p.col_window, p.row_panel
     cloc = host(p.cloc)

@@ -207,9 +207,27 @@ card.  Phases, one line each:
    pipelined CG across the four shards; ``shard_ilu0``-PCG with four
    blocks against one; each rank's time overlapped, serialized and of the
    exchange alone (four processes sharing one card: not scaling numbers).
+   ``[dist]`` also times cuSPARSE on the CSR of each single-device plan
+   (built on the card from the plan's arrays) and prints its entry count;
+   ``[dist-ranks]`` holds rank 0's slab plan (B6, k = 16) against its twin
+   in this process and times it in phase 20.
+19r. device-gen — the bench's operands built on the card:
+   ``fem_bdia_device(512, dof=4)``, ``stencil2d_dia_device(2048)`` (bit for
+   bit its host plan) and ``banded_dia_device(1_048_576, 4)`` (offsets,
+   ``ts``, shapes and nonzero pattern of their host plans), their
+   generation seconds beside the host plans', each ``spmv`` one kernel
+   launch within 1e-5 of its twin; ``poh_synth_device(n_panels=250)``
+   (15,000 tiles, a 369 MB pack) checked by ``check_poh``, its ``spmv`` one
+   ``poh_spmv`` launch, timed in phase 20 beside cuSPARSE on its CSR.
+19s. bench-solve — ``bench_solve(side=2048)``'s ``cg`` and ``pipelined_cg``
+   records on the card, beside ``[krylov]``'s; one counted solve of each at
+   k = 200, its ``dia_spmv`` launches its products.
+19t. profile — ``trace()`` around a warm ``cg`` of 20 iterations over phase
+   9's operator: the Chrome trace's size, its ``bdia_spmv`` kernel events
+   (equal to the launch counter) and the card's idle share of the range.
 
 The host-side power law (generated once, shared by phases 15-18 and 19p-q) and its
-plans add about half a minute of host time.  Every main path (phases 8-19f, 19k-19q)
+plans add about half a minute of host time.  Every main path (phases 8-19f, 19k-19t)
 runs with all launch counts set to 0 just before it and read just after,
 and must launch its kernel; its result must match the twin and scipy
 (f64, host).  It needs one CUDA device and exits
@@ -2480,6 +2498,30 @@ def _dist_product(what, op, x, kernel, want, plain, single, card):
           f"3 of 1 (CUDA events)", flush=True)
 
 
+def _dist_library(what, to_csr, plan, x, card) -> None:
+    """The library call beside a ``[dist]`` kernel: cuSPARSE
+    (``torch.sparse_csr_tensor @``) on the CSR of the single-device plan,
+    built on the card from the plan's arrays, held to the kernel's product
+    and timed."""
+    import torch
+
+    import cask_tpu_torch as ct
+    from cask_tpu_torch.tune.timing import time_cuda
+
+    lib, t_csr = _sync_seconds(lambda: to_csr(plan))
+    nnz = lib._nnz()
+    err = _relerr(lib @ x, ct.spmv(plan, x))
+    _check(f"[dist] {what}: the library call vs the kernel", err, F32_TOL)
+    t_lib = time_cuda(lambda: lib @ x, runs=10, reps=5)
+    print(f"[dist] {what}: library (torch.sparse_csr_tensor @, cuSPARSE, TF32 off) on the CSR "
+          f"of the single-device plan (built on the card from its arrays in {t_csr:.1f} s): "
+          f"{nnz} entries, {nnz / plan.shape[0]:.2f} a row (the pack holds "
+          f"{plan.vals.numel()} slots), {t_lib.ms * 1e3:.1f} us, vs the kernel {err:.2e}; card "
+          f"{card} (CUDA events, median of 10 samples of 5 calls)", flush=True)
+    del lib
+    torch.cuda.empty_cache()
+
+
 def dist_phase(dev, card, pl_host, pplan, fem_op, fem_b, fem_sp, spd_bsr, cg_iters):
     """[dist]: one rank over NCCL, in process, at BASELINE config 5's 10,240,000
     rows: ``DistSpmv`` with the BDIA ``"fused"`` (B1) and ``"pallas"`` (B2)
@@ -2520,6 +2562,7 @@ def dist_phase(dev, card, pl_host, pplan, fem_op, fem_b, fem_sp, spd_bsr, cg_ite
             _dist_product(what, op, x, "bdia_spmv", 1, plain,
                                            lambda v: ct.spmv(single, v), card)
         del plain
+        _dist_library("BDIA fused and pallas interiors (B1, B2)", _bdia_csr, single, x, card)
         g, nbytes = tpar.slab_choice(fem)
         if g is None:
             try:
@@ -2548,6 +2591,7 @@ def dist_phase(dev, card, pl_host, pplan, fem_op, fem_b, fem_sp, spd_bsr, cg_ite
             f"DIA pallas interior (B9), stencil_dia_partition({DIST_STENCIL}), "
             f"{sten.shape[0]} rows", dop, xs_, "dia_spmv", 1,
             tpar.DistSpmv(sten, mesh, interior="plain"), lambda v: ct.spmv(dsingle, v), card)
+        _dist_library("DIA pallas interior (B9)", _dia_csr, dsingle, xs_, card)
         del dop, dsingle, sten, xs_
 
         t0 = time.perf_counter()
@@ -2791,6 +2835,43 @@ def _whole_dia(plan, dev):
                      vals_t=None, offsets=plan.offsets, shape=plan.shape)
 
 
+def _shard_slab_row(dev, fem, rank0: dict) -> list:
+    """B6 on one ``[dist-ranks]`` shard in this process: rank 0's slab plan
+    (its local matrix, sheared as ``DistSpmv(mm_interior="slab")`` shears
+    it) at k = 16, against its plain twin; its ``[timing]`` row, with rank
+    0's launches and the library call on the CSR of the shard's local
+    matrix (the interior: columns within the shard)."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch.parallel as tpar
+    from cask_tpu_torch.ops.bdia_slab import bdia_slab_plan
+    from cask_tpu_torch.ops.kernels.bdia_slab_kernels import (bdia_spmm_slab,
+                                                              bdia_spmm_slab_reference)
+    from cask_tpu_torch.parallel.dist import _bdia_shard_matrix
+
+    local = _bdia_shard_matrix(fem, torch.from_numpy(np.ascontiguousarray(fem.vals[0])).to(dev))
+    g, _ = tpar.slab_choice(fem)
+    slabs = bdia_slab_plan(local, g)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+    k = DIST_RANKS_K
+    X = torch.randn((fem.mloc, k), generator=gen, device=dev)
+    y, y_twin = bdia_spmm_slab(slabs, X), bdia_spmm_slab_reference(slabs, X)
+    err = _relerr(y, y_twin)
+    _check("[dist-ranks] one shard's slab SpMM kernel vs twin", err, F32_TOL)
+    launches = rank0["counts"]["bdia_spmm_slab"]
+    print(f"[dist-ranks] rank 0's slab plan in this process ({fem.mloc} rows, g = {g}, k = {k}): "
+          f"kernel vs twin {err:.2e} (tol {F32_TOL:.0e}); rank 0 launched it {launches} time(s) "
+          f"a product; timed in [timing]", flush=True)
+    nv = local.vals.numel()
+    return [(f"bdia_spmm_slab f32 [one [dist-ranks] shard's slab plan, {fem.mloc} rows, k={k}]",
+             "bdia_slab_spmm", f"{SLAB_PY}:518 (B6)", lambda: bdia_spmm_slab(slabs, X),
+             lambda: bdia_spmm_slab_reference(slabs, X), _bdia_csr(local), X,
+             nv * 4 + 2 * fem.mloc * k * 4, 2 * nv * k, launches,
+             float((y - y_twin).abs().max()), torch.float32)]
+
+
 def dist_ranks_phase(dev, card, pl_host, pplan, fem_op, fem_b, fem_sp, spd_bsr, cg_iters,
                      ilu_one_block: int):
     """[dist-ranks]: four gloo ranks spawned on the one card through
@@ -2896,6 +2977,7 @@ def dist_ranks_phase(dev, card, pl_host, pplan, fem_op, fem_b, fem_sp, spd_bsr, 
               + f" (tol {F32_TOL:.0e}); interiors {got[0]['interiors']}; launches a rank "
               f"{got[0]['counts']}", flush=True)
     del fem_m, fem_slab, sten_m, X16, Xp
+    b6_rows = _shard_slab_row(dev, fem, ranks[0]["products"][f"slab SpMM (B6), k={DIST_RANKS_K}"])
     err2d = _relerr(torch.from_numpy(ranks[0]["y2d"]), singles["poh SpMV (B16)"][1]())
     _check("[dist-ranks] Dist2DSpmv 2x2 vs single-device (f64 gather)", err2d, F32_TOL)
     print(f"[dist-ranks] Dist2DSpmv 2x{P // 2} of the power law (the grid-row sums): vs "
@@ -2936,6 +3018,290 @@ def dist_ranks_phase(dev, card, pl_host, pplan, fem_op, fem_b, fem_sp, spd_bsr, 
                   f"of serialized; four processes sharing one card over gloo, staged through "
                   f"the host: not scaling numbers; card {card} (CUDA events, median of 3 "
                   f"samples of 3 calls)", flush=True)
+    return b6_rows
+
+
+SYNTH_PANELS = 250  # [device-gen]: poh_synth_device(n_panels=250): 1,024,000 rows, 15,000 tiles
+BENCH_SOLVE_K = 200  # [bench-solve]: the counted solve's iterations
+PROFILE_ITERS = 20  # [profile]: the traced CG's iterations
+KRYLOV_MS = {"cg": 0.273, "pipelined_cg": 0.421}  # on I + the stencil (PERF.md §5.14), ms
+
+
+def _bdia_csr(a):
+    """The matrix of a BDIA plan as a torch sparse CSR on the plan's device,
+    built there from its arrays (the entries ≠ 0 whose column lies in the
+    matrix; row-major, columns ascending): the library call's operand."""
+    import torch
+
+    br, bc = a.blocksize
+    m, n = a.shape
+    v = a.vals.permute(1, 3, 4, 0, 2).reshape(-1, a.npairs)[:m]  # (rows, pairs)
+    dev = v.device
+    c = torch.tensor([c for c, _ in a.pairs], device=dev)
+    d = torch.tensor([d for _, d in a.pairs], device=dev)
+    bcol = torch.arange(-(-m // br), device=dev)[:, None] + d  # (block rows, pairs)
+    inside = ((bcol >= 0) & (bcol * bc + c < n)).repeat_interleave(br, dim=0)[:m]
+    nz = ((v != 0) & inside).nonzero()
+    rows, j = nz[:, 0], nz[:, 1]
+    cols = (rows // br + d[j]) * bc + c[j]
+    return _csr_tensor(rows, cols, v[rows, j], (m, n))
+
+
+def _dia_csr(a):
+    """The matrix of a DIA plan without a remainder as a torch sparse CSR on
+    its device, as :func:`_bdia_csr`."""
+    import torch
+
+    m, n = a.shape
+    v = a.vals.T[:m]
+    off = a.offsets_dev.long()
+    r = torch.arange(m, device=v.device)
+    nz = ((v != 0) & (r[:, None] + off[None, :] >= 0) & (r[:, None] + off[None, :] < n)).nonzero()
+    rows, d = nz[:, 0], nz[:, 1]
+    return _csr_tensor(rows, rows + off[d], v[rows, d], (m, n))
+
+
+def _poh_csr(p):
+    """The matrix of a POH pack as a torch sparse CSR on its device, its
+    live slots' duplicates summed."""
+    import torch
+
+    nt = p.ntiles
+    rows = (p.panel.long()[:, None] * p.row_panel + p.rloc.reshape(nt, -1).long()).reshape(-1)
+    cols = (p.wlo.long()[:, None] * p.col_window + p.cloc.reshape(nt, -1).long()).reshape(-1)
+    v = p.vals.reshape(-1)
+    live = v != 0
+    coo = torch.sparse_coo_tensor(torch.stack([rows[live], cols[live]]), v[live],
+                                  size=p.shape).coalesce()
+    return coo.to_sparse_csr()
+
+
+def _csr_tensor(rows, cols, vals, shape):
+    """A torch sparse CSR (int32 indices) of row-sorted entries."""
+    import torch
+
+    crow = torch.zeros(shape[0] + 1, dtype=torch.int64, device=rows.device)
+    crow[1:] = torch.bincount(rows, minlength=shape[0]).cumsum(0)
+    return torch.sparse_csr_tensor(crow.int(), cols.int(), vals, size=shape)
+
+
+def device_gen_phase(dev, card, fem_plan, fem_host_s, sten_plan, sten_host_s):
+    """[device-gen]: the bench's operands built on the card
+    (``fem_bdia_device(512, dof=4)``, ``stencil2d_dia_device(2048)``,
+    ``banded_dia_device(1_048_576, 4)``), each held against its host plan
+    (the stencil bit for bit; the FEM and band packs' offsets, ``ts``,
+    shapes and nonzero pattern), each ``spmv`` one launch of its kernel
+    within the f32 gate of its twin; then ``poh_synth_device(n_panels=250)``
+    checked by ``check_poh``, its ``spmv`` one ``poh_spmv`` launch.
+    Returns the synthetic pack's ``[timing]`` row."""
+    import numpy as np
+    import torch
+
+    import cask_tpu_torch as ct
+    from cask_tpu_torch.formats.device_gen import (banded_dia_device, fem_bdia_device,
+                                                   stencil2d_dia_device)
+    from cask_tpu_torch.formats.generate import banded
+    from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmv, poh_spmv_reference
+    from cask_tpu_torch.ops.poh import poh_synth_device
+    from cask_tpu_torch.utils.debug import check_poh
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 18)
+    fem, t_fem = _sync_seconds(lambda: fem_bdia_device(NX, dof=DOF, seed=SEED, device=dev))
+    sten, t_sten = _sync_seconds(lambda: stencil2d_dia_device(GRID_SPMV, device=dev))
+    band, t_band = _sync_seconds(lambda: banded_dia_device(BAND_N, BAND_W, seed=SEED, device=dev))
+    t0 = time.perf_counter()
+    band_host = ct.dia_plan(banded(BAND_N, BAND_W, seed=SEED, dtype=np.float32), device=dev)
+    torch.cuda.synchronize()
+    band_host_s = time.perf_counter() - t0
+
+    same = (sten.offsets == sten_plan.offsets and sten.shape == sten_plan.shape
+            and torch.equal(sten.vals, sten_plan.vals) and sten_plan.rem_data.numel() == 0)
+    if not same:
+        raise AssertionError("[device-gen] stencil2d_dia_device is not bit-equal to its host plan")
+    for what, m, host, meta in (
+            ("fem_bdia_device", fem, fem_plan, lambda p: (p.block_offsets, p.ts, p.blocksize)),
+            ("banded_dia_device", band, band_host, lambda p: p.offsets)):
+        got, want = (meta(m), m.shape, tuple(m.vals.shape)), (meta(host), host.shape,
+                                                              tuple(host.vals.shape))
+        if got != want or host.rem_data.numel():
+            raise AssertionError(f"[device-gen] {what}: {got} against the host plan's {want}, "
+                                 f"remainder {host.rem_data.numel()}")
+        differ = int(((m.vals != 0) != (host.vals != 0)).sum())
+        if differ:
+            raise AssertionError(f"[device-gen] {what}: {differ} entries' nonzero pattern "
+                                 f"differs from the host plan's")
+    for what, m, host_s, t_dev, kernel in (
+            (f"fem_bdia_device({NX}, dof={DOF})", fem, fem_host_s, t_fem, "bdia_spmv"),
+            (f"stencil2d_dia_device({GRID_SPMV})", sten, sten_host_s, t_sten, "dia_spmv"),
+            (f"banded_dia_device({BAND_N}, {BAND_W})", band, band_host_s, t_band, "dia_spmv")):
+        x = torch.randn(m.shape[1], generator=gen, device=dev)
+        _reset()
+        y = ct.spmv(m, x)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in _counters().items()}
+        n_l = _only(counts, kernel, 1, f"[device-gen] spmv({what})")
+        err = _relerr(y, m._spmv_reference(x))
+        _check(f"[device-gen] spmv({what}) kernel vs twin", err, F32_TOL)
+        print(f"[device-gen] {what}: {m.shape[0]} rows, vals {tuple(m.vals.shape)} "
+              f"({m.vals.numel() * 4 / 1e6:.1f} MB f32); built on the card in {t_dev:.3f} s "
+              f"(CUDA-synced), the host plan {host_s:.1f} s (host generation and plan); "
+              f"structure equal to the host plan's"
+              f"{' (bit for bit)' if m is sten else ' (offsets, ts, shapes, nonzeros)'}; "
+              f"spmv: {kernel} launches {n_l}, vs twin {err:.2e} (tol {F32_TOL:.0e})",
+              flush=True)
+    del fem, sten, band, band_host
+
+    synth, t_synth = _sync_seconds(lambda: poh_synth_device(n_panels=SYNTH_PANELS, seed=SEED,
+                                                      device=dev))
+    t0 = time.perf_counter()
+    check_poh(synth)
+    t_check = time.perf_counter() - t0
+    xs = torch.randn(synth.shape[1], generator=gen, device=dev)
+    _reset()
+    y = ct.spmv(synth, xs)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    n_l = _only(counts, "poh_spmv", 1, "[device-gen] spmv(poh_synth_device)")
+    y_twin = poh_spmv_reference(synth, xs)
+    err = _relerr(y, y_twin)
+    _check("[device-gen] spmv(poh_synth_device) kernel vs twin", err, F32_TOL)
+    max_abs = float((y - y_twin).abs().max())
+    lib = _poh_csr(synth)
+    live = int(torch.count_nonzero(synth.vals))
+    pack = _pack_bytes(synth.vals, 8) + synth.ntiles * 4
+    m, n = synth.shape
+    print(f"[device-gen] poh_synth_device(n_panels={SYNTH_PANELS}): {m} rows, {synth.ntiles} "
+          f"tiles of {synth.slot_rows * 128} slots, {pack / 1e6:.1f} MB of pack (above the "
+          f"50 MB L2); built on the card in {t_synth:.3f} s (CUDA-synced); check_poh passed "
+          f"({t_check:.1f} s, host); spmv: poh_spmv launches {n_l}, vs twin {err:.2e} (max abs "
+          f"{max_abs:.2e}, tol {F32_TOL:.0e}); its CSR (duplicates summed) {lib._nnz()} "
+          f"entries of {live} live slots", flush=True)
+    return [(f"poh_spmv f32 [spmv(poh_synth_device(n_panels={SYNTH_PANELS}), x)]", "poh_spmv",
+             f"{POH_PY}:388 (B16; the pack of {POH_PY}:262)",
+             lambda: poh_spmv(synth, xs), lambda: poh_spmv_reference(synth, xs), lib, xs,
+             live * 8 + (m + n) * 4, 2 * live, n_l, max_abs, torch.float32)]
+
+
+def bench_solve_phase(dev, card) -> None:
+    """[bench-solve]: ``bench_solve(side=2048)``'s records (``cg`` and
+    ``pipelined_cg`` on the 4,194,304-row stencil built on the card, the
+    k-ladder), beside ``[krylov]``'s ms an iteration on I + that stencil;
+    then one counted solve of each at k = 200, whose ``dia_spmv`` launches
+    must be its products (``cg`` k + 1, ``pipelined_cg`` k + 3)."""
+    import io
+
+    import torch
+
+    from cask_tpu_torch.bench.harness import SOLVE_LADDER, bench_solve
+    from cask_tpu_torch.formats.device_gen import stencil2d_dia_device
+    from cask_tpu_torch.ops.dia import DiaOperator
+    from cask_tpu_torch.solvers import cg, pipelined_cg
+
+    buf = io.StringIO()
+    recs, t_bench = _sync_seconds(lambda: bench_solve(side=GRID_SPMV, out=buf, device=dev))
+    on_card = dev.type == "cuda"
+    kind = torch.cuda.get_device_name(dev) if on_card else "cpu"
+    for line, rec in zip(buf.getvalue().splitlines(), recs):
+        if rec["device"] != kind or rec["operator_mode"] != ("kernel" if on_card else "reference"):
+            raise AssertionError(f"[bench-solve] record not from the card's kernel: {rec}")
+        print(f"[bench-solve] {line}", flush=True)
+    op = DiaOperator(stencil2d_dia_device(GRID_SPMV, device=dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+    bp = op.to_padded(torch.randn(op.dia.shape[0], generator=gen, device=dev))
+    k = BENCH_SOLVE_K
+    for rec, solver, want in (("cg", cg, k + 1), ("pipelined_cg", pipelined_cg, k + 3)):
+        _reset()
+        res = solver(op, bp, tol=0.0, maxiter=k)
+        torch.cuda.synchronize()
+        counts = {c: fn.launches for c, fn in _counters().items()}
+        n_l = _only(counts, "dia_spmv", want, f"[bench-solve] {rec} at k={k}")
+        if res.iterations != k:
+            raise AssertionError(f"[bench-solve] {rec} stopped after {res.iterations} of {k}")
+        us = next(r["us_per_iteration"] for r in recs if r["solver"] == rec)
+        print(f"[bench-solve] {rec}: {us / 1e3:.3f} ms an iteration (the ladder "
+              f"{SOLVE_LADDER}, host clock between syncs) beside [krylov]'s "
+              f"{KRYLOV_MS[rec]} ms on I + the same stencil (PERF.md §5.14; a cross-check, not "
+              f"a gate); a counted solve at k={k}: {n_l} dia_spmv launches = its products; "
+              f"card {card}", flush=True)
+    print(f"[bench-solve] bench_solve({GRID_SPMV}) {t_bench:.1f} s (host)", flush=True)
+
+
+def _busy_us(events, lo: float, hi: float) -> float:
+    """Microseconds of [lo, hi] covered by the union of the events' spans."""
+    spans = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi)) for e in events)
+    busy, end = 0.0, lo
+    for a, b in spans:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy
+
+
+def profile_phase(dev, card, op, b) -> None:
+    """[profile]: ``trace()`` around one warm ``cg`` of 20 iterations over
+    ``[cg]``'s FEM BDIA operator (an ``annotate("cg")`` range); from the
+    exported Chrome trace: its size, its ``bdia_spmv`` kernel events (equal
+    to the launch counter), and the share of the range in which the card
+    runs no kernel, copy or set."""
+    import glob
+    import json
+    import os
+
+    import torch
+
+    from cask_tpu_torch.solvers import cg
+    from cask_tpu_torch.utils.profiling import annotate, trace
+
+    cg(op, b, tol=0.0, maxiter=PROFILE_ITERS)  # warm
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d):
+            op(b)  # the profiler's first kernel, outside the range
+            torch.cuda.synchronize()
+            _reset()
+            with annotate("cg"):
+                res = cg(op, b, tol=0.0, maxiter=PROFILE_ITERS)
+                torch.cuda.synchronize()
+            launches = _launched("bdia_spmv", "[profile] cg")
+        files = glob.glob(os.path.join(d, "*.json"))
+        if len(files) != 1:
+            raise AssertionError(f"[profile] trace() wrote {files}")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    if launches != res.iterations + 1:
+        raise AssertionError(f"[profile] cg made {res.iterations} iterations and {launches} "
+                             f"bdia_spmv launches (want iterations + 1)")
+    ranges = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == "cg"]
+    if len(ranges) != 1:
+        raise AssertionError(f"[profile] {len(ranges)} 'cg' ranges in the trace")
+    lo, hi = ranges[0]["ts"], ranges[0]["ts"] + ranges[0]["dur"]
+    # a kernel is the range's when its launch is (the device's clock in the
+    # trace is aligned to the host's only to some µs)
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") == "cuda_runtime" and lo <= e["ts"] <= hi
+                and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in launched]
+    ours = [e for e in kernels if "bdia_spmv" in e["name"]]
+    if len(ours) != launches:
+        raise AssertionError(f"[profile] the range launched {len(ours)} bdia_spmv kernels by "
+                             f"the trace, {launches} by the launch counter")
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = _busy_us(device, lo, hi)
+    ours_us = sum(e["dur"] for e in ours)
+    print(f"[profile] trace() of cg over BdiaOperator ({op.bdia.shape[0]} rows), "
+          f"{res.iterations} iterations (tol 0, maxiter {PROFILE_ITERS}): Chrome trace {size} "
+          f"bytes, {len(events)} events; "
+          f"{len(ours)} bdia_spmv kernel events = the launch counter {launches}; "
+          f"{len(kernels)} kernels in all; the 'cg' range {hi - lo:.0f} us, the card busy "
+          f"{busy:.0f} us of it (bdia_spmv {ours_us:.0f} us): idle share "
+          f"{1 - busy / (hi - lo):.3f} (host clock of the profiler; its own cost per launch "
+          f"included); card {card}", flush=True)
+
 
 
 def main() -> int:
@@ -3271,6 +3637,7 @@ def main() -> int:
           f"offsets {plan.block_offsets}, ts {plan.ts}; host gen {t_gen:.1f} s, first call "
           f"(plan + launch) {t_first:.1f} s; launches {launches_spmv}; vs twin {err_twin:.2e} "
           f"(max abs {abs_spmv:.2e}), vs scipy f64 {err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
+    fem_host_s = t_gen + t_first  # beside [device-gen]'s generation on the card
 
     t_lap = _lap("spmv", t_lap)
     # -- 9. CG over BdiaOperator on the SPD block system ------------------------
@@ -3380,6 +3747,7 @@ def main() -> int:
           f"{t_gen:.1f} s, first call (plan + launch) {t_first:.1f} s; launches "
           f"{launches_dspmv}; vs twin {err_twin:.2e} (max abs {abs_dspmv:.2e}), vs scipy f64 "
           f"{err_sp:.2e} (tol {F32_TOL:.0e})", flush=True)
+    sten_host_s = t_gen + t_first
 
     t_lap = _lap("dia-spmv", t_lap)
     # -- 12. main path: cg(solver_operator(S), b), S = I + stencil --------------
@@ -4037,8 +4405,16 @@ def main() -> int:
     spd_bsr = csr_to_bsr(from_scipy(sb_sp), (DOF, DOF))  # the FEM SPD system, partitioned
     ilu_one_block = dist_phase(dev, card, pl_host, pplan, op, b, sb_sp, spd_bsr, cg32[0])
     t_lap = _lap("dist", t_lap)
-    dist_ranks_phase(dev, card, pl_host, pplan, op, b, sb_sp, spd_bsr, cg32[0], ilu_one_block)
+    b6_rows = dist_ranks_phase(dev, card, pl_host, pplan, op, b, sb_sp, spd_bsr, cg32[0],
+                               ilu_one_block)
     t_lap = _lap("dist-ranks", t_lap)
+    # -- 19r-19t. the device generators, bench_solve and a profile ----------------
+    synth_rows = device_gen_phase(dev, card, plan, fem_host_s, dplan, sten_host_s)
+    t_lap = _lap("device-gen", t_lap)
+    bench_solve_phase(dev, card)
+    t_lap = _lap("bench-solve", t_lap)
+    profile_phase(dev, card, op, b)
+    t_lap = _lap("profile", t_lap)
     # -- 19g-19j. the tuner, its calibration and the bench harness --------------
     with tempfile.TemporaryDirectory() as tmp:  # the tuner caches of this run
         tune_row = tune_phase(dev, card, rng, a, x, a_host, a_sp, st_host, st_sp, mm_host,
@@ -4258,9 +4634,12 @@ def main() -> int:
                  + m * K_WIDE * 2, 2 * bq.vals.numel() * K_WIDE,
                  *runs[f"spmm(bsr_{ht}, X {xt}, method='pallas_bsr'), k={K_WIDE}"], h)]
     rows += tri_rows + ilu["rows"] + gem_rows + sol_rows + [tune_row]  # the slices' entries (f32)
+    rows += b6_rows + synth_rows
     lib_mats = {}  # (id of the scipy matrix, dtype) -> its torch sparse CSR on the card
 
     def lib_csr(s, dtype):
+        if isinstance(s, torch.Tensor):  # a CSR built on the card already
+            return s.to(dtype)
         key = (id(s), dtype)
         if key not in lib_mats:
             lib_mats[key] = _sparse_csr(s, dev, dtype)

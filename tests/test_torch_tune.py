@@ -747,7 +747,7 @@ class TestBenchHarness:
         assert cli.main(["--cpu", "tune", "--mtx", str(mtx)]) == 0
         assert "s/op" in capsys.readouterr().err
         assert (tmp_path / "t.json").exists()
-        # scaling and overlap run on spawned gloo ranks; solve is not yet ported
+        # scaling and overlap run on spawned gloo ranks
         dist_out = tmp_path / "dist.jsonl"
         assert cli.main(["--cpu", "--out", str(dist_out), "scaling", "--side", "24",
                          "--shards", "1,2"]) == 0
@@ -760,8 +760,15 @@ class TestBenchHarness:
             ("dist_spmv_overlap_ab", 2)]
         assert recs[0]["efficiency"] == 1.0 and recs[0]["interior"] == "plain"
         assert all(r["seconds_per_op"] > 0 for r in recs[:4])
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-            cli.main(["solve"])
+        # solve: the k-ladder needs 600 CG iterations with a nonzero f32
+        # residual, which 96² rows give (at 16² CG reaches 0 after 127)
+        solve_out = tmp_path / "solve.jsonl"
+        assert cli.main(["--cpu", "--out", str(solve_out), "solve", "--side", "96"]) == 0
+        recs = [json.loads(line) for line in solve_out.read_text().splitlines()]
+        assert [(r["op"], r["solver"], r["rows"], r["device"]) for r in recs] == [
+            ("pcg_per_iteration", "cg", 9216, "cpu"),
+            ("pcg_per_iteration", "pipelined_cg", 9216, "cpu")]
+        assert all(r["us_per_iteration"] > 0 for r in recs)
 
 
 def test_import_keeps_jax_out():
