@@ -28,7 +28,9 @@ device, or to the CUDA device when the matrix's arrays are host numpy too
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import time
 import weakref
 from typing import Optional, Union
 
@@ -46,6 +48,7 @@ from cask_tpu_torch.ops.kernels.bdia_kernels import bdia_kernel_ok, kernel_types
 from cask_tpu_torch.ops.kernels.dia_kernels import dia_kernel_ok
 from cask_tpu_torch.ops.poh import PohMatrix, poh_transpose_plan
 from cask_tpu_torch.utils.platform import default_device, plan_device
+from cask_tpu_torch.utils.profiling import annotate
 
 # the auto route's remainder gate: a plan whose scalar remainder holds more
 # than this share of the stored entries takes the gather formulation
@@ -179,10 +182,21 @@ class PlanCache:
     counters of the matrix's tensors: a tensor changed in place since
     (``a.data.mul_(2)``) makes the next ``get`` build the plan anew.  Host
     numpy arrays carry no such counter and are taken as frozen.
+
+    Counters: ``builds`` (plans built, by kind; a stale plan built anew
+    counts), ``build_s`` (host seconds in those builds, by kind) and
+    ``hits`` (calls answered from the cache).  Under a profiler a build is
+    the span ``plan.build.<kind>``, and a scalar-DIA build holds the spans
+    of its steps, ``plan.bdia_to_coo``, ``plan.coo_to_csr`` and
+    ``plan.dia_plan``: a :func:`cask_tpu_torch.utils.profiling.trace`
+    around a first ``spmm`` on a BDIA plan times each step.
     """
 
     def __init__(self):
         self._plans = weakref.WeakKeyDictionary()
+        self.builds = collections.Counter()
+        self.build_s = collections.defaultdict(float)
+        self.hits = 0
 
     @staticmethod
     def _stamp(a):
@@ -199,7 +213,13 @@ class PlanCache:
     @staticmethod
     def _build(a, kind: str, device) -> Union[BdiaMatrix, DiaMatrix, BdiaSlabs, None]:
         if kind == "scalar_dia":  # planned from the exact f32 of bf16 values, then cast back
-            return dia_plan(coo_to_csr(bdia_to_coo(a)), device=a.device).astype(a.dtype)
+            with annotate("plan.bdia_to_coo"):
+                coo = bdia_to_coo(a)
+            with annotate("plan.coo_to_csr"):
+                csr = coo_to_csr(coo)
+            del coo  # its host arrays go before the DIA plan is made
+            with annotate("plan.dia_plan"):
+                return dia_plan(csr, device=a.device).astype(a.dtype)
         if kind == "slab":
             return slab_auto_plan(a)
         if kind == "bdia":
@@ -222,7 +242,14 @@ class PlanCache:
         entries = self._plans.setdefault(a, {})
         hit = entries.get(kind)
         if hit is None or hit[0] != stamp:
-            entries[kind] = hit = (stamp, self._build(a, kind, device))
+            t0 = time.perf_counter()
+            with annotate(f"plan.build.{kind}"):
+                plan = self._build(a, kind, device)
+            self.build_s[kind] += time.perf_counter() - t0
+            self.builds[kind] += 1
+            entries[kind] = hit = (stamp, plan)
+        else:
+            self.hits += 1
         return hit[1]
 
 

@@ -30,6 +30,7 @@ from cask_tpu_torch.formats.matrix import BSR, COO, CSR
 from cask_tpu_torch.ops.spmm import spmm
 from cask_tpu_torch.ops.spmv import as_operand, spmv, transposed
 from cask_tpu_torch.utils.platform import require_full_fp32
+from cask_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -81,34 +82,48 @@ class _Dots:
         return torch.sqrt(self.total(sq.sum() if dim is None else sq.sum(dim)))
 
 
+@annotate("cg.solve")
 def cg(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0, maxiter: int = 1000,
        M: Optional[Callable] = None) -> SolveResult:
     """Conjugate gradients for SPD (or Hermitian positive definite) ``a``,
     optionally preconditioned.  A host (numpy) ``b`` is placed as in
-    :func:`block_cg`."""
-    op, b = _operator_and_rhs(a, b, spmv)
-    dots = _Dots(op)
-    M = M or _ident
-    x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
+    :func:`block_cg`.
 
-    # the threshold is real (a norm), also for a complex system
-    target = torch.clamp(tol * dots.norm(b), min=atol)
+    Under a profiler (:func:`cask_tpu_torch.utils.profiling.trace`) a solve
+    records the span ``cg.solve`` and inside it ``cg.start`` (the initial
+    residual, ``M``, the first dot, the target), then per iteration
+    ``cg.stop_test`` (the loop's test, its one host sync; once more where
+    the tolerance ends the solve), ``cg.product`` (``A @ p``) and
+    ``cg.update`` (the rest of the iteration, ``M`` included)."""
+    with annotate("cg.start"):
+        op, b = _operator_and_rhs(a, b, spmv)
+        dots = _Dots(op)
+        M = M or _ident
+        x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
 
-    r = b - op(x)
-    z = M(r)
-    p = z
-    rz = dots.dot(r, z)  # conjugates r: the Hermitian inner product
-    k = 0
-    while k < maxiter and bool(dots.norm(r) > target):
-        ap = op(p)
-        alpha = rz / dots.dot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
+        # the threshold is real (a norm), also for a complex system
+        target = torch.clamp(tol * dots.norm(b), min=atol)
+
+        r = b - op(x)
         z = M(r)
-        rz_new = dots.dot(r, z)
-        beta = rz_new / rz
-        p = z + beta * p
-        rz = rz_new
+        p = z
+        rz = dots.dot(r, z)  # conjugates r: the Hermitian inner product
+    k = 0
+    while k < maxiter:
+        with annotate("cg.stop_test"):
+            if not bool(dots.norm(r) > target):
+                break
+        with annotate("cg.product"):
+            ap = op(p)
+        with annotate("cg.update"):
+            alpha = rz / dots.dot(p, ap)
+            x = x + alpha * p
+            r = r - alpha * ap
+            z = M(r)
+            rz_new = dots.dot(r, z)
+            beta = rz_new / rz
+            p = z + beta * p
+            rz = rz_new
         k += 1
     rn = dots.norm(r)
     return SolveResult(x=x, iterations=k, residual_norm=float(rn),

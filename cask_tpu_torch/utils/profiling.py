@@ -3,19 +3,22 @@
 The PyTorch counterpart of :mod:`cask_tpu.utils.profiling`.  :func:`trace`
 records the host and, where a CUDA device is present, the card's kernels
 and copies, and writes a Chrome trace (``chrome://tracing``, Perfetto) when
-the block ends; :func:`annotate` names a range on its timeline.  Wall times
-for a kernel come from :mod:`cask_tpu_torch.tune.timing` instead: the
-profiler adds its own cost to each launch.
+the block ends; :func:`annotate` names a range on its timeline, and is the
+port's one span: the solvers and the plan cache mark their phases with it.
+Wall times for a kernel come from :mod:`cask_tpu_torch.tune.timing`
+instead: the profiler adds its own cost to each launch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import tempfile
 from typing import Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -51,7 +54,43 @@ def trace(logdir: Optional[str] = None):
         prof.export_chrome_trace(path)
 
 
-def annotate(name: str):
-    """A named range on the profile's timeline (``record_function``); use
-    as a context manager or a decorator."""
-    return torch.profiler.record_function(name)
+class annotate:
+    """A named range on the profile's timeline; use as a context manager or a
+    decorator::
+
+        with annotate("cg.product"):
+            ap = op(p)
+
+    With no profiler running, entering and leaving reads one flag (torch's
+    own record that a profiler is active) and calls nothing else, so a span
+    on a hot path costs the untraced run almost nothing.  Under a profiler
+    (:func:`trace`, or any ``torch.profiler.profile``) it opens a
+    ``record_function`` range, which the Chrome trace holds beside the
+    card's kernels, copies and memsets on one clock.  The flag is read on
+    entry, so a decorated function opens a range on each call made under a
+    profiler.  An instance is entered once at a time; a decorator makes one
+    per call."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = _autograd_profiler.record_function(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        opened, self._range = self._range, None
+        if opened is not None:
+            opened.__exit__(*exc)
+        return False
+
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with annotate(self.name):
+                return fn(*args, **kwargs)
+
+        return spanned
