@@ -9,7 +9,9 @@ scalar COO remainder (HYB discipline).
 
 Planning (:func:`bdia_plan`) is host numpy and packs ``vals`` exactly as
 the JAX package does, ``(br, T, npairs, ts, 128)``; the plan's tensors then
-live on the device the caller names.  The product runs in the CUDA kernel
+live on the device the caller names.  The scalar-DIA plan that ``spmm``
+multiplies with is derived from the pack on that device
+(:func:`scalar_dia_from_pack`).  The product runs in the CUDA kernel
 of :mod:`cask_tpu_torch.ops.kernels.bdia_kernels` on a CUDA device, or in
 its plain twin on the CPU.  The TPU-only layouts (``to_resident``,
 ``to_bdia`` and the MXU permutation helpers) have no counterpart: the
@@ -25,12 +27,14 @@ import numpy as np
 import torch
 
 from cask_tpu_torch.formats.matrix import BSR, COO, CSR, host, to_device, torch_dtype, value_dtype
-from cask_tpu_torch.ops.dia import DiaMatrix, remainder_spmm
+from cask_tpu_torch.ops.dia import _ROW_TILE, DiaMatrix, kept_offsets, remainder_spmm
 from cask_tpu_torch.ops.kernels.bdia_kernels import (bdia_kernel_ok, bdia_spmv,
                                                      bdia_spmv_reference)
 from cask_tpu_torch.utils.platform import plan_device
+from cask_tpu_torch.utils.profiling import annotate
 
 _LANE = 128
+_COUNT_SLOTS = 1 << 24  # pack slots a chunk of the scalar-DIA count reads at once
 _TS_CHOICES = (64, 32, 16, 8)  # value-tile sublanes (largest with low pad waste)
 
 
@@ -290,12 +294,159 @@ def bdia_to_coo(a: BdiaMatrix) -> COO:
                col=cols.astype(np.int32), shape=(m, n))
 
 
+def _ordered_sums(keys: torch.Tensor, vals: torch.Tensor):
+    """``(unique keys ascending, their sums)``: each key's values added to
+    a zero in their order in ``keys`` (a stable sort), one rounding an
+    add, as ``coo_to_csr`` sums duplicates with ``np.add.at``.  One pass
+    per duplicate rank, so no two adds of a pass meet one sum."""
+    if not keys.numel():
+        return keys, vals
+    keys, order = torch.sort(keys, stable=True)
+    vals = vals[order]
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[1:] = keys[1:] != keys[:-1]
+    seg = first.cumsum(0) - 1
+    rank = torch.arange(keys.numel(), device=keys.device) - first.nonzero()[:, 0][seg]
+    sums = vals.new_zeros(int(seg[-1]) + 1)
+    for q in range(int(rank.max()) + 1):
+        at = rank == q
+        sums[seg[at]] += vals[at]
+    return keys[first], sums
+
+
+def scalar_dia_from_pack(a: BdiaMatrix) -> DiaMatrix:
+    """``dia_plan(coo_to_csr(bdia_to_coo(a)), device=a.device).astype(a.dtype)``,
+    bit for bit, derived from the pack with tensor ops on the plan's own
+    device: no host pass over the slots, and with square blocks no sort.
+
+    Slot ``(r, j = dpos·bc + c)`` of block row ``i`` is scalar entry
+    ``(i·br + r, (i + D[dpos])·bc + c)``, on scalar diagonal
+    ``D[dpos]·bc + c − r + i·(bc − br)``.  Its in-bounds block rows are one
+    range ``[lo, hi)``.  With square blocks the diagonal is the same for
+    every ``i``, so each slot pair ``(r, j)`` is a lane: one strided copy
+    into its diagonal's row of the DIA values.  Other blocks scatter a pair
+    over many diagonals, and their nonzero slots are taken as entries, as
+    the remainder's are.  Three steps, each a span:
+
+    - ``plan.scalar_dia.count``: the nonzero slots of each lane's range
+      (NaN counts, −0.0 does not, as ``np.nonzero``), and each position of
+      the entries not already counted, by scalar diagonal; the keep rule
+      (:func:`cask_tpu_torch.ops.dia.kept_offsets`) runs on the host over
+      those per-diagonal counts alone;
+    - ``plan.scalar_dia.fill``: the kept lanes' copies, −0.0 made +0.0 on
+      the way (the host route drops −0.0 and leaves the pad's +0.0);
+    - ``plan.scalar_dia.remainder``: the nonzero slots of spilled lanes and
+      the entries (the remainder's all, zeros too, as ``bdia_to_coo`` keeps
+      them), summed by position in CSR order, the pack's value first; sums
+      on a kept diagonal overwrite its DIA value, the rest is the plan's
+      remainder.  bf16 values are summed as their exact f32 and rounded
+      once, as the host route plans them.
+    """
+    br, bc = a.blocksize
+    m, n = a.shape
+    dev, dt = a.device, a.dtype
+    acc = torch.float32 if dt == torch.bfloat16 else dt
+    lanes = br == bc
+    vflat = a.vals.movedim(2, 1)  # (br, npairs, T, ts, 128): [r, j] walks block rows in order
+    r = np.arange(br)[:, None]
+    j = np.arange(a.npairs)[None, :]
+    c = j % bc
+    d = np.asarray(a.block_offsets, dtype=np.int64)[j // bc]
+    offs = d * bc + c - r  # (br, npairs): each lane's diagonal
+    # in bounds: i < nbr, i·br + r < m and 0 <= (i + D)·bc + c < n
+    lo = np.broadcast_to(np.maximum(-d, 0), (br, a.npairs))
+    hi = np.maximum(np.minimum(np.minimum(a.nbr, -(-(m - r) // br)), -(-(n - c) // bc) - d), lo)
+    keys = [torch.zeros(0, dtype=torch.long, device=dev)]  # entries: positions and values,
+    sums = [torch.zeros(0, dtype=acc, device=dev)]  # the pack's ahead of the remainder's
+
+    with annotate("plan.scalar_dia.count"):
+        pair_nnz = torch.zeros((br, a.npairs), dtype=torch.long, device=dev)
+        lo_t, hi_t = (torch.tensor(t, device=dev)[:, :, None, None, None] for t in (lo, hi))
+        tile = a.ts * _LANE
+        step = max(1, _COUNT_SLOTS // (br * a.npairs * tile))  # tiles a chunk
+        for t0 in range(0, a.n_tiles, step):  # in chunks: a sum widens its mask to int64
+            v = vflat[:, :, t0:t0 + step]
+            i = torch.arange(t0 * tile, t0 * tile + v[0, 0].numel(), device=dev)
+            i = i.view(-1, a.ts, _LANE)
+            nz = v != 0
+            nz &= i >= lo_t
+            nz &= i < hi_t
+            if lanes:
+                pair_nnz += nz.sum((2, 3, 4))
+                continue
+            pr, pj, pt, ps, pl = nz.nonzero().unbind(1)
+            ib = ((pt + t0) * a.ts + ps) * _LANE + pl
+            keys.append((ib * br + pr) * n
+                        + (ib + torch.tensor(d[0], device=dev)[pj]) * bc + pj % bc)
+            sums.append(v[nz].to(acc))
+        pair_nnz = pair_nnz.cpu().numpy()
+        uncounted = list(keys)  # positions the lanes' counts missed
+        if a.rem_data.shape[0]:
+            rrow, rcol = a.rem_row.long(), a.rem_col.long()
+            rkey = rrow * n + rcol
+            # the lane slot at each remainder position, where its block offset is packed
+            bo, perm = torch.sort(torch.tensor(a.block_offsets, device=dev))
+            dblk = rcol // bc - rrow // br
+            at = torch.searchsorted(bo, dblk).clamp_(max=bo.numel() - 1)
+            on_lane = (bo[at] == dblk) & lanes
+            ib = rrow // br
+            slot = a.vals[rrow % br, ib // tile, perm[at] * bc + rcol % bc,
+                          ib // _LANE % a.ts, ib % _LANE]
+            slot = torch.where(on_lane, slot, torch.zeros_like(slot))
+            uncounted.append(rkey[~(on_lane & (slot != 0))])
+        new = torch.unique(torch.cat(uncounted))
+        extra = [t.cpu().numpy() for t in torch.unique(new % n - new // n, return_counts=True)]
+        uniq, inv = np.unique(np.concatenate([offs.ravel(), extra[0]]), return_inverse=True)
+        counts = np.zeros(uniq.shape, np.int64)
+        np.add.at(counts, inv, np.concatenate([pair_nnz.ravel(), extra[1]]))
+        kept = kept_offsets(uniq[counts > 0], counts[counts > 0], (m, n))
+
+    row_of = {int(o): k for k, o in enumerate(kept)}
+    spilled = []
+    with annotate("plan.scalar_dia.fill"):
+        vals = torch.zeros((max(len(kept), 1), -(-max(m, 1) // _ROW_TILE) * _ROW_TILE),
+                           dtype=dt, device=dev)
+        for pr, pj in zip(*np.nonzero(pair_nnz)):
+            k, p0, p1 = row_of.get(int(offs[pr, pj])), int(lo[pr, pj]), int(hi[pr, pj])
+            if k is None:
+                spilled.append((pr, pj, p0, p1))
+                continue
+            lane = torch.add(vflat[pr, pj], 0.0).view(-1)[p0:p1]  # a copy; −0.0 + 0.0 = +0.0
+            vals[k, p0 * br + pr:(p1 - 1) * br + pr + 1:br] = lane
+
+    with annotate("plan.scalar_dia.remainder"):
+        kept_dev = torch.as_tensor(kept, device=dev)
+        for pr, pj, p0, p1 in spilled:  # the spilled lanes' nonzero slots
+            lane = vflat[pr, pj].reshape(-1)[p0:p1]
+            hit = lane.nonzero()[:, 0]
+            ib = hit + p0
+            keys.append((ib * br + pr) * n + (ib + int(d[0, pj])) * bc + int(c[0, pj]))
+            sums.append(lane[hit].to(acc))
+        if a.rem_data.shape[0]:
+            # a remainder position on a kept lane's slot: the slot's value, once
+            on_kept = on_lane & torch.isin(rcol - rrow, kept_dev)
+            pos, inv = torch.unique(rkey[on_kept], return_inverse=True)
+            keys += [pos, rkey]
+            sums += [slot.new_zeros(pos.shape).scatter_(0, inv, slot[on_kept]).to(acc),
+                     a.rem_data.to(acc)]
+        key, total = _ordered_sums(torch.cat(keys), torch.cat(sums))
+        row, col = key // n, key % n
+        to_dia = torch.isin(col - row, kept_dev)
+        vals[torch.searchsorted(kept_dev, (col - row)[to_dia]), row[to_dia]] = total[to_dia].to(dt)
+        rest = ~to_dia
+
+    return DiaMatrix(
+        vals=vals, rem_data=total[rest].to(dt), rem_row=row[rest].int(), rem_col=col[rest].int(),
+        vals_t=None, offsets=tuple(int(o) for o in kept) or (0,), shape=(m, n))
+
+
 def bdia_scalar_dia(a: BdiaMatrix) -> DiaMatrix:
     """The scalar-DIA plan of the plan's expanded block structure,
     ``dia_plan(coo_to_csr(bdia_to_coo(a)))`` on the plan's device: what
-    ``spmm`` on a BDIA plan multiplies with.  Built once per plan and held
-    in the one plan cache (:data:`cask_tpu_torch.ops.spmv.default_plan_cache`),
-    so a solver loop pays the host conversion once."""
+    ``spmm`` on a BDIA plan multiplies with.  Derived on that device by
+    :func:`scalar_dia_from_pack`, once per plan, and held in the one plan
+    cache (:data:`cask_tpu_torch.ops.spmv.default_plan_cache`), so a solver
+    loop pays it once."""
     from cask_tpu_torch.ops.spmv import default_plan_cache  # spmv imports this module
 
     return default_plan_cache.get(a)

@@ -198,9 +198,29 @@ def _diagonal_counts(a: CSR):
     rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(indptr))
     offs = indices - rows
     uniq, counts = np.unique(offs, return_counts=True)
+    return rows, offs, uniq, counts, _density(uniq, counts, (m, n))
+
+
+def _density(uniq: np.ndarray, counts: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
+    """The share of each diagonal ``uniq`` that its ``counts`` entries fill."""
+    m, n = shape
     diag_len = np.minimum(np.minimum(m, n - uniq), np.minimum(n, m + uniq))
-    density = counts / np.maximum(diag_len, 1)
-    return rows, offs, uniq, counts, density
+    return counts / np.maximum(diag_len, 1)
+
+
+def kept_offsets(uniq: np.ndarray, counts: np.ndarray, shape: Tuple[int, int], *,
+                 min_density: float = 0.10, max_diags: int = 1024) -> np.ndarray:
+    """The diagonals :func:`dia_plan` packs, ascending: of the offsets
+    ``uniq`` (ascending, ``np.unique``'s), each holding ``counts`` (int64)
+    stored entries, those at least ``min_density`` full; where more than
+    ``max_diags`` are, the ``max_diags`` fullest by count instead.  The one
+    keep rule of every scalar-DIA plan, whatever derived the counts."""
+    keep = _density(uniq, counts, shape) >= min_density
+    if keep.sum() > max_diags:
+        top = np.argsort(-counts)[:max_diags]
+        keep = np.zeros_like(keep)
+        keep[top] = True
+    return uniq[keep]
 
 
 def dia_plan(a: CSR, *, min_density: float = 0.10, max_diags: int = 1024,
@@ -216,22 +236,17 @@ def dia_plan(a: CSR, *, min_density: float = 0.10, max_diags: int = 1024,
     m, n = a.shape
     indices = host(a.indices).astype(np.int64)
     data = host(a.data)
-    rows, offs, uniq, counts, density = _diagonal_counts(a)
-    keep = density >= min_density
-    if keep.sum() > max_diags:
-        top = np.argsort(-counts)[:max_diags]
-        keep = np.zeros_like(keep)
-        keep[top] = True
-    kept_offsets = uniq[keep]
+    rows, offs, uniq, counts, _ = _diagonal_counts(a)
+    kept = kept_offsets(uniq, counts, (m, n), min_density=min_density, max_diags=max_diags)
 
-    in_dia = np.isin(offs, kept_offsets)
+    in_dia = np.isin(offs, kept)
 
     m_pad = _round_up(max(m, 1), _ROW_TILE)
-    vals = np.zeros((max(len(kept_offsets), 1), m_pad), dtype=data.dtype)
-    if len(kept_offsets):
-        d_ids = np.searchsorted(kept_offsets, offs[in_dia])
+    vals = np.zeros((max(len(kept), 1), m_pad), dtype=data.dtype)
+    if len(kept):
+        d_ids = np.searchsorted(kept, offs[in_dia])
         vals[d_ids, rows[in_dia]] = data[in_dia]
-        offsets = tuple(int(o) for o in kept_offsets)
+        offsets = tuple(int(o) for o in kept)
     else:
         offsets = (0,)
 

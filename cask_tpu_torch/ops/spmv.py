@@ -37,9 +37,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from cask_tpu_torch.formats.convert import coo_to_csr
 from cask_tpu_torch.formats.matrix import BSR, COO, CSR, to_device, torch_dtype
-from cask_tpu_torch.ops.bdia import BdiaMatrix, bdia_plan, bdia_to_coo
+from cask_tpu_torch.ops.bdia import BdiaMatrix, bdia_plan, scalar_dia_from_pack
 from cask_tpu_torch.ops.bdia import transpose_plan as _bdia_transpose
 from cask_tpu_torch.ops.bdia_slab import BdiaSlabs, slab_auto_plan
 from cask_tpu_torch.ops.dia import DiaMatrix, dia_plan, estimate_dia_traffic, spmv_dia
@@ -169,14 +168,16 @@ class PlanCache:
       plan (``"slab"``, :func:`cask_tpu_torch.ops.bdia_slab.slab_auto_plan`)
       or ``None`` where the reference's gates admit none.
 
-    A plan is built once per matrix and kind (host numpy planning, then the
-    packed values go to the device: the matrix's, or the operand's for a
-    matrix of host numpy arrays) and reused by every later call on the same
-    instance.  A BSR or CSR plan qualifies when its kernel can take it and
-    its scalar remainder holds at most ``_MAX_REMAINDER_SHARE`` of the
-    stored entries; a matrix whose plan does not caches ``None``, so it
-    never re-pays the planning probe.  Entries are held weakly: they go
-    with their matrix.
+    A plan is built once per matrix and kind and reused by every later call
+    on the same instance.  A BSR or CSR plan is planned in host numpy, its
+    packed values then sent to the device (the matrix's, or the operand's
+    for a matrix of host numpy arrays); a scalar-DIA plan is derived from
+    the BDIA pack with tensor ops on the pack's own device
+    (:func:`cask_tpu_torch.ops.bdia.scalar_dia_from_pack`).  A BSR or CSR
+    plan qualifies when its kernel can take it and its scalar remainder
+    holds at most ``_MAX_REMAINDER_SHARE`` of the stored entries; a matrix
+    whose plan does not caches ``None``, so it never re-pays the planning
+    probe.  Entries are held weakly: they go with their matrix.
 
     A plan copies the matrix's values, so each entry also keeps the version
     counters of the matrix's tensors: a tensor changed in place since
@@ -187,8 +188,8 @@ class PlanCache:
     counts), ``build_s`` (host seconds in those builds, by kind) and
     ``hits`` (calls answered from the cache).  Under a profiler a build is
     the span ``plan.build.<kind>``, and a scalar-DIA build holds the spans
-    of its steps, ``plan.bdia_to_coo``, ``plan.coo_to_csr`` and
-    ``plan.dia_plan``: a :func:`cask_tpu_torch.utils.profiling.trace`
+    of its steps, ``plan.scalar_dia.count``, ``plan.scalar_dia.fill`` and
+    ``plan.scalar_dia.remainder``: a :func:`cask_tpu_torch.utils.profiling.trace`
     around a first ``spmm`` on a BDIA plan times each step.
     """
 
@@ -212,14 +213,8 @@ class PlanCache:
 
     @staticmethod
     def _build(a, kind: str, device) -> Union[BdiaMatrix, DiaMatrix, BdiaSlabs, None]:
-        if kind == "scalar_dia":  # planned from the exact f32 of bf16 values, then cast back
-            with annotate("plan.bdia_to_coo"):
-                coo = bdia_to_coo(a)
-            with annotate("plan.coo_to_csr"):
-                csr = coo_to_csr(coo)
-            del coo  # its host arrays go before the DIA plan is made
-            with annotate("plan.dia_plan"):
-                return dia_plan(csr, device=a.device).astype(a.dtype)
+        if kind == "scalar_dia":
+            return scalar_dia_from_pack(a)
         if kind == "slab":
             return slab_auto_plan(a)
         if kind == "bdia":

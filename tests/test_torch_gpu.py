@@ -31,9 +31,11 @@ import scipy.sparse as sp
 import torch
 
 import cask_tpu_torch as ct
-from cask_tpu_torch.formats.convert import coo_from_arrays, csr_to_bsr, from_scipy, to_scipy
+from cask_tpu_torch.formats.convert import (coo_from_arrays, coo_to_csr, csr_to_bsr, from_scipy,
+                                            to_scipy)
 from cask_tpu_torch.formats.generate import (_diag_shift, banded, fem_blocks, power_law,
                                              random_uniform, stencil_2d)
+from cask_tpu_torch.ops.bdia import bdia_to_coo
 from cask_tpu_torch.ops.bdia_slab import bdia_slab_plan, slab_auto_plan
 from cask_tpu_torch.ops.bsr_spmm import BsrSpmmKernel
 from cask_tpu_torch.ops.kernels import bdia_kernels as bk
@@ -417,6 +419,33 @@ def test_bsr_spmm_auto_route_launches_the_dia_kernel(cuda, k):
     assert (dia_spmm.launches, bdia_spmm_slab.launches) == \
         ((before[0] + 1, before[1]) if k <= 64 else (before[0], before[1] + 1))
     assert _relerr(y, ct.spmm(a, x, method="xla")) <= TOL[np.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scalar_dia_plan_built_on_the_card(cuda, monkeypatch, dtype):
+    # a BDIA plan on the card derives its scalar-DIA plan there, bit for bit
+    # the plan the host composition gives on the CPU; spmm at k ≤ 64 runs
+    # through it and matches the plain twin on the CPU plan
+    plans = PlanCache()
+    monkeypatch.setattr(spmv_mod, "default_plan_cache", plans)
+    bsr = fem_blocks(256, dof=4, dtype=np.float32, return_bsr=True)  # 262,144 rows
+    host = ct.bdia_plan(bsr, device="cpu").astype(dtype)
+    card = host.to(cuda)
+    x = torch.from_numpy(np.random.default_rng(47).standard_normal((host.shape[1], 32))
+                         .astype(np.float32))
+    before = dia_spmm.launches
+    y = ct.spmm(card, x.to(cuda))
+    torch.cuda.synchronize()
+    assert dia_spmm.launches == before + 1 and dict(plans.builds) == {"scalar_dia": 1}
+    got = plans.get(card)
+    want = ct.dia_plan(coo_to_csr(bdia_to_coo(host)), device="cpu").astype(dtype)
+    assert got.vals.is_cuda and (got.offsets, got.shape) == (want.offsets, want.shape)
+    for f in ("vals", "rem_data", "rem_row", "rem_col"):
+        g, w = getattr(got, f).cpu(), getattr(want, f)
+        if g.is_floating_point():  # bit for bit: −0.0 differs from +0.0
+            g, w = (t.view({2: torch.int16, 4: torch.int32}[t.element_size()]) for t in (g, w))
+        assert g.dtype == w.dtype and torch.equal(g, w), f
+    assert _relerr(y.cpu(), want._spmm_reference(x)) <= TOL[np.float32]
 
 
 def test_solver_operator_cg_on_card_matches_cpu(cuda):

@@ -5,7 +5,8 @@ with no profiler running it opens no ``record_function`` range at all, and
 under ``trace()`` it writes one ``cg.solve`` span a solve and one
 ``cg.stop_test``, ``cg.product`` and ``cg.update`` span an iteration, with
 the same ``x`` to the bit.  :class:`cask_tpu_torch.ops.spmv.PlanCache` counts
-its builds, their host seconds and its hits.
+its builds, their host seconds and its hits; a scalar-DIA build spans its
+three steps inside ``plan.build.scalar_dia``.
 """
 
 import collections
@@ -36,12 +37,15 @@ def _system(side=16):
     return a, b
 
 
-def _spans(logdir) -> collections.Counter:
+def _user_events(logdir) -> list:
     (path,) = glob.glob(os.path.join(logdir, "*.json"))
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    return collections.Counter(e["name"] for e in events
-                               if e.get("ph") == "X" and e.get("cat") == "user_annotation")
+    return [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+
+
+def _spans(logdir) -> collections.Counter:
+    return collections.Counter(e["name"] for e in _user_events(logdir))
 
 
 def test_cg_opens_no_range_without_a_profiler(monkeypatch):
@@ -105,3 +109,35 @@ def test_plan_cache_counts_builds_and_hits(monkeypatch):
     torch.testing.assert_close(spmm(p, x), 2 * y)
     assert dict(cache.builds) == {"scalar_dia": 2} and cache.hits == 3
     assert set(cache.build_s) == {"scalar_dia"} and cache.build_s["scalar_dia"] > 0
+
+
+def _intervals(logdir, names) -> dict:
+    found = collections.defaultdict(list)
+    for e in _user_events(logdir):
+        if e["name"] in names:
+            found[e["name"]].append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    return found
+
+
+@pytest.mark.parametrize("blocksize", [(4, 4), (4, 2)])
+def test_scalar_dia_build_spans_its_steps(tmp_path, monkeypatch, blocksize):
+    # a first spmm on a BDIA plan builds its scalar-DIA plan under one
+    # plan.build.scalar_dia span holding one span of each step; the next
+    # call hits the cache and opens none
+    cache = PlanCache()
+    monkeypatch.setattr(spmv_mod, "default_plan_cache", cache)
+    bsr = tconv.csr_to_bsr(tgen.fem_blocks(8, dof=4), blocksize)
+    p = ct.bdia_plan(bsr, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((bsr.shape[1], 8)))
+    steps = ("plan.scalar_dia.count", "plan.scalar_dia.fill", "plan.scalar_dia.remainder")
+    with trace(str(tmp_path)):
+        spmm(p, x)
+        spmm(p, x)
+    found = _intervals(tmp_path, ("plan.build.scalar_dia",) + steps)
+    assert {k: len(v) for k, v in found.items()} == \
+        {k: 1 for k in ("plan.build.scalar_dia",) + steps}
+    ((b0, b1),) = found["plan.build.scalar_dia"]
+    within = [found[s][0] for s in steps]
+    assert all(b0 <= t0 <= t1 <= b1 for t0, t1 in within)
+    assert within[0][1] <= within[1][0] and within[1][1] <= within[2][0]  # in order
+    assert dict(cache.builds) == {"scalar_dia": 1} and cache.hits == 1

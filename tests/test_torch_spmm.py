@@ -9,6 +9,7 @@ f64 ≤ 1e-12 normwise, f32 ≤ 1e-5; B15 multiplies its near band in bf16 and
 is held within its own 5e-3 (tests/test_spmm.py::TestRingMxuHybrid).
 """
 
+import dataclasses
 import importlib
 
 import jax  # noqa: F401  (kept on the CPU with x64 by conftest)
@@ -220,6 +221,168 @@ class TestScalarDia:
         js, ts = jbdia.bdia_scalar_dia(jp), tbdia.bdia_scalar_dia(tp)
         assert np.array_equal(np.asarray(js.vals), ts.vals.numpy())
         assert np.array_equal(np.asarray(js.rem_data), ts.rem_data.numpy())
+
+
+def _pack(shape, blocksize, block_offsets, seed, *, fill=0.9, ts=1, rem=None):
+    """A BDIA plan built by hand: random slots, every one of the pack (the
+    pad and the slots past the matrix's edges too), a share ``fill`` of
+    them nonzero, and the remainder ``rem`` = (rows, cols, values)."""
+    (m, n), (br, bc) = shape, blocksize
+    rng = np.random.default_rng(seed)
+    tiles = -(-(-(-m // br)) // (ts * 128))
+    vals = rng.standard_normal((br, tiles, len(block_offsets) * bc, ts, 128))
+    vals[rng.random(vals.shape) >= fill] = 0.0
+    rows, cols, data = rem if rem is not None else ([], [], [])
+    return tbdia.BdiaMatrix(
+        vals=torch.from_numpy(vals), rem_data=torch.tensor(data, dtype=torch.float64),
+        rem_row=torch.tensor(rows, dtype=torch.int32),
+        rem_col=torch.tensor(cols, dtype=torch.int32), block_offsets=tuple(block_offsets),
+        shape=(m, n), blocksize=(br, bc), ts=ts)
+
+
+def _zero_blocks():
+    p = _pack((400, 400), (4, 4), (-7, -1, 0, 1, 7), 41)
+    v = p.vals.view(4, -1, 128)  # (r, slot rows, lane): whole blocks are r × one lane
+    v[:, :, 5:40] = 0.0
+    v[:, 3:9, :] = -0.0
+    v[1, :, 50:60] = -0.0
+    return p
+
+
+def _sparse_diagonal():
+    p = _pack((512, 512), (4, 4), (-2, 0, 3), 42)
+    keep = np.random.default_rng(43).random((4, 1, 4, 1, 128)) < 0.02
+    p.vals[:, :, 8:12] *= torch.from_numpy(keep)  # block offset 3: 2 % of its slots
+    return p
+
+
+def _remainder_entries():
+    # block offset 3 spills (2 % full); the remainder holds an entry on a kept
+    # diagonal's zero slot, one on a kept diagonal off the pack, one on a slot
+    # of the pack three times (2.5 + 0.01 + 0.01: bf16 rounds that sum once,
+    # to 2.515625, not after each add, to 2.5), one on a spilled lane's slot
+    # twice, one on a spilled diagonal off the pack, two at a new offset that
+    # sum to zero, and an explicit zero at a far offset
+    p = _sparse_diagonal()
+    p.vals[1, 0, 4 + 2, 0, 10] = 0.0  # block row 10, r=1, block offset 0, c=2: (41, 42)
+    p.vals[0, 0, 4 + 1, 0, 20] = 2.5  # block row 20, r=0, block offset 0, c=1: (80, 81)
+    rows = [41, 43, 80, 80, 80, 81, 81, 12, 44, 44, 7]
+    cols = [42, 45, 81, 81, 81, 93, 93, 22, 48, 48, 500]
+    data = [1.5, 3.0, 0.01, 0.01, -0.0, -2.0, 0.25, 7.0, 1.0, -1.0, 0.0]
+    return dataclasses.replace(p, rem_data=torch.tensor(data, dtype=torch.float64),
+                               rem_row=torch.tensor(rows, dtype=torch.int32),
+                               rem_col=torch.tensor(cols, dtype=torch.int32))
+
+
+def _threshold():
+    # scalar diagonal 20 (block offset 5, its lanes r = c) holds 37 entries of
+    # its 380: just under 10 %, so it spills; three remainder entries repeat
+    # its positions and must not count again
+    p = _pack((400, 400), (4, 4), (0, 5), 49)
+    p.vals[:, :, 4:8] = 0.0
+    for k in range(37):
+        p.vals[k % 4, 0, 4 + k % 4, 0, k] = 1.0 + k
+    rows, cols = [0, 5, 10], [20, 25, 30]
+    return dataclasses.replace(p, rem_data=torch.tensor([0.5, 0.25, -1.0], dtype=torch.float64),
+                               rem_row=torch.tensor(rows, dtype=torch.int32),
+                               rem_col=torch.tensor(cols, dtype=torch.int32))
+
+
+def _nan_slots():
+    p = _zero_blocks()
+    p.vals.view(4, -1, 128)[2, 0, 70] = float("nan")
+    return p
+
+
+SCALAR_DIA_CASES = {  # name -> BDIA plan on the CPU in f64
+    "fem2": lambda: tbdia.bdia_plan(tgen.fem_blocks(9, dof=2), (2, 2), device="cpu"),
+    "fem3": lambda: tbdia.bdia_plan(tgen.fem_blocks(9, dof=3), (3, 3), device="cpu"),
+    "fem4": lambda: tbdia.bdia_plan(tgen.fem_blocks(9, dof=4), (4, 4), device="cpu"),
+    "ragged": lambda: _pack((301, 301), (4, 4), (-3, -1, 0, 2, 40), 44),
+    "ragged_two_tiles": lambda: _pack((1197, 1197), (3, 3), (-5, 0, 1, 200), 45, ts=2),
+    "rectangular": lambda: _pack((240, 410), (4, 2), (-3, 0, 2, 50, 150), 46),
+    "rectangular_tall": lambda: _pack((410, 150), (2, 4), (-60, -1, 0, 5), 47),
+    "rectangular_three_tiles": lambda: _pack((1500, 700), (4, 2), (-5, 0, 3, 100), 50),
+    "zero_blocks_neg_zero": _zero_blocks,
+    "nan_slots": _nan_slots,
+    "sparse_diagonal": _sparse_diagonal,
+    "remainder_entries": _remainder_entries,
+    "threshold_remainder": _threshold,
+    "bdia_plan_remainder": lambda: tbdia.bdia_plan(tconv.from_scipy(_with_remainder()), (4, 4),
+                                                   device="cpu"),
+    # 64 block offsets of 16 × 16 blocks: 1039 scalar diagonals, over 1024 of them full
+    # enough, so the plan keeps the 1024 fullest
+    "max_diags": lambda: _pack((1280, 1280), (16, 16), range(-32, 32), 48),
+}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def _same_plan(got, want):
+    """Field for field, values bit for bit (so a −0.0 or a NaN's bits count)."""
+    for f in ("vals", "rem_data", "rem_row", "rem_col"):
+        g, w = getattr(got, f), getattr(want, f)
+        assert (g.dtype, g.shape, g.device) == (w.dtype, w.shape, w.device), f
+        assert torch.equal(_bits(g), _bits(w)), f
+    assert (got.offsets, got.shape, got.vals_t, want.vals_t) == \
+        (want.offsets, want.shape, None, None)
+
+
+class TestScalarDiaFromPack:
+    """The derivation on the pack's device against the host composition it
+    replaces, ``dia_plan(coo_to_csr(bdia_to_coo(a)))``."""
+
+    @pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16,
+                                       torch.float16])
+    @pytest.mark.parametrize("name", list(SCALAR_DIA_CASES))
+    def test_equals_the_host_composition(self, name, dtype):
+        a = SCALAR_DIA_CASES[name]().astype(dtype)
+        want = tdia.dia_plan(tconv.coo_to_csr(tbdia.bdia_to_coo(a)),
+                             device=a.device).astype(a.dtype)
+        _same_plan(tbdia.scalar_dia_from_pack(a), want)
+
+    @pytest.mark.parametrize("name", ["ragged_two_tiles", "rectangular_three_tiles", "fem4"])
+    def test_counts_one_tile_a_chunk(self, name, monkeypatch):
+        monkeypatch.setattr(tbdia, "_COUNT_SLOTS", 1)
+        a = SCALAR_DIA_CASES[name]()
+        want = tdia.dia_plan(tconv.coo_to_csr(tbdia.bdia_to_coo(a)), device="cpu")
+        _same_plan(tbdia.scalar_dia_from_pack(a), want)
+
+    def test_cases_reach_what_they_name(self):
+        def host(name):
+            a = SCALAR_DIA_CASES[name]()
+            return a, tdia.dia_plan(tconv.coo_to_csr(tbdia.bdia_to_coo(a)), device="cpu")
+
+        a, d = host("max_diags")
+        assert d.ndiags == 1024 and len(np.unique(tbdia.bdia_to_coo(a).col.astype(np.int64)
+                                                  - tbdia.bdia_to_coo(a).row)) > 1024
+        _, d = host("sparse_diagonal")
+        assert d.rem_data.shape[0] > 0 and not {10, 11, 12, 13, 14} & set(d.offsets)
+        _, d = host("remainder_entries")
+        at = {(int(i), int(k)): float(v) for i, k, v in zip(d.rem_row, d.rem_col, d.rem_data)}
+        assert at[44, 48] == 0.0 and at[7, 500] == 0.0 and at[12, 22] == 7.0
+        assert (81, 93) in at and 12 not in d.offsets
+        assert [float(d.vals[d.offsets.index(o), i]) for o, i in ((1, 41), (2, 43), (1, 80))] \
+            == [1.5, 3.0, 0.0 + 2.5 + 0.01 + 0.01 - 0.0]
+        _, d = host("threshold_remainder")
+        assert 20 not in d.offsets and int(((d.rem_col - d.rem_row) == 20).sum()) == 37
+        a, d = host("zero_blocks_neg_zero")
+        assert (a.vals == 0).any() and torch.signbit(a.vals[a.vals == 0]).any()
+        assert not (torch.signbit(d.vals) & (d.vals == 0)).any()
+
+    def test_the_cache_builds_without_the_host_composition(self, monkeypatch):
+        def refuse(*args, **kwargs):
+            raise AssertionError("the host composition ran in a cached build")
+
+        a = SCALAR_DIA_CASES["fem4"]()
+        want = tdia.dia_plan(tconv.coo_to_csr(tbdia.bdia_to_coo(a)), device="cpu")
+        for mod, name in ((tbdia, "bdia_to_coo"), (tconv, "coo_to_csr"), (tdia, "dia_plan")):
+            monkeypatch.setattr(mod, name, refuse)
+        _same_plan(PlanCache().get(a), want)
 
 
 def _blocks_on(nb, b, offsets, seed):
