@@ -1,7 +1,8 @@
 """One run of one cell: set-up, the measured (or traced) window, then the
 comparison with the plain reference.  :func:`run_cell` returns the result
 line; ``portbench/run.py`` is its command line and adds the checks that
-need the card.
+need the card.  A cell of more than one chip runs :func:`measure` on each
+of its ranks (``portbench/ranks.py``), which merges their lines into one.
 """
 
 from __future__ import annotations
@@ -24,12 +25,40 @@ TRACE_SECONDS = 3.0  # the longest traced window: its trace is read in this proc
 FORBIDDEN = ("jax", "jaxlib", "flax", "cask_tpu")
 
 
+class Solo:
+    """The coordination of a run on one card: one rank, no one to wait for.
+    ``portbench.ranks.StoreGroup`` is its counterpart across ranks."""
+
+    rank, world = 0, 1
+
+    def agree(self, name: str, value) -> list:
+        return [value]
+
+    def barrier(self, name: str) -> None:
+        pass
+
+
 @dataclasses.dataclass
 class Run:
     cell: spec.Cell
     seed: int
     device: torch.device
     log: Callable[[str], None]
+    group: object = dataclasses.field(default_factory=Solo)  # the harness's, not the program's
+
+    @property
+    def rank(self) -> int:
+        return self.group.rank
+
+    @property
+    def world(self) -> int:
+        return self.group.world
+
+    def agree(self, name: str, value) -> list:
+        """Every rank's ``value`` under ``name``, in rank order.  A collective
+        product needs the same number of calls on every rank, so a
+        distributed entry fixes its window's call count with this first."""
+        return self.group.agree(name, value)
 
     @property
     def cfg(self) -> dict:
@@ -87,24 +116,53 @@ def built_libraries() -> set:
     return {f for f in os.listdir(path) if f.endswith(".so")}
 
 
+def card_id(device: torch.device, rank: int) -> str:
+    """The card a rank ran on: its UUID; on the CPU the rank stands in for it."""
+    if device.type == "cuda":
+        return str(torch.cuda.get_device_properties(device).uuid)
+    return f"{device.type}:{rank}"
+
+
+def find(ref: str):
+    """The function a ``module:function`` reference names."""
+    module, _, name = ref.partition(":")
+    return getattr(importlib.import_module(module), name)
+
+
 def forbidden_modules() -> list:
     """Loaded modules whose top-level name is JAX's, Flax's or the JAX package's."""
     return sorted({m for m in sys.modules if m.split(".")[0] in FORBIDDEN})
 
 
-def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, t_start: float,
-             device=None, log=None, bench: Optional[dict] = None,
-             marks: Optional[dict] = None) -> dict:
-    """Run ``workload`` once; return the result line as a dict (its
-    ``checks`` last).  ``t_start`` is the process's start on
-    ``time.perf_counter``'s clock; ``marks`` names earlier steps of the
-    set-up by the time each ended, on the same clock.  ``built`` lists the
-    kernel libraries this run compiled: a checkout's first run of a cell
-    builds, and its set-up is not a warm one."""
+@dataclasses.dataclass
+class Outcome:
+    line: dict  # the result line
+    failed_calls: list  # the call indices whose outputs failed a limit
+    card: str  # card_id of the card the run used
+
+
+def run_cell(workload: str, seed: int, seconds: float, trace: bool, **kw) -> dict:
+    """Run ``workload`` once on one card; return the result line as a dict
+    (its ``checks`` last).  Takes :func:`measure`'s keywords."""
+    return measure(workload, seed, seconds, trace, **kw).line
+
+
+def measure(workload: str, seed: int, seconds: float, trace: bool, *, t_start: float,
+            device=None, log=None, bench: Optional[dict] = None,
+            marks: Optional[dict] = None, cells: str = "portbench.spec:cell",
+            group=None) -> Outcome:
+    """Run ``workload`` once on ``device``.  ``t_start`` is the run's start
+    on ``time.perf_counter``'s clock (the host's monotonic clock, which every
+    process shares); ``marks`` names earlier steps of the set-up by the time
+    each ended, on the same clock.  ``cells`` names the function that finds
+    the cell's parts; ``group`` is a rank's coordination with the others
+    (:class:`Solo` when None).  ``built`` lists the kernel libraries this run
+    compiled: a checkout's first run of a cell builds, and its set-up is not
+    a warm one."""
     log = log or (lambda s: print(s, file=sys.stderr, flush=True))
     device = torch.device(device or "cuda")
-    cell = spec.cell(workload, bench)
-    run = Run(cell=cell, seed=int(seed), device=device, log=log)
+    cell = find(cells)(workload, bench)
+    run = Run(cell=cell, seed=int(seed), device=device, log=log, group=group or Solo())
     entry = cell.entry
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -124,12 +182,14 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, t_start: 
         f"route: {state.route}")
     result = {"correct": False, "attempted": 0, "failed": 0, "metrics": {}}
     if not trace:
+        run.group.barrier("window")
         window = entry.window(run, state, seconds)
         metrics = entry.end_to_end(run, window)
         metrics["setup_s"] = (setup_s, "s")
         wanted = {m["name"]: m["unit"] for m in cell.end_to_end}
     else:
         enqueue_us = entry.enqueue(run, state)
+        run.group.barrier("window")
         window, view = tracing.traced(lambda: entry.window(run, state, min(seconds, TRACE_SECONDS)),
                                       lambda: entry.probe(run, state))
         reading = entry.reading(run, state, window, view)
@@ -150,10 +210,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, t_start: 
         raise RuntimeError(f"{workload}: the {cell.traffic['entry']} entry gives no {missing}")
     result["metrics"] = {n: {"value": float(metrics[n][0]), "unit": u} for n, u in wanted.items()}
     result["attempted"] = window.calls
+    card = card_id(device, run.rank)
     result["device"] = {
         "platform": "gpu" if device.type == "cuda" else device.type,
         "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        "count": 1,
+        "count": len({card}),  # the cards read, here the one; ranks.merge counts theirs
         "memory_peak_bytes": torch.cuda.max_memory_allocated(device)
         if device.type == "cuda" else 0,
     }
@@ -172,4 +233,4 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, t_start: 
         result["breakdown"] = result.pop("breakdown")
     result["built"] = built
     result["checks"] = checks
-    return result
+    return Outcome(line=result, failed_calls=sorted(failed), card=card)

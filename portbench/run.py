@@ -7,9 +7,12 @@ limits on standard error, then one JSON line on standard output: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
 with ``--trace 1`` its per-layer ones), ``device``, with ``--trace 1``
 ``breakdown``, ``built`` (the kernel libraries this run compiled), and
-``checks`` last.  Exits non-zero, printing no result,
-without a CUDA card, with fewer cards than the cell asks for, or when JAX,
-Flax or the JAX package is loaded once the window has closed.
+``checks`` last.  A cell of more than one chip runs as one process a
+card (``portbench/ranks.py``) and prints one line for all its ranks.
+Exits non-zero, printing no result, without a CUDA card, with fewer cards
+than the cell asks for, when a rank fails, outlives its limit or shares a
+card with another, or when JAX, Flax or the JAX package is loaded once the
+window has closed.
 """
 
 import time
@@ -36,17 +39,20 @@ def _log(line: str) -> None:
 
 
 def _card() -> str:
-    """The card's name and power limit, as nvidia-smi reads them."""
+    """Each card's name and power limit, as nvidia-smi reads them."""
     try:
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              timeout=30)
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"nvidia-smi: {e}"
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else out.stderr.strip()
+    return "; ".join(out.stdout.strip().splitlines()) if out.stdout.strip() else out.stderr.strip()
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, bench=None, cells="portbench.spec:cell") -> int:
+    """The command line.  ``bench`` stands in for ``BENCHMARK.json`` and
+    ``cells`` names the function that finds a cell's parts (the tests'
+    cells are found elsewhere)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -60,9 +66,9 @@ def main(argv=None) -> int:
     import torch
 
     marks = {"torch": time.perf_counter()}
-    from portbench import harness, spec
+    from portbench import harness, ranks, spec
 
-    bench = spec.load_benchmark()
+    bench = bench or spec.load_benchmark()
     chips = {w["name"]: w["chips"] for w in bench["workloads"]}.get(args.workload)
     if chips is None:
         _log(f"no workload {args.workload!r} in BENCHMARK.json")
@@ -71,6 +77,11 @@ def main(argv=None) -> int:
         _log(f"{args.workload} needs {chips} CUDA card(s); torch sees "
              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
         return 1
+    if chips > 1:  # the ranks make their own contexts, one a card
+        result = ranks.run(args.workload, args.seed, args.seconds, bool(args.trace),
+                           chips=chips, t_start=T_START, bench=bench, marks=marks, log=_log,
+                           cells=cells)
+        return 1 if result is None else emit(result)
     torch.cuda.init()
     marks["cuda"] = time.perf_counter()
     try:
@@ -82,7 +93,15 @@ def main(argv=None) -> int:
 
     result = harness.run_cell(args.workload, args.seed, args.seconds, bool(args.trace),
                               t_start=T_START, device="cuda", log=_log, bench=bench,
-                              marks=marks)
+                              marks=marks, cells=cells)
+    return emit(result)
+
+
+def emit(result: dict) -> int:
+    """Print ``result`` as the run's last line, its checks the last lines on
+    standard error, unless this process holds JAX or the JAX package."""
+    from portbench import harness
+
     found = harness.forbidden_modules()
     if found:
         _log(f"JAX or the JAX package is loaded in this process: {found}")
