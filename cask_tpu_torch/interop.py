@@ -5,14 +5,17 @@ e.g. ``np.asarray(plan.vals)``) plus its static metadata; nothing here
 imports JAX.  The result's arrays are tensors on ``device``, but for the
 partitions of :mod:`cask_tpu.parallel` (``*_partition_from_arrays``), whose
 arrays stay host numpy: each rank of a distributed executor moves its own
-shard to its device.
+shard to its device.  :func:`bdia_shard_from_arrays` takes one rank's block
+rows where they already are, on the rank's device.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from cask_tpu_torch.formats.matrix import BSR, CSR, to_device
 from cask_tpu_torch.ops.bdia import _LANE, BdiaMatrix
@@ -25,8 +28,10 @@ from cask_tpu_torch.ops.ilu import ILU0Factors, ilu0_factors
 from cask_tpu_torch.ops.poh import PohMatrix
 from cask_tpu_torch.ops.spgemm import SpGEMMPlan
 from cask_tpu_torch.ops.trisolve import TriSolvePlan
-from cask_tpu_torch.parallel.partition import (_POH_FIELDS, BdiaPartition, Coo2DPartition,
-                                               CooPartition, DiaPartition, PohPartition)
+from cask_tpu_torch.parallel.partition import (_POH_FIELDS, BdiaPartition, BdiaRankShard,
+                                               Coo2DPartition, CooPartition, DiaPartition,
+                                               PohPartition, shard_edge_windows)
+from cask_tpu_torch.utils.profiling import annotate
 
 
 def _index(x, name: str) -> np.ndarray:
@@ -319,6 +324,70 @@ def bdia_partition_from_arrays(vals, head_vals, tail_vals, remainder: Optional[C
                          remainder=remainder, block_offsets=offsets,
                          shape=(int(shape[0]), int(shape[1])), blocksize=(br, bc), ts=int(ts),
                          nshards=P, mloc=int(mloc), nbloc=int(nbloc))
+
+
+def bdia_shard_from_arrays(vals, *, block_offsets: Sequence[int], shape: Tuple[int, int],
+                           blocksize: Tuple[int, int], ts: int, rank: int, nshards: int,
+                           nbloc: Optional[int] = None) -> BdiaRankShard:
+    """Rank ``rank``'s shard of a block-row-partitioned BDIA matrix, from the
+    block rows ``[rank·nbloc, (rank+1)·nbloc)`` it holds (``nbloc =
+    ceil(nbr / nshards)``): ``vals`` a tensor on the rank's device in the
+    :func:`bdia_from_arrays` layout, block offsets in global numbering,
+    ``shape`` the global matrix's.  The edge windows are cut on that device
+    and nothing moves to the host; the shard runs on
+    :class:`~cask_tpu_torch.parallel.dist.DistSpmv` of that rank.  Refuses a
+    layout that does not match the fields, non-square blocks or matrix,
+    ``nbloc`` other than ``ceil(nbr / nshards)``, a shard that would hold no
+    rows, and a block offset wider than one shard (a halo of more than one
+    hop, which :func:`~cask_tpu_torch.parallel.partition.partition_bdia`'s
+    remainder takes).
+
+    Counters: ``builds`` and ``build_s``, the host seconds of the builds
+    (their device work runs behind whatever the stream holds).  The span
+    ``dist.shard_build`` wraps each build."""
+    t0 = time.perf_counter()
+    with annotate("dist.shard_build"):
+        if not isinstance(vals, torch.Tensor):
+            raise TypeError(f"vals must be a tensor on the rank's device, got "
+                            f"{type(vals).__name__}")
+        br, bc = (int(b) for b in blocksize)
+        m, n = (int(s) for s in shape)
+        offsets = tuple(int(d) for d in block_offsets)
+        P, rank, ts = int(nshards), int(rank), int(ts)
+        if br != bc or m != n:
+            raise ValueError(f"a row partition needs square blocks and a square matrix, got "
+                             f"blocksize {(br, bc)} and shape {(m, n)}")
+        if not 0 <= rank < P:
+            raise ValueError(f"rank {rank} is not one of {P} shards")
+        nbr = -(-m // br)
+        want = -(-nbr // P)
+        if nbloc is not None and int(nbloc) != want:
+            raise ValueError(f"nbloc {nbloc} is not ceil({nbr} block rows / {P} shards) = "
+                             f"{want}")
+        if (P - 1) * want >= nbr:
+            raise ValueError(f"{nbr} block rows over {P} shards of {want} leave shard {P - 1} "
+                             f"with no rows")
+        T = -(-want // (ts * _LANE))
+        if vals.ndim != 5 or vals.shape[0] != br or vals.shape[2] != len(offsets) * bc \
+                or tuple(vals.shape[3:]) != (ts, _LANE) or vals.shape[1] != T:
+            raise ValueError(f"vals shape {tuple(vals.shape)} is not (br, T, npairs, ts, 128) "
+                             f"= ({br}, {T}, {len(offsets) * bc}, {ts}, 128) for {want} block "
+                             f"rows a shard, {len(offsets)} offsets")
+        wide = [d for d in offsets if abs(d) > want]
+        if wide:
+            raise ValueError(f"block offsets {wide} reach past the neighbouring shard of "
+                             f"{want} block rows (a multi-hop halo)")
+        head, tail = shard_edge_windows(vals, offsets, bc, want)
+        shard = BdiaRankShard(vals=vals, head_vals=head, tail_vals=tail, block_offsets=offsets,
+                              shape=(m, n), blocksize=(br, bc), ts=ts, nshards=P, rank=rank,
+                              mloc=want * br, nbloc=want)
+    bdia_shard_from_arrays.builds += 1
+    bdia_shard_from_arrays.build_s += time.perf_counter() - t0
+    return shard
+
+
+bdia_shard_from_arrays.builds = 0
+bdia_shard_from_arrays.build_s = 0.0
 
 
 def poh_partition_from_arrays(arrays: dict, *, shape: Tuple[int, int], nshards: int,

@@ -48,7 +48,7 @@ from cask_tpu_torch.ops.dia import DiaMatrix, spmm_dia
 from cask_tpu_torch.ops.kernels.bdia_kernels import bdia_mm_ok, bdia_spmm_ring
 from cask_tpu_torch.ops.poh import PohMatrix, poh_transpose_plan
 from cask_tpu_torch.ops.spmv import (_accum_dtype, _on, as_operand, cached_plan,
-                                     default_plan_cache, row_ids_from_indptr)
+                                     default_plan_cache, row_ids_from_indptr, shard_product)
 
 _WIDE_K = 64  # above this k a BDIA plan takes the wide-k chain (ops/spmm.py:197)
 
@@ -129,6 +129,8 @@ def spmm(a, x, *, transpose: bool = False, method: str = "auto",
          accum_dtype: Optional[object] = None):
     """``Y = a @ X`` (or ``aᵀ @ X``) with dense ``X`` of shape (n, k).  See
     the module docstring for methods."""
+    if not hasattr(a, "shape"):  # no matrix: a distributed operator's shard
+        return shard_product(a, x, transpose=transpose, method=method, accum_dtype=accum_dtype)
     x = as_operand(a, x).contiguous()  # the kernels take contiguous operands
     if x.ndim != 2:
         raise ValueError(f"X must be 2-D, got shape {tuple(x.shape)}")

@@ -284,6 +284,20 @@ def as_operand(a, x) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), device=operand_device(a))
 
 
+def shard_product(a, x, *, transpose: bool, method: str, accum_dtype) -> torch.Tensor:
+    """``a(x)`` for a distributed operator's padded shard
+    (:class:`~cask_tpu_torch.parallel.dist.ShardOperator`, which has no
+    ``shape``): this rank's rows of the product, by the automatic route
+    only.  Raises ``TypeError`` for anything else without a ``shape``."""
+    from cask_tpu_torch.parallel.dist import ShardOperator  # parallel imports ops: late
+
+    if not isinstance(a, ShardOperator):
+        raise TypeError(f"unsupported matrix type {type(a)}")
+    if transpose or method != "auto" or accum_dtype is not None:
+        raise ValueError("a distributed operator's shard takes the automatic product only")
+    return a(x)
+
+
 def spmv(a, x, *, transpose: bool = False, method: str = "auto",
          accum_dtype: Optional[object] = None):
     """``y = a @ x`` (or ``aᵀ @ x``).  See the module docstring for methods.
@@ -294,7 +308,10 @@ def spmv(a, x, *, transpose: bool = False, method: str = "auto",
     obvious API call on the obvious input, a generated matrix and a numpy
     vector, is the tuned path.  A plan that does not qualify, a transposed
     or re-typed product, and a CPU tensor ``x`` take the gather
-    formulation."""
+    formulation.  A distributed operator's padded shard
+    (``DistSpmv(...).padded_op``) gives this rank's rows of its product."""
+    if not hasattr(a, "shape"):  # no matrix: a distributed operator's shard
+        return shard_product(a, x, transpose=transpose, method=method, accum_dtype=accum_dtype)
     x = as_operand(a, x).contiguous()  # the kernels take contiguous operands
     if x.ndim != 1:
         raise ValueError(f"x must be 1-D, got shape {tuple(x.shape)}")

@@ -18,6 +18,7 @@ from cask_tpu_torch.parallel.mesh import (  # noqa: F401
 )
 from cask_tpu_torch.parallel.partition import (  # noqa: F401
     BdiaPartition,
+    BdiaRankShard,
     Coo2DPartition,
     CooPartition,
     DiaPartition,

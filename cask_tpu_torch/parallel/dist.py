@@ -32,6 +32,7 @@ limit).  A torch loop calls :attr:`DistSpmv.padded_op` directly.
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import Callable, Optional, Tuple
 
@@ -47,17 +48,21 @@ from cask_tpu_torch.ops.kernels.dia_kernels import (dia_spmm_reference, dia_spmv
                                                     dia_spmv_reference)
 from cask_tpu_torch.ops.poh import PohMatrix
 from cask_tpu_torch.parallel.mesh import Mesh2D, Pending, RowMesh, mesh_2d, row_mesh
-from cask_tpu_torch.parallel.partition import (BdiaPartition, Coo2DPartition, CooPartition,
-                                               DiaPartition, PohPartition)
+from cask_tpu_torch.parallel.partition import (BdiaPartition, BdiaRankShard, Coo2DPartition,
+                                               CooPartition, DiaPartition, PohPartition)
+from cask_tpu_torch.utils.profiling import annotate
 
 _WARN_BYTES = 64 * 1024 * 1024  # a gathered global y above this warns
 _SLAB_GS = (16, 8, 4)  # slab tile sizes, largest first (the reference's order)
+_BDIA = (BdiaPartition, BdiaRankShard)  # the block-row plans: every shard, or this rank's
 
 
 class ShardOperator:
     """``v → A·v`` on this rank's padded shard of a distributed operator.
     ``mesh`` is the axis over which the shards of a vector sum: the Krylov
-    solvers reduce their inner products and norms over it."""
+    solvers reduce their inner products and norms over it.  It has no
+    ``shape``, so the solvers take it as an operator and not as a matrix;
+    ``spmv(op, v)`` and ``spmm(op, V)`` apply it."""
 
     def __init__(self, apply: Callable, mesh: RowMesh):
         self._apply = apply
@@ -110,21 +115,22 @@ def _empty_rem(vals: torch.Tensor):
     return dict(rem_data=vals.new_zeros(0), rem_row=zi, rem_col=zi)
 
 
-def _bdia_shard_matrix(plan: BdiaPartition, vals: torch.Tensor) -> BdiaMatrix:
+def _bdia_shard_matrix(plan, vals: torch.Tensor) -> BdiaMatrix:
     """A shard's local (mloc × mloc) BdiaMatrix (no remainder: that rides the
     embedded CooPartition)."""
     return BdiaMatrix(vals=vals, **_empty_rem(vals), block_offsets=plan.block_offsets,
                       shape=(plan.mloc, plan.mloc), blocksize=plan.blocksize, ts=plan.ts)
 
 
-def _bdia_shard_meta(plan: BdiaPartition) -> BdiaMatrix:
-    """The shard matrix on the ``meta`` device: lets the interior gates run
-    without moving any values."""
-    vals = torch.empty(plan.vals.shape[1:], dtype=torch_dtype(plan.vals.dtype), device="meta")
+def _bdia_shard_meta(plan) -> BdiaMatrix:
+    """The shard matrix of a :class:`BdiaPartition` or a
+    :class:`BdiaRankShard` on the ``meta`` device: lets the interior gates
+    run without moving any values."""
+    vals = torch.empty(plan.vals.shape[-5:], dtype=torch_dtype(plan.vals.dtype), device="meta")
     return _bdia_shard_matrix(plan, vals)
 
 
-def slab_choice(plan: BdiaPartition) -> Tuple[Optional[int], Optional[int]]:
+def slab_choice(plan) -> Tuple[Optional[int], Optional[int]]:
     """``(g, bytes)``: the largest slab tile size ``g`` the shard geometry
     admits whose per-shard slab pack stays under
     :data:`cask_tpu_torch.ops.bdia_slab.SLAB_MAX_BYTES`, and that pack's
@@ -146,7 +152,7 @@ def slab_choice(plan: BdiaPartition) -> Tuple[Optional[int], Optional[int]]:
     return None, smallest
 
 
-def _slab_refusal(plan: BdiaPartition, nbytes: Optional[int]) -> str:
+def _slab_refusal(plan, nbytes: Optional[int]) -> str:
     from cask_tpu_torch.ops import bdia_slab
 
     if nbytes is None:
@@ -168,7 +174,7 @@ def resolve_interiors(plan, device, interior: str = "auto",
             raise ValueError(f"unknown DIA interior {interior!r} (plain or pallas)")
         if interior == "pallas" and plan.mloc % 8192:
             raise ValueError("interior='pallas' needs partition_dia(..., align=8192)")
-    elif isinstance(plan, BdiaPartition):
+    elif isinstance(plan, _BDIA):
         ok = bdia_kernel_ok(_bdia_shard_meta(plan))
         if interior == "auto":
             interior = "fused" if on_card and ok else "plain"
@@ -183,7 +189,7 @@ def resolve_interiors(plan, device, interior: str = "auto",
         if interior not in ("auto", own):
             raise ValueError(f"a {type(plan).__name__} has one interior, {own!r}")
         interior = own
-    if isinstance(plan, BdiaPartition):
+    if isinstance(plan, _BDIA):
         if mm_interior == "auto":
             g, _ = slab_choice(plan)
             mm_interior = "slab" if on_card and g is not None else "plain"
@@ -194,7 +200,7 @@ def resolve_interiors(plan, device, interior: str = "auto",
         elif mm_interior != "plain":
             raise ValueError(f"unknown BDIA SpMM interior {mm_interior!r} (plain or slab)")
     elif mm_interior == "slab":
-        raise ValueError("mm_interior='slab' needs a BdiaPartition")
+        raise ValueError("mm_interior='slab' needs a BdiaPartition or a BdiaRankShard")
     elif mm_interior not in ("auto", "plain"):
         raise ValueError(f"unknown SpMM interior {mm_interior!r}")
     else:
@@ -328,22 +334,29 @@ def _bdia_local(sh: _BdiaShard, x, mesh: RowMesh, interior: str, mm_interior: st
     """Ring halo + collective-free interior + edge fix-ups.  The interior
     reads zero-padded local x (pairs reaching past the shard read zeros, with
     no halo dependence): for SpMM the slab kernel on the shard's pre-sheared
-    slabs, or the plain sum over the packed pairs."""
+    slabs, or the plain sum over the packed pairs.  Spans: ``dist.exchange``
+    (the exchange issued; without overlap, also waited for),
+    ``dist.interior``, ``dist.fixup`` (the wait, the edge terms and the
+    remainder)."""
     bc, mloc = sh.blocksize[1], sh.local.shape[0]
-    halo, gather = _start(mesh, x, sh.lo_b * bc, sh.hi_b * bc, sh.rem)
-    if not overlap:
-        _settle(halo, gather)
-    if x.ndim == 1:
-        y = bdia_spmv_reference(sh.local, x) if interior == "plain" else bdia_spmv(sh.local, x)
-    elif mm_interior == "slab":
-        from cask_tpu_torch.ops.kernels.bdia_slab_kernels import bdia_spmm_slab
+    with annotate("dist.exchange"):
+        halo, gather = _start(mesh, x, sh.lo_b * bc, sh.hi_b * bc, sh.rem)
+        if not overlap:
+            _settle(halo, gather)
+    with annotate("dist.interior"):
+        if x.ndim == 1:
+            y = bdia_spmv_reference(sh.local, x) if interior == "plain" \
+                else bdia_spmv(sh.local, x)
+        elif mm_interior == "slab":
+            from cask_tpu_torch.ops.kernels.bdia_slab_kernels import bdia_spmm_slab
 
-        y = bdia_spmm_slab(sh.slabs, x)
-    else:
-        y = bdia_spmm_ring_reference(sh.local, x)
-    left, right = halo.wait()
-    head, tail = _bdia_edge_fixups(sh, left, right)
-    return _with_remainder(_add_edges(y, head, tail, mloc), sh.rem, x, gather)
+            y = bdia_spmm_slab(sh.slabs, x)
+        else:
+            y = bdia_spmm_ring_reference(sh.local, x)
+    with annotate("dist.fixup"):
+        left, right = halo.wait()
+        head, tail = _bdia_edge_fixups(sh, left, right)
+        return _with_remainder(_add_edges(y, head, tail, mloc), sh.rem, x, gather)
 
 
 def _poh_local(sh, x, mesh: RowMesh, overlap: bool):
@@ -386,9 +399,14 @@ class DistSpmv:
     every rank) and returns the global ``y`` on the rank's device.  For
     iteration (solvers), use :meth:`padded` and :attr:`padded_op`: each
     rank then keeps only its shard, with no gathers between products.
+    ``plan`` is a partition of every shard, whose shard ``rank`` moves to
+    the rank's device here, or a :class:`BdiaRankShard` already there.
     ``interior`` and ``mm_interior`` are resolved as
     :func:`resolve_interiors` says; an interior that resolves to the plain
     formulation on a CUDA device says so in a ``RuntimeWarning``.
+
+    Counters: ``calls`` (products on this rank's shard) and ``halo_bytes``
+    (the bytes this rank sent in ring exchanges with other ranks).
     """
 
     def __init__(self, plan, mesh: Optional[RowMesh] = None, *, interior: str = "auto",
@@ -401,6 +419,11 @@ class DistSpmv:
             raise ValueError(f"plan has {plan.nshards} shards but the mesh has "
                              f"{self.mesh.size} ranks")
         dev, p = self.mesh.device, self.mesh.rank
+        if isinstance(plan, BdiaRankShard) and (plan.rank != p or plan.vals.device != dev):
+            raise ValueError(f"the shard of rank {plan.rank} (on {plan.vals.device}) was given "
+                             f"to rank {p} (on {dev})")
+        self.calls = self.halo_bytes = 0
+        self._ring_rows = 0  # rows of x a product sends to the ring neighbours
         asked = (interior, mm_interior)
         self.interior, self.mm_interior = resolve_interiors(plan, dev, interior, mm_interior)
         self.overlap = overlap
@@ -414,18 +437,25 @@ class DistSpmv:
             sh = _DiaShard(local, self._rem(plan, p, dev), plan.halo_lo, plan.halo_hi)
             self._shard = sh
             self._program = lambda x: _dia_local(sh, x, self.mesh, self.interior, overlap)
-        elif isinstance(plan, BdiaPartition):
-            local = _bdia_shard_matrix(plan, _take(plan.vals, p, dev))
+            self._ring_rows = sh.lo + sh.hi
+        elif isinstance(plan, _BDIA):
+            if isinstance(plan, BdiaRankShard):
+                vals, head, tail = plan.vals, plan.head_vals, plan.tail_vals
+            else:
+                vals, head, tail = (_take(a, p, dev)
+                                    for a in (plan.vals, plan.head_vals, plan.tail_vals))
+            local = _bdia_shard_matrix(plan, vals)
             slabs = None
             if self.mm_interior == "slab":
                 from cask_tpu_torch.ops.bdia_slab import bdia_slab_plan
 
                 slabs = bdia_slab_plan(local, slab_choice(plan)[0])  # sheared once, here
-            sh = _BdiaShard(local, _take(plan.head_vals, p, dev), _take(plan.tail_vals, p, dev),
-                            self._rem(plan, p, dev), slabs, plan.halo_lo_b, plan.halo_hi_b)
+            sh = _BdiaShard(local, head, tail, self._rem(plan, p, dev), slabs, plan.halo_lo_b,
+                            plan.halo_hi_b)
             self._shard = sh
             self._program = lambda x: _bdia_local(sh, x, self.mesh, self.interior,
                                                   self.mm_interior, overlap)
+            self._ring_rows = (sh.lo_b + sh.hi_b) * plan.blocksize[1]
         elif isinstance(plan, PohPartition):
             sh = (_poh_shard(plan, p, dev, "int", plan.mloc),
                   _poh_shard(plan, p, dev, "ext", plan.nshards * plan.mloc))
@@ -437,21 +467,27 @@ class DistSpmv:
             self._program = lambda x: _coo_local(sh, x, self.mesh, overlap)
         else:
             raise TypeError(f"not a partition plan: {type(plan).__name__}")
-        self.padded_op = ShardOperator(self._program, self.mesh)
+        self.padded_op = ShardOperator(self._apply, self.mesh)
+
+    def _apply(self, x: torch.Tensor) -> torch.Tensor:
+        """The per-shard program on this rank's padded ``x``, counted."""
+        self.calls += 1
+        if self.mesh.size > 1:
+            self.halo_bytes += self._ring_rows * math.prod(x.shape[1:]) * x.element_size()
+        return self._program(x)
 
     def _say_plain(self, asked) -> None:
         """Say where an ``auto`` interior resolved to the plain formulation on
         the card (a kernel was there to run)."""
         plan = self.plan
         if asked[0] == "auto" and self.interior == "plain" \
-                and isinstance(plan, (DiaPartition, BdiaPartition)):
+                and isinstance(plan, (DiaPartition,) + _BDIA):
             why = ("the DIA interior stays plain unless interior='pallas' is asked for"
                    if isinstance(plan, DiaPartition) else "the BDIA kernel does not take "
                    "this shard")
             warnings.warn(f"DistSpmv on {self.mesh.device}: SpMV interior is the plain "
                           f"formulation ({why})", RuntimeWarning, stacklevel=3)
-        if asked[1] == "auto" and self.mm_interior == "plain" \
-                and isinstance(plan, BdiaPartition):
+        if asked[1] == "auto" and self.mm_interior == "plain" and isinstance(plan, _BDIA):
             warnings.warn(f"DistSpmv on {self.mesh.device}: SpMM interior is the plain "
                           f"formulation, the slab refused: "
                           f"{_slab_refusal(plan, slab_choice(plan)[1])}",
@@ -476,7 +512,7 @@ class DistSpmv:
         return self.mesh.all_gather(y_shard).wait()[: self.plan.shape[0]]
 
     def __call__(self, x) -> torch.Tensor:
-        return self._unpad(self._program(self.padded(x)))
+        return self._unpad(self._apply(self.padded(x)))
 
 
 def _as_tensor(x) -> torch.Tensor:

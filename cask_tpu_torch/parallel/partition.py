@@ -22,6 +22,9 @@ col 0 / value 0, harmless in a sum).
   ring neighbours.
 - :class:`BdiaPartition`: block-banded matrices, the same at block
   granularity, with host-extracted edge windows for the halo fix-ups.
+- :class:`BdiaRankShard`: one rank's shard of the same, held as tensors on
+  the rank's device and built there from the rows the rank holds
+  (``interop.bdia_shard_from_arrays``): no host array of every shard.
 - :class:`PohPartition`: unstructured matrices as per-shard panel one-hot
   packs (interior and exterior), by default in ``poh_plan``'s tile and
   window rather than the reference's (:func:`partition_poh`).  The reference also stacks each pack's
@@ -37,6 +40,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from cask_tpu_torch.formats.matrix import BSR, CSR, host
 
@@ -232,8 +236,28 @@ def stencil_dia_partition(nx: int, ny: Optional[int] = None, *, nshards: int,
         remainder=None, offsets=offsets, shape=(n, n), nshards=P, mloc=mloc)
 
 
+class _BlockRing:
+    """The ring halo of a block-row partition, from its block offsets."""
+
+    block_offsets: Tuple[int, ...]
+    blocksize: Tuple[int, int]
+
+    @property
+    def halo_lo_b(self) -> int:
+        return -min(min(self.block_offsets), 0)
+
+    @property
+    def halo_hi_b(self) -> int:
+        return max(max(self.block_offsets), 0)
+
+    @property
+    def pairs(self) -> Tuple[Tuple[int, int], ...]:
+        bc = self.blocksize[1]
+        return tuple((c, d) for d in self.block_offsets for c in range(bc))
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
-class BdiaPartition:
+class BdiaPartition(_BlockRing):
     """Block-row-partitioned BDIA pack + ring halo.
 
     Shard ``p`` owns block rows ``[p·nbloc, (p+1)·nbloc)`` of the global
@@ -267,21 +291,46 @@ class BdiaPartition:
     nbloc: int  # block rows per shard
 
     @property
-    def halo_lo_b(self) -> int:
-        return -min(min(self.block_offsets), 0)
-
-    @property
-    def halo_hi_b(self) -> int:
-        return max(max(self.block_offsets), 0)
-
-    @property
     def npairs(self) -> int:
         return int(self.vals.shape[3])
 
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BdiaRankShard(_BlockRing):
+    """One rank's shard of a block-row-partitioned BDIA matrix, as tensors on
+    the rank's device: what :class:`BdiaPartition` holds at index ``rank``,
+    with no array of the other shards.
+
+    The rank owns block rows ``[rank·nbloc, (rank+1)·nbloc)``, ``nbloc =
+    ceil(nbr / nshards)``; ``vals`` holds them in the layout of
+    :func:`cask_tpu_torch.interop.bdia_from_arrays` with the block offsets
+    in global numbering, so an entry whose column lies on a neighbour's rows
+    stays in the pack (the interior reads zeros there and the fix-ups add
+    it).  Every kept block offset reaches one ring neighbour at most; there
+    is no remainder.  Built by
+    :func:`cask_tpu_torch.interop.bdia_shard_from_arrays`.
+    """
+
+    vals: torch.Tensor  # (br, T, npairs, TS, 128)
+    head_vals: torch.Tensor  # (br, npairs, max(lo_b, 1))
+    tail_vals: torch.Tensor  # (br, npairs, max(hi_b, 1))
+    block_offsets: Tuple[int, ...]
+    shape: Tuple[int, int]  # the global matrix's
+    blocksize: Tuple[int, int]
+    ts: int
+    nshards: int
+    rank: int
+    mloc: int  # scalar rows per shard
+    nbloc: int  # block rows per shard
+
     @property
-    def pairs(self) -> Tuple[Tuple[int, int], ...]:
-        bc = self.blocksize[1]
-        return tuple((c, d) for d in self.block_offsets for c in range(bc))
+    def npairs(self) -> int:
+        return int(self.vals.shape[2])
+
+    @property
+    def remainder(self) -> None:
+        """A rank-local shard holds no remainder."""
+        return None
 
 
 def _bdia_edge_windows(vals: np.ndarray, kept: np.ndarray, bc: int, nbloc: int, ts: int,
@@ -312,6 +361,39 @@ def _bdia_edge_windows(vals: np.ndarray, kept: np.ndarray, bc: int, nbloc: int, 
         tail_vals[:] = tail_flat[..., off0 : off0 + hi_b]
         tail_vals *= (np.arange(wh)[None, :] >= (hi_b - offs_per_pair)[:, None]).astype(dtype)
     return head_vals, tail_vals
+
+
+def shard_edge_windows(vals: torch.Tensor, block_offsets: Tuple[int, ...], bc: int,
+                       nbloc: int):
+    """The (head_vals, tail_vals) fix-up windows of one shard's packed
+    ``(br, T, npairs, TS, 128)`` vals, cut with torch operations on its
+    device: :func:`_bdia_edge_windows` for that shard, bit for bit."""
+    br, T, npairs, ts = (int(s) for s in vals.shape[:4])
+    tile = ts * 128
+    lo_b, hi_b = -min(min(block_offsets), 0), max(max(block_offsets), 0)
+    wl, wh = max(lo_b, 1), max(hi_b, 1)
+
+    def flat(tiles):  # (br, npairs, block rows of those tiles)
+        return tiles.transpose(1, 2).reshape(br, npairs, -1)
+
+    head = vals.new_zeros((br, npairs, wl))
+    head_flat = flat(vals[:, :min(_ceil_div(wl, tile), T)])
+    w = min(lo_b, head_flat.shape[-1])
+    head[..., :w] = head_flat[..., :w]
+    tail = vals.new_zeros((br, npairs, wh))
+    if hi_b:
+        t0 = max((nbloc - hi_b) // tile, 0)
+        off0 = (nbloc - hi_b) - t0 * tile
+        tail[:] = flat(vals[:, t0:])[..., off0:off0 + hi_b]
+    # zero where the term is interior: a window row reaches past the shard
+    # only for |d| rows; one mask an offset, as the host windows multiply
+    lanes = torch.arange(max(wl, wh), device=vals.device)
+    for dpos, d in enumerate(block_offsets):
+        pairs = slice(dpos * bc, (dpos + 1) * bc)
+        head[:, pairs] *= (lanes[:wl] < -d).to(vals.dtype)
+        if hi_b:
+            tail[:, pairs] *= (lanes[:wh] >= hi_b - d).to(vals.dtype)
+    return head, tail
 
 
 def partition_bdia(a, nshards: int, blocksize: Optional[Tuple[int, int]] = None, *,
