@@ -27,6 +27,7 @@ from typing import Callable, Optional
 import torch
 
 from cask_tpu_torch.formats.matrix import BSR, COO, CSR
+from cask_tpu_torch.ops.kernels.cg_kernels import cg_update_p, cg_update_xr, fusable
 from cask_tpu_torch.ops.spmm import spmm
 from cask_tpu_torch.ops.spmv import as_operand, spmv, transposed
 from cask_tpu_torch.utils.platform import require_full_fp32
@@ -94,19 +95,31 @@ def cg(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0, maxiter: int = 10
     residual, ``M``, the first dot, the target), then per iteration
     ``cg.stop_test`` (the loop's test, its one host sync; once more where
     the tolerance ends the solve), ``cg.product`` (``A @ p``) and
-    ``cg.update`` (the rest of the iteration, ``M`` included)."""
+    ``cg.update`` (the rest of the iteration, ``M`` included).
+
+    Without ``M``, on real f32 or f64 vectors, the update runs as two fused
+    passes (:mod:`cask_tpu_torch.ops.kernels.cg_kernels`: the CUDA kernels on
+    the card, their plain twins on the CPU) that write ``x``, ``r`` and ``p``
+    in place; ``x`` and ``p`` are then the solve's own copies."""
     with annotate("cg.start"):
         op, b = _operator_and_rhs(a, b, spmv)
         dots = _Dots(op)
-        M = M or _ident
         x = torch.zeros_like(b) if x0 is None else torch.as_tensor(x0, device=b.device)
 
         # the threshold is real (a norm), also for a complex system
         target = torch.clamp(tol * dots.norm(b), min=atol)
 
-        r = b - op(x)
+        ax = op(x)
+        r = b - ax
+        # decided once a solve, by what the first product shows: the wrappers
+        # raise should a later product differ
+        fused = M is None and fusable(b, x, r, ax)
+        del ax
+        if fused and x0 is not None:
+            x = x.clone()  # written in place: never the caller's x0
+        M = M or _ident
         z = M(r)
-        p = z
+        p = z.clone() if fused else z  # p is written in place: not r's memory
         rz = dots.dot(r, z)  # conjugates r: the Hermitian inner product
     k = 0
     while k < maxiter:
@@ -116,13 +129,17 @@ def cg(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0, maxiter: int = 10
         with annotate("cg.product"):
             ap = op(p)
         with annotate("cg.update"):
-            alpha = rz / dots.dot(p, ap)
-            x = x + alpha * p
-            r = r - alpha * ap
-            z = M(r)
-            rz_new = dots.dot(r, z)
-            beta = rz_new / rz
-            p = z + beta * p
+            if fused:
+                rz_new = dots.total(cg_update_xr(x, p, r, ap, rz, dots.dot(p, ap)))
+                cg_update_p(p, r, rz_new, rz)
+            else:
+                alpha = rz / dots.dot(p, ap)
+                x = x + alpha * p
+                r = r - alpha * ap
+                z = M(r)
+                rz_new = dots.dot(r, z)
+                beta = rz_new / rz
+                p = z + beta * p
             rz = rz_new
         k += 1
     rn = dots.norm(r)

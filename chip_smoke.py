@@ -59,7 +59,9 @@ card.  Phases, one line each:
    for f16 values and x) within one ulp of the twin's f32 sum.
 8. spmv — ``spmv(bsr, x)`` through the public entry point on the
    1,048,576-row dof-4 FEM matrix (f32).
-9. cg — ``cg(BdiaOperator(...), b)`` on an SPD block system of that size.
+9. cg — ``cg(BdiaOperator(...), b)`` on an SPD block system of that size:
+   CG's two fused vector kernels (``cg_update_xr``, ``cg_update_p``) once
+   each an iteration, as in every unpreconditioned f32 or f64 ``cg`` below.
 10. block-cg — ``block_cg`` over that system's BDIA plan with 128 right-hand
    sides and Jacobi: the slab kernel once per iteration.
 11. dia-spmv — ``spmv(csr, x)`` on the 4,194,304-row 5-point stencil (f32).
@@ -126,7 +128,9 @@ card.  Phases, one line each:
    the refusal where torch does not take it on CUDA), with CUDA events,
    beside the entry's bound; the DIA and ring SpMM rows also print the
    time PERF.md records for their kernels before the window, the BSR SpMM
-   and BDIA SpMV rows theirs before their redesign.  Then the slice's paths
+   and BDIA SpMV rows theirs before their redesign.  CG's two fused vector
+   kernels at phase 9's length (f32) and at hpcg-512's (f64), each against
+   its twin and the same update in in-place PyTorch calls.  Then the slice's paths
    that are no kernel of their own: the exact ILU(0) apply (beside two
    ``torch.triangular_solve`` calls on the sparse factors), its Jacobi
    apply and SpGEMM's gather numeric (beside a cuSPARSE sparse product),
@@ -270,8 +274,11 @@ BF16_TOL = 1e-5  # f32 out, kernel vs twin: the same bf16 products summed in f32
 BF16_SLAB_TOL = 2e-6  # f32 out, the bf16 slab's two TF32 passes vs its twin
 BF16_KS = (1, 12, 32, 65, 128)  # 12 and 65: bf16 rows off the 16-byte vectors
 F32_PEAK = 67e12  # FLOP/s, FP32 outside the tensor cores, H100 SXM (NVIDIA data sheet)
+CG_VECTOR = ("cg_update_xr", "cg_update_p")  # CG's fused updates, beside its products
+CG_VECTOR_LENGTHS = ((NX * NX * DOF, "f32", "phase 9's cg system"),
+                     (512 ** 3, "f64", "hpcg-512's system"))  # their [timing] rows
 KERNELS = ("bdia_spmv", "dia_spmv", "dia_spmm", "bdia_slab_spmm", "bdia_spmm", "bsr_spmm",
-           "poh_spmv", "poh_spmm", "lell_spmv")
+           "poh_spmv", "poh_spmm", "lell_spmv", "cg_vector")
 BDIA_PY = "cask_tpu/ops/pallas/bdia_kernels.py"
 DIA_PY = "cask_tpu/ops/pallas/dia_kernels.py"
 SLAB_PY = "cask_tpu/ops/pallas/bdia_slab.py"
@@ -383,6 +390,7 @@ def _counters():
     from cask_tpu_torch.ops.kernels.bdia_slab_kernels import (bdia_spmm_slab,
                                                               bdia_spmm_slab_padded)
     from cask_tpu_torch.ops.kernels.bsr_kernels import bsr_spmm
+    from cask_tpu_torch.ops.kernels.cg_kernels import cg_update_p, cg_update_xr
     from cask_tpu_torch.ops.kernels.dia_kernels import dia_spmm, dia_spmv
     from cask_tpu_torch.ops.kernels.lell_kernels import lell_spmv
     from cask_tpu_torch.ops.kernels.poh_kernels import poh_spmm, poh_spmv
@@ -390,12 +398,24 @@ def _counters():
     return {"bdia_spmv": bdia_spmv, "dia_spmv": dia_spmv, "dia_spmm": dia_spmm,
             "bdia_spmm_slab": bdia_spmm_slab, "bdia_spmm_slab_padded": bdia_spmm_slab_padded,
             "bdia_spmm_ring": bdia_spmm_ring, "bsr_spmm": bsr_spmm, "poh_spmv": poh_spmv,
-            "poh_spmm": poh_spmm, "lell_spmv": lell_spmv}
+            "poh_spmm": poh_spmm, "lell_spmv": lell_spmv, "cg_update_xr": cg_update_xr,
+            "cg_update_p": cg_update_p}
 
 
 def _reset() -> None:
     for fn in _counters().values():
         fn.launches = 0
+
+
+def _cg_vector(want: int, what: str) -> int:
+    """The launches of each of CG's fused vector kernels since the last
+    reset, which must both be ``want``: one an iteration of an
+    unpreconditioned f32 or f64 ``cg``, none for any other solve."""
+    got = {k: _counters()[k].launches for k in CG_VECTOR}
+    if set(got.values()) != {want}:
+        raise AssertionError(f"{what}: CG's vector kernels launched {got} times (want {want} "
+                             f"each)")
+    return want
 
 
 def _launched(kernel: str, what: str) -> int:
@@ -1557,10 +1577,11 @@ def _counted_then_warm(solve, by_plan: _LaunchesByPlan | None = None):
 
 def _only(counts: dict, kernel: str, want, what: str) -> int:
     """The launches of ``kernel``, which must be ``want`` (``None``: any but
-    0), with no other kernel launched: every product of the solve went
-    through it."""
+    0), with no other product kernel launched: every product of the solve
+    went through it (CG's vector kernels, which run beside the products,
+    are :func:`_cg_vector`'s to count)."""
     got = counts[kernel]
-    others = {k: v for k, v in counts.items() if k != kernel and v}
+    others = {k: v for k, v in counts.items() if k != kernel and k not in CG_VECTOR and v}
     if (got != want if want is not None else not got) or others:
         raise AssertionError(f"{what}: {kernel} launched {got} times (want "
                              f"{'some' if want is None else want}), others {others}")
@@ -3217,6 +3238,7 @@ def bench_solve_phase(dev, card) -> None:
         torch.cuda.synchronize()
         counts = {c: fn.launches for c, fn in _counters().items()}
         n_l = _only(counts, "dia_spmv", want, f"[bench-solve] {rec} at k={k}")
+        _cg_vector(k if rec == "cg" else 0, f"[bench-solve] {rec} at k={k}")
         if res.iterations != k:
             raise AssertionError(f"[bench-solve] {rec} stopped after {res.iterations} of {k}")
         us = next(r["us_per_iteration"] for r in recs if r["solver"] == rec)
@@ -3266,6 +3288,7 @@ def profile_phase(dev, card, op, b) -> None:
                 res = cg(op, b, tol=0.0, maxiter=PROFILE_ITERS)
                 torch.cuda.synchronize()
             launches = _launched("bdia_spmv", "[profile] cg")
+            _cg_vector(res.iterations, "[profile] cg")
         files = glob.glob(os.path.join(d, "*.json"))
         if len(files) != 1:
             raise AssertionError(f"[profile] trace() wrote {files}")
@@ -3302,6 +3325,99 @@ def profile_phase(dev, card, op, b) -> None:
           f"{1 - busy / (hi - lo):.3f} (host clock of the profiler; its own cost per launch "
           f"included); card {card}", flush=True)
 
+
+
+def cg_vector_rows(dev, card, bw) -> list:
+    """[timing] rows of CG's fused vector kernels at each of
+    ``CG_VECTOR_LENGTHS``: one launch each, against the plain twins from the
+    same inputs (x, r and p bit for bit, r·r within the working type's
+    rounding), then timed beside their bounds (6 and 3 passes over a vector)
+    and, as the library, the same update in in-place PyTorch calls on the
+    0-d scalars: ``x.addcmul_(p, alpha)``, ``r.addcmul_(ap, alpha, value=-1)``
+    and ``torch.vdot(r, r)``; ``torch.addcmul(r, p, beta, out=p)``.  At
+    [cg]'s length the four f32 vectors (16.8 MB) sit in the 50 MB L2, so that
+    row may read above the HBM bound.  Returns the ``kernels`` entries."""
+    import numpy as np
+    import torch
+
+    from cask_tpu_torch.ops.kernels.cg_kernels import (cg_update_p, cg_update_p_reference,
+                                                       cg_update_xr, cg_update_xr_reference)
+    from cask_tpu_torch.tune.timing import time_cuda
+
+    entries = []
+    for n, ty, what in CG_VECTOR_LENGTHS:
+        dtype = torch.float32 if ty == "f32" else torch.float64
+        tol = F32_TOL if ty == "f32" else F64_TOL
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 24)
+        x, p, r, ap = (torch.randn(n, generator=gen, device=dev, dtype=dtype) for _ in range(4))
+        # alpha 1e-6 and beta 0.999: the vectors keep their size over the timed calls
+        rz, pap, rz2 = (torch.tensor(v, dtype=dtype, device=dev) for v in (1.0, 1.0e6, 0.999))
+        xk, rk, pk = x.clone(), r.clone(), p.clone()
+        _reset()
+        got = cg_update_xr(xk, p, rk, ap, rz, pap)
+        cg_update_p(pk, rk, got, rz)
+        torch.cuda.synchronize()
+        launches = _cg_vector(1, f"[timing] CG's vector kernels at {what}")
+        xt, rt, pt = x.clone(), r.clone(), p.clone()
+        want = cg_update_xr_reference(xt, p, rt, ap, rz, pap)
+        cg_update_p_reference(pt, rt, got, rz)
+        max_abs = max(float((u - v).abs().max()) for u, v in ((xk, xt), (rk, rt), (pk, pt)))
+        err_rz = abs(float(got) - float(want)) / float(want)
+        if max_abs != 0.0:
+            raise AssertionError(f"[timing] CG's vector kernels at {what}: x, r, p differ from "
+                                 f"the twins' by up to {max_abs:.3e} (want bit for bit)")
+        _check(f"[timing] cg_update_xr's r·r at {what} vs the twin's", err_rz, tol)
+        xl, rl, pl = x.clone(), r.clone(), p.clone()
+        a_l = rz / pap
+        xl.addcmul_(p, a_l)
+        rl.addcmul_(ap, a_l, value=-1)
+        torch.addcmul(rl, pl, torch.vdot(rl, rl) / rz, out=pl)
+        for u, v, k in ((xl, xk, "x"), (rl, rk, "r"), (pl, pk, "p")):
+            err = float((u.double() - v.double()).norm() / v.double().norm())  # on the card
+            _check(f"[timing] in-place PyTorch {k} at {what} vs the kernels", err, tol)
+        del xk, rk, pk, xt, rt, pt, xl, rl, pl
+
+        def xr_lib():
+            alpha = rz / pap
+            x.addcmul_(p, alpha)
+            r.addcmul_(ap, alpha, value=-1)
+            return torch.vdot(r, r)
+
+        def p_lib():
+            torch.addcmul(r, p, rz2 / rz, out=p)
+
+        vb = n * x.element_size()
+        for name, kernel, plain, library, passes in (
+                (f"cg_update_xr {ty} [{what}, {n} rows]",
+                 lambda: cg_update_xr(x, p, r, ap, rz, pap),
+                 lambda: cg_update_xr_reference(x, p, r, ap, rz, pap), xr_lib, 6),
+                (f"cg_update_p {ty} [{what}, {n} rows]", lambda: cg_update_p(p, r, rz2, rz),
+                 lambda: cg_update_p_reference(p, r, rz2, rz), p_lib, 3)):
+            fns = (plain, kernel, library, library, kernel, plain)
+            runs = [time_cuda(f, warmup=1, runs=3, reps=10) if f is plain
+                    else time_cuda(f, warmup=3, runs=20, reps=10) for f in fns]
+            ms = float(np.median(runs[1].samples_ms + runs[-2].samples_ms))
+            plain_ms = float(np.median(runs[0].samples_ms + runs[-1].samples_ms))
+            library_ms = float(np.median(runs[2].samples_ms + runs[3].samples_ms))
+            nbytes = passes * vb
+            bound_ms = nbytes / bw * 1e3
+            gbs = nbytes / (ms * 1e-3) / 1e9
+            print(f"[timing] {name}: kernel {ms * 1e3:.1f} us, plain twin {plain_ms * 1e3:.1f} "
+                  f"us, library (the same update in in-place PyTorch calls) "
+                  f"{library_ms * 1e3:.1f} us; {passes} passes, {nbytes / 1e6:.1f} MB moved -> "
+                  f"{gbs:.0f} GB/s, HBM fraction {gbs * 1e9 / bw:.3f} of {bw / 1e12:.2f} TB/s; "
+                  f"bound {bound_ms * 1e3:.1f} us (bytes); x, r, p equal the twins' bit for "
+                  f"bit, r·r {err_rz:.2e} from the twin's (tol {tol:.0e}); card {card}; median "
+                  f"of 2x20 samples of 10 calls, the twin 2x3 (CUDA events)", flush=True)
+            entries.append({"name": name, "route": "cuda",
+                            "source": "cask_tpu_torch/csrc/cg_vector.cu",
+                            "replaces": "no TPU kernel (XLA fuses the reference's updates)",
+                            "launches": launches, "max_abs_err": max_abs, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                            "library_ms": library_ms})
+        del x, p, r, ap
+    return entries
 
 
 def main() -> int:
@@ -3653,6 +3769,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_cg = time.perf_counter() - t0
     launches_cg = _launched("bdia_spmv", "cg over BdiaOperator")
+    fused_cg = _cg_vector(res.iterations, "cg over BdiaOperator")
     if not res.converged:
         raise AssertionError(f"cg did not converge: {res.iterations} iterations, "
                              f"residual {res.residual_norm:.3e}")
@@ -3673,7 +3790,7 @@ def main() -> int:
           f"{t_warm * 1e3:.2f} ms = {t_warm / max(warm.iterations, 1) * 1e6:.0f} us per "
           f"iteration (host clock, one host sync per iteration); true relative residual "
           f"{true_rel:.2e} (f64 host, tol 1e-5); system build {t_sys:.1f} s; "
-          f"launches {launches_cg}", flush=True)
+          f"launches {launches_cg}, cg_update_xr and cg_update_p {fused_cg} each", flush=True)
     cg32 = (res.iterations, t_warm / max(warm.iterations, 1) * 1e6)  # beside the bf16 run's
     y_op, y_op_twin = op(b), op.bdia._spmv_reference(b)  # counts were read above
     _check("1M operator kernel vs twin", _relerr(y_op, y_op_twin), F32_TOL)
@@ -3763,6 +3880,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_cg = time.perf_counter() - t0
     launches_dcg = _launched("dia_spmv", "cg over solver_operator")
+    fused_dcg = _cg_vector(res.iterations, "cg over solver_operator")
     if not res.converged:
         raise AssertionError(f"dia cg did not converge: {res.iterations} iterations, "
                              f"residual {res.residual_norm:.3e}")
@@ -3780,7 +3898,8 @@ def main() -> int:
           f"{t_cg * 1e3:.1f} ms, warm solve {t_warm * 1e3:.2f} ms = "
           f"{t_warm / max(warm.iterations, 1) * 1e6:.0f} us per iteration (host clock, one "
           f"host sync per iteration); true relative residual {true_rel:.2e} (f64 host, tol "
-          f"1e-5); system build {t_sys:.1f} s; launches {launches_dcg}", flush=True)
+          f"1e-5); system build {t_sys:.1f} s; launches {launches_dcg}, cg_update_xr and "
+          f"cg_update_p {fused_dcg} each", flush=True)
     dcg32 = (res.iterations, t_warm / max(warm.iterations, 1) * 1e6)  # beside the bf16 run's
     yd_op, yd_twin = dop(bs), dop.dia._spmv_reference(bs)
     _check("4M operator kernel vs twin", _relerr(yd_op, yd_twin), F32_TOL)
@@ -4140,6 +4259,7 @@ def main() -> int:
         res = ct.solvers.cg(op, op.to_padded(rhs), tol=1e-6, maxiter=maxiter)
         torch.cuda.synchronize()
         n = _launched(kernel, what)
+        fused = _cg_vector(res.iterations, what)
         if not res.converged or n != res.iterations + 1:
             raise AssertionError(f"{what}: converged {res.converged} in {res.iterations} "
                                  f"iterations, {n} launches")
@@ -4158,7 +4278,8 @@ def main() -> int:
         print(f"[{phase}] {what}, x and b f32: converged in {res.iterations} iterations (f32: "
               f"{f32_run[0]}), warm {us:.0f} us per iteration (f32: {f32_run[1]:.0f}; host "
               f"clock); true relative residual vs the rounded matrix {true_rel:.2e} (f64 host, "
-              f"tol 1e-5); launches {n} = iterations + 1", flush=True)
+              f"tol 1e-5); launches {n} = iterations + 1, cg_update_xr and cg_update_p "
+              f"{fused} each", flush=True)
         return n
 
     x64 = x.cpu().double().numpy()
@@ -4708,6 +4829,8 @@ def main() -> int:
                         "launches": launches, "max_abs_err": max_abs, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": library_ms})
+
+    entries += cg_vector_rows(dev, card, bw)
 
     # the slice's paths that are no kernel of their own, beside the one PyTorch
     # call that computes the same function where there is one
